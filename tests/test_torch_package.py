@@ -1,0 +1,90 @@
+"""The port stands alone: nothing in vamp_mvt_tpu_torch/ or chip_smoke.py
+imports `jax` or the JAX package, and the port's entry points refuse to run
+on the CPU unless asked to."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_BLOCKED_IMPORT = textwrap.dedent(
+    """
+    import importlib, pkgutil, sys
+
+    BLOCKED = ("jax", "jaxlib", "vamp_mvt_tpu")
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    sys.path.insert(0, ROOT)
+    import vamp_mvt_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(
+        vamp_mvt_tpu_torch.__path__, "vamp_mvt_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+    assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+    print(len(names))
+    """
+)
+
+
+def test_port_imports_without_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", f"ROOT = {str(ROOT)!r}\n" + _BLOCKED_IMPORT],
+        capture_output=True, text=True, timeout=120, cwd=ROOT,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 15
+
+
+def test_port_sources_name_no_jax():
+    files = list((ROOT / "vamp_mvt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        for line in f.read_text().splitlines():
+            code = line.split("#")[0].strip()
+            if code.startswith(("import ", "from ")):
+                mod = code.split()[1].split(".")[0]
+                assert mod not in ("jax", "jaxlib", "vamp_mvt_tpu"), f"{f}: {line}"
+
+
+def test_chip_smoke_fails_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")],
+        capture_output=True, text=True, timeout=120, cwd=ROOT,
+    )
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_entry_points_need_a_device():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from vamp_mvt_tpu_torch.collision import environment as envmod
+    from vamp_mvt_tpu_torch.ops import fkcc
+    from vamp_mvt_tpu_torch.planning import rrtc, simplify
+    from vamp_mvt_tpu_torch.robots import registry
+
+    spec = registry.sphere_spec()
+    envs = envmod.broadcast_environment(envmod.empty_environment(), 1)
+    q = torch.zeros((1, 3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fkcc.fkcc(spec, envmod.empty_environment(), q)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rrtc.plan_batch_compact(spec, envs, q, q[:, None], torch.ones((1, 1), dtype=torch.bool),
+                                rrtc.RRTCSettings())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simplify.simplify_batch_compact(spec, envs, torch.zeros((1, 4, 3)), torch.tensor([2]),
+                                        simplify.SimplifySettings())
+    assert bool(fkcc.fkcc(spec, envmod.empty_environment(), q, device="cpu").all())

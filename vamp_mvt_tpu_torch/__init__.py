@@ -1,0 +1,9 @@
+"""vamp_mvt_tpu_torch — the PyTorch / CUDA port of vamp_mvt_tpu.
+
+The module layout mirrors the JAX package (`robots`, `sampling`,
+`collision`, `ops`, `planning`, `bench`); the fused FK + collision check runs
+as a hand-written CUDA kernel for Hopper (`csrc/fkcc.cu`) and every kernel
+keeps a plain PyTorch version that the CPU uses.  Entry points run on the GPU
+unless the caller passes `device="cpu"`.  This package never imports `jax`
+or `vamp_mvt_tpu`.
+"""

@@ -1,0 +1,70 @@
+"""Where the suite runner's time goes on the GPU.
+
+    python -m vamp_mvt_tpu_torch.bench.profile_suite [--problems 700]
+
+Runs `run_suite("panda", planner="xla")` on the seeded sphere-cage suite once
+to warm up, then once under `torch.profiler`, and prints one JSON line: the
+wall time under the profiler, the device's busy time (the summed duration of
+every CUDA kernel and copy), its idle share, the fkcc kernel's device time and
+launches, and the kernels that took the most device time.  The profiler adds
+host overhead to every launch, so the wall time here is longer than an
+unprofiled run's; the device times are not affected.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from vamp_mvt_tpu_torch.bench import mbm
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--problems", type=int, default=700)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_suite needs a CUDA device")
+
+    data = mbm.cage_suite(args.problems, seed=args.seed)
+    mbm.run_suite("panda", data=data, batch_size=args.problems)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = mbm.run_suite("panda", data=data, batch_size=args.problems)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    per_name = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_name[e.name][0] += e.time_range.elapsed_us()
+            per_name[e.name][1] += 1
+    busy_us = sum(v[0] for v in per_name.values())
+    fkcc = [v for k, v in per_name.items() if "fkcc_kernel" in k]
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "problems": args.problems,
+        "solved": res.summary()["solved_problems"],
+        "wall_s_profiled": wall,
+        "device_busy_s": busy_us / 1e6,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "device_launches": sum(v[1] for v in per_name.values()),
+        "fkcc_device_s": sum(v[0] for v in fkcc) / 1e6,
+        "fkcc_launches": sum(v[1] for v in fkcc),
+        "top_kernels": [
+            {"name": k[:80], "device_s": v[0] / 1e6, "launches": v[1]} for k, v in top
+        ],
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,69 @@
+"""State carried across from the JAX package: robot specs and environments.
+
+The JAX package has no weights; its state is the robot spec and the
+environment arrays.  These helpers take them as numpy arrays and Python
+scalars (what `np.asarray` gives for each JAX leaf) and return the port's
+objects, so both packages can be fed the same inputs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vamp_mvt_tpu_torch.collision.environment import TABLES, Environment, check_live_prefix
+from vamp_mvt_tpu_torch.robots.spec import Frame, RobotSpec
+
+def _field(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def spec_from_numpy(d: dict) -> RobotSpec:
+    """A RobotSpec from the fields of one: numpy arrays and Python scalars;
+    `frames` is a sequence of mappings or objects with Frame's fields."""
+    frames = tuple(
+        Frame(
+            name=str(_field(f, "name")),
+            parent=int(_field(f, "parent")),
+            joint_type=int(_field(f, "joint_type")),
+            q_index=int(_field(f, "q_index")),
+            origin_rot=np.asarray(_field(f, "origin_rot"), np.float64).reshape(3, 3),
+            origin_xyz=np.asarray(_field(f, "origin_xyz"), np.float64),
+            axis=np.asarray(_field(f, "axis"), np.float64),
+        )
+        for f in d["frames"]
+    )
+    n_spheres = len(d["sphere_radius"])
+    acs = d.get("attachment_check_spheres")
+    return RobotSpec(
+        name=str(d["name"]),
+        dimension=int(d["dimension"]),
+        resolution=int(d["resolution"]),
+        frames=frames,
+        sphere_frame=np.asarray(d["sphere_frame"], np.int32),
+        sphere_local=np.asarray(d["sphere_local"], np.float32).reshape(-1, 3),
+        sphere_radius=np.asarray(d["sphere_radius"], np.float32),
+        limits_low=np.asarray(d["limits_low"], np.float32),
+        limits_high=np.asarray(d["limits_high"], np.float32),
+        self_collision_pairs=np.asarray(d["self_collision_pairs"], np.int32).reshape(-1, 2),
+        attachment_check_spheres=np.asarray(
+            np.arange(n_spheres) if acs is None else acs, np.int32
+        ),
+        joint_names=tuple(d.get("joint_names", ())),
+        end_effector=str(d.get("end_effector", "")),
+        ee_frame=int(d.get("ee_frame", -1)),
+    )
+
+
+def environment_from_numpy(leaves: dict[str, np.ndarray], device) -> Environment:
+    """The port's Environment from the JAX package's leaves (`spheres`,
+    `capsules`, `z_capsules`, `cuboids`, `z_cuboids`, `hf_meta`, `hf_data`),
+    with any leading batch dims, on `device`."""
+    for name in TABLES:
+        check_live_prefix(name, leaves[name])
+    return Environment(
+        *(
+            torch.as_tensor(np.array(leaves[name], np.float32), device=device)
+            for name in Environment._fields
+        )
+    )

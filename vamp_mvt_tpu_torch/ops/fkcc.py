@@ -1,0 +1,111 @@
+"""Fused forward kinematics + collision checking (the reference's `fkcc`).
+
+Port of `vamp_mvt_tpu/ops/fkcc.py`, plain PyTorch:
+
+  fkcc(spec, env, q (..., d)) -> valid (...) bool   (True = collision-free)
+  fkcc_vmin(spec, env, q)     -> (...) float32, the minimum signed value over
+                                 every check; valid iff vmin >= 0
+
+Self-collision is an elementwise float32 test over the robot's exact pair
+table.  No `torch.cdist` and no matrix-product form: cdist switches to a
+matmul expansion on large inputs, and that rounding flips borderline contacts.
+
+`fkcc` dispatches through `ops/kernels/fkcc_cuda.py`: a CUDA tensor goes to
+the hand-written kernel, a CPU tensor to the plain version below.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vamp_mvt_tpu_torch.collision import primitives
+from vamp_mvt_tpu_torch.collision.environment import Environment
+from vamp_mvt_tpu_torch.device import resolve_device
+from vamp_mvt_tpu_torch.ops.fk import sphere_positions
+from vamp_mvt_tpu_torch.robots.spec import RobotSpec
+
+_PRIMITIVES = (
+    ("spheres", primitives.sphere_sphere),
+    ("capsules", primitives.sphere_capsule),
+    ("z_capsules", primitives.sphere_z_capsule),
+    ("cuboids", primitives.sphere_cuboid),
+    ("z_cuboids", primitives.sphere_z_cuboid),
+)
+
+
+def check_supported(env: Environment) -> None:
+    if env.hf_meta.shape[-2]:
+        raise NotImplementedError(
+            "heightfields are not ported yet (ROADMAP queue 1, item 12)"
+        )
+
+
+def pair_thresholds(spec: RobotSpec) -> np.ndarray:
+    """(P,) float32 (r_i + r_j)^2 per checked self-collision pair."""
+    r = spec.sphere_radius
+    return np.asarray(
+        [(r[i] + r[j]) ** 2 for i, j in spec.self_collision_pairs], np.float32
+    ).reshape(-1)
+
+
+def self_vmin(spec: RobotSpec, centers: torch.Tensor) -> torch.Tensor:
+    """centers (..., S, 3) -> (...) min over checked pairs of d^2 - (ri+rj)^2."""
+    pairs = spec.self_collision_pairs
+    if not len(pairs):
+        return torch.full(centers.shape[:-2], float("inf"), device=centers.device)
+    i = torch.as_tensor(pairs[:, 0], dtype=torch.long, device=centers.device)
+    j = torch.as_tensor(pairs[:, 1], dtype=torch.long, device=centers.device)
+    thr = torch.as_tensor(pair_thresholds(spec), device=centers.device)
+    # (S, 3, ...) layout: each pair gathers whole contiguous rows
+    c = centers.movedim((-2, -1), (0, 1)).contiguous()
+    d = torch.index_select(c, 0, i) - torch.index_select(c, 0, j)   # (P, 3, ...)
+    d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    thr = thr.reshape((-1,) + (1,) * (d2.dim() - 1))
+    return torch.amin(d2 - thr, dim=0)
+
+
+def env_vmin(env: Environment, centers: torch.Tensor, radii: torch.Tensor) -> torch.Tensor:
+    """centers (..., S, 3), radii (S,) -> (...) min signed value over every
+    robot sphere against every shape row.  The environment's tables carry the
+    same leading dims as the centers' batch, or broadcast against them."""
+    check_supported(env)
+    out = torch.full(centers.shape[:-2], float("inf"), device=centers.device)
+    for name, fn in _PRIMITIVES:
+        rows = getattr(env, name)
+        if rows.shape[-2]:
+            out = torch.minimum(out, torch.amin(fn(rows, centers, radii), dim=(-2, -1)))
+    return out
+
+
+def self_collision(spec: RobotSpec, centers: torch.Tensor) -> torch.Tensor:
+    """centers (..., S, 3) -> (...) bool, True = some checked pair collides."""
+    return self_vmin(spec, centers) < 0.0
+
+
+def env_collision(env: Environment, centers: torch.Tensor, radii: torch.Tensor) -> torch.Tensor:
+    """centers (..., S, 3), radii (S,) -> (...) bool, True = env collision."""
+    return env_vmin(env, centers, radii) < 0.0
+
+
+def fkcc_vmin(spec: RobotSpec, env: Environment, q: torch.Tensor) -> torch.Tensor:
+    """(..., d) -> (...) minimum signed value; valid iff >= 0.
+
+    Environment tables need one more (broadcast) dim than the result's batch:
+    for q (B, N, d) pass tables shaped (B, 1, n, f)."""
+    centers = sphere_positions(spec, q)
+    radii = torch.as_tensor(spec.sphere_radius, device=q.device)
+    return torch.minimum(env_vmin(env, centers, radii), self_vmin(spec, centers))
+
+
+def fkcc(spec: RobotSpec, env: Environment, q: torch.Tensor, device=None) -> torch.Tensor:
+    """(..., d) configurations, one environment -> (...) bool validity.
+
+    Runs on `device` (default: the GPU, through the CUDA kernel)."""
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
+
+    dev = resolve_device(device)
+    batch = q.shape[:-1]
+    q = q.to(dev).reshape(1, -1, spec.dimension)
+    envs = env.to(dev).map(lambda t: t.unsqueeze(0))
+    return fkcc_cuda.fkcc_batched(spec, envs, q).reshape(batch)
