@@ -6,19 +6,43 @@
 Phases, each printed as one JSON line (no failure is caught: a failed check
 or an exception exits non-zero):
 
-  card    nvidia-smi's name and power limit, torch and CUDA versions
-  build   the fused FK + collision kernel (csrc/fkcc.cu) built with nvcc
-          into build/ (or loaded from there), and what ptxas reported
-  kernel  700 seeded MBM-shaped Panda scenes (every primitive table) x 1024
-          seeded configurations: the CUDA kernel against its plain PyTorch
-          version on the card (validity may differ only where the plain
-          minimum signed value is within 1e-5 of contact), with the kernel's
-          time, the plain version's time and the bound of the card
-  suite   the port's main path: run_suite("panda", planner="xla") on 700
-          seeded sphere-cage problems (VAMP's sphere_cage_example with every
-          sphere moved by up to 0.01): all must be valid and solved, every
-          simplified path must revalidate on the card, and the run must have
-          gone through the kernel (its launch count > 0)
+  card           nvidia-smi's name and power limit, torch and CUDA versions
+  build          the three kernels (csrc/fkcc.cu, csrc/rrtc_mega.cu,
+                 csrc/simplify_mega.cu) built with nvcc into build/, one nvcc
+                 each, all at once (or loaded from there), and what ptxas
+                 reported for each
+  kernel         700 seeded MBM-shaped Panda scenes (every primitive table) x
+                 1024 seeded configurations: the fkcc kernel against its plain
+                 PyTorch version on the card (validity may differ only where
+                 the plain minimum signed value is within 1e-5 of contact),
+                 with the kernel's time, the plain version's time and the
+                 bound of the card
+  suite          run_suite("panda", planner="xla") on 700 seeded sphere-cage
+                 problems (VAMP's sphere_cage_example with every sphere moved
+                 by up to 0.01): all valid and solved, every simplified path
+                 revalidated on the card, the fkcc kernel launched
+  rrtc_mega      the planner megakernel against its plain version (the
+                 lockstep planner): exactly on the sphere-robot wall problem
+                 at (K, C, W) = (1, 1, 1) and (4, 2, 2), with a runtime
+                 budget and the retry's start-replaced goals; then on the 700
+                 cages at run_suite's mega settings (at least MIN_SHARE of
+                 the results identical), times, work counters and the bound
+  simplify_mega  the simplify megakernel against its plain version on the
+                 plain planner's 700 cage paths: shares with equal path
+                 length and with cost within rtol 1e-5 (each at least
+                 MIN_SHARE), times and the bound
+  suite_mega     the port's main path, run_suite("panda", planner="mega"), on
+                 the 700 cages (valid = solved = 700, every simplified path
+                 revalidated, both megakernels launched, median simplified
+                 cost within 1% of the plain versions' at the same settings),
+                 then on the 700 MBM-shaped scenes with starts and goals drawn
+                 from configurations the fkcc kernel found valid (every solved
+                 path revalidated)
+  rrtc_mega_mbm_shaped
+                 the planner megakernel against its plain version on the
+                 first MBM_CHECK of those scenes (capsule and cuboid tables),
+                 at the budget and as run_suite's 32x retry: at least
+                 MIN_SHARE of the results identical at each
 
 then the kernels line and, last, {"ok": true, "device": {...}}.  The script
 imports nothing of JAX or of the JAX package.  Without a GPU it exits 1.
@@ -33,7 +57,20 @@ import time
 KERNEL_PROBLEMS = 700
 KERNEL_CONFIGS = 1024
 SUITE_PROBLEMS = 700
+MEGA_PROBLEMS = 700
 CONTACT_BAND = 1e-5
+# the megakernels hold these against their plain versions
+PLAN_RTOL = 1e-6
+SIMPLIFY_RTOL = 1e-5
+# The wall problem must match exactly.  At Panda width the plain nearest-
+# neighbour dot is a cuBLAS matmul (its own summation order, with FMA) where
+# the kernel sums in index order without FMA: a 1-ulp difference can flip a
+# near-tie, and from there the two trees differ.  The simplifiers may part
+# where a checked point lies within CONTACT_BAND of contact.  So on the cages
+# and the MBM-shaped scenes the share of identical results must reach
+# MIN_SHARE.
+MIN_SHARE = 0.95
+MBM_CHECK = 64  # MBM-shaped scenes the planner is compared on
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -86,6 +123,80 @@ def mbm_shaped_problems(n: int, seed: int) -> list[dict]:
     return problems
 
 
+def wall_problem(dev, B: int = 3):
+    """The sphere-robot wall problem of tests/test_mega.py: a wall of spheres
+    with a gap, B problems whose goals differ by 0.05 each."""
+    import numpy as np
+    import torch
+
+    from vamp_mvt_tpu_torch.collision import environment as envmod
+    from vamp_mvt_tpu_torch.robots import registry
+
+    b = envmod.EnvironmentBuilder()
+    for y in np.linspace(-3, 3, 13):
+        for z in np.linspace(0, 3, 7):
+            if not (y > 2.0 and z > 2.0):
+                b.add_sphere([0.0, y, z], 0.3)
+    envs = envmod.broadcast_environment(b.build(device=dev), B)
+    starts = torch.tensor([[-2.0, 0.0, 1.0]] * B, device=dev)
+    goals = (torch.tensor([[[2.0, 0.0, 1.0]]] * B, device=dev)
+             + torch.arange(B, device=dev)[:, None, None] * 0.05)
+    masks = torch.ones((B, 1), dtype=torch.bool, device=dev)
+    spec = registry.sphere_spec(lows=(-3, -3, 0), highs=(3, 3, 3), radius=0.1)
+    return spec, envs, starts, goals, masks
+
+
+def same_plan(a, b):
+    """(B,) bool: planner results equal in solved flags, iterations, tree
+    sizes and path lengths, costs within PLAN_RTOL, paths within 1e-6."""
+    import torch
+
+    eq = torch.ones_like(a.solved)
+    for f in ("solved", "iterations", "size_start", "size_goal", "path_length"):
+        eq &= getattr(a, f) == getattr(b, f)
+    finite = torch.isfinite(b.cost)
+    eq &= torch.where(finite, (a.cost - b.cost).abs() <= PLAN_RTOL * b.cost.abs(),
+                      a.cost == b.cost)
+    k = torch.arange(a.path.shape[1], device=a.path.device)
+    close = ((a.path - b.path).abs().amax(-1) <= 1e-6) | (k[None] >= b.path_length[:, None])
+    return eq & close.all(1)
+
+
+def paths_revalidate(spec, envs, paths, lengths):
+    """(B,) bool: every segment of each path is collision-free on the card."""
+    import numpy as np
+    import torch
+
+    from vamp_mvt_tpu_torch.planning import validate
+
+    paths = torch.as_tensor(paths, device=envs.spheres.device)
+    lengths = torch.as_tensor(lengths, device=paths.device)
+    num = validate.n_points_bound(spec, float(np.linalg.norm(spec.limits_high - spec.limits_low)))
+    ok = validate.validate_motion_batch(spec, envs, paths[:, :-1], paths[:, 1:], num)
+    k = torch.arange(1, paths.shape[1], device=paths.device)
+    return (ok | (k[None] >= lengths[:, None])).all(1)
+
+
+def bound(ops: int, n_bytes: int) -> dict:
+    """The card's least time for `ops` FP32 operations moving `n_bytes`."""
+    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return {"fp32_ops": int(ops), "bytes": int(n_bytes), "ops_bound_ms": ops_ms,
+            "bytes_bound_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def median(t) -> float:
+    """numpy's median (the mean of the middle two), as summary() takes it."""
+    import numpy as np
+
+    return float(np.median(t.cpu().numpy()))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def time_cuda(fn, warmup: int, reps: int) -> float:
     """Median milliseconds of `fn` over `reps` CUDA-event-timed calls."""
     import numpy as np
@@ -134,12 +245,16 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     # --- build -------------------------------------------------------------
-    fkcc_cuda.library()
-    info = fkcc_cuda.BUILD_INFO
-    emit({"phase": "build", "seconds": info["seconds"], "cached": info["cached"],
-          "library": os.path.relpath(info["path"]),
-          "ptxas": [l.strip() for l in info["log"].splitlines()
-                    if "registers" in l or "spill" in l]})
+    from vamp_mvt_tpu_torch.ops.kernels import build, rrtc_mega_cuda, simplify_mega_cuda
+
+    t0 = time.perf_counter()
+    for lib in (fkcc_cuda, rrtc_mega_cuda, simplify_mega_cuda):
+        lib.library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": {
+        name: {"cached": info["cached"], "seconds": info["seconds"],
+               "library": os.path.relpath(info["path"]), "ptxas": build.ptxas_lines(name)}
+        for name, info in sorted(build.BUILD_INFO.items())}})
+    check({"fkcc", "rrtc_mega", "simplify_mega"} <= set(build.BUILD_INFO), "every kernel built")
 
     # --- kernel vs plain ---------------------------------------------------
     spec = registry.load("panda")
@@ -202,13 +317,8 @@ def main() -> int:
 
     summary = res.summary()
     cage_envs = mbm.build_batch(data["problems"]["cage"], device=dev)[0]
-    paths = torch.as_tensor(res.simplified.path, device=dev)
-    lengths = torch.as_tensor(res.simplified.path_length, device=dev)
-    num = validate.n_points_bound(spec, float(np.linalg.norm(spec.limits_high - spec.limits_low)))
-    seg_ok = validate.validate_motion_batch(spec, cage_envs, paths[:, :-1], paths[:, 1:], num)
-    k = torch.arange(1, paths.shape[1], device=dev)
-    seg_ok = seg_ok | (k[None] >= lengths[:, None])
-    paths_ok = int(seg_ok.all(1).sum())
+    paths_ok = int(paths_revalidate(spec, cage_envs, res.simplified.path,
+                                    res.simplified.path_length).sum())
     emit({"phase": "suite", "problems": SUITE_PROBLEMS, "wall_s": wall, "summary": summary,
           "timings": timings, "fkcc_launches": launches,
           "simplified_paths_revalidated": paths_ok})
@@ -219,15 +329,227 @@ def main() -> int:
     check(paths_ok == SUITE_PROBLEMS, "every simplified path revalidates")
     check(np.isfinite(res.simplified.cost).all(), "finite simplified costs")
 
-    emit({"kernels": [{
-        "name": "fkcc", "route": "cuda", "source": "vamp_mvt_tpu_torch/csrc/fkcc.cu",
-        "replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
-        "replaces_function": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py::_run",
-        "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": kernel["bound_ms"],
-        "bound_by": kernel["bound_by"], "library_ms": None,
-        "checked_against_plain": True,
-    }]})
+    # --- rrtc_mega: the planner megakernel against its plain version ------
+    import dataclasses
+
+    from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega, simplify, simplify_mega
+
+    spec_w, envs_w, st_w, gl_w, mk_w = wall_problem(dev)
+    offs = torch.arange(3, device=dev, dtype=torch.int32) * 100
+    wall, rrtc_err = {}, 0.0
+    for kcw in ((1, 1, 1), (4, 2, 2)):
+        s_w = rrtc.RRTCSettings(range=1.0, max_iterations=384, max_samples=512, max_path=64,
+                                samples_per_step=kcw[0], connect_segments=kcw[1],
+                                sample_window=kcw[2])
+        g = gl_w
+        for budget in (384, 260, 32 * 260):  # the last two: run_suite's retry
+            got = rrtc_mega.plan_batch_mega(spec_w, envs_w, st_w, g, mk_w, s_w, offs,
+                                            budget=budget, device=dev)
+            ref = rrtc.plan_batch(spec_w, envs_w, st_w, g, mk_w,
+                                  dataclasses.replace(s_w, max_iterations=budget), offs)
+            torch.cuda.synchronize()
+            same = same_plan(got, ref)
+            wall[f"{kcw}@{budget}"] = {"identical": int(same.sum()),
+                                       "solved": int(got.solved.sum())}
+            k = torch.arange(64, device=dev)
+            live = (k[None] < ref.path_length[:, None])[..., None]
+            rrtc_err = max(rrtc_err, float(torch.where(live, (got.path - ref.path).abs(), 0).max()))
+            check(bool(same.all()), f"rrtc_mega equals plain on the wall problem, {kcw}@{budget}")
+            if budget == 260:
+                g = torch.where(got.solved[:, None, None], st_w[:, None], gl_w)
+
+    cages = mbm.cage_suite(MEGA_PROBLEMS, seed=0)
+    c_envs, c_st, c_gl, c_mk = mbm.build_batch(cages["problems"]["cage"], device=dev)
+    c_live = {n: (getattr(c_envs, n)[..., 0].abs() < LIVE_LIMIT).sum(-1).cpu().numpy()
+              for n in TABLES}
+    c_ops = fkcc_cuda.ops_per_config(spec, c_live)
+    mega_s = mbm.default_settings("panda", "mega")
+    kres = rrtc_mega.plan_batch_mega(spec, c_envs, c_st, c_gl, c_mk, mega_s, device=dev)
+    pres = rrtc.plan_batch_compact(spec, c_envs, c_st, c_gl, c_mk, mega_s, device=dev)
+    torch.cuda.synchronize()
+    same = same_plan(kres, pres)
+    # the wrapper on the entry point's inputs, for the work counters
+    ctl, nodes0, _, _ = rrtc_mega.mega_inputs(spec, c_envs, c_st, c_gl, c_mk, mega_s)
+    _, r_scal, r_work = rrtc_mega_cuda.plan(spec, c_envs, ctl, nodes0, mega_s)
+    work = {k: v.cpu().numpy().astype(np.int64) for k, v in (
+        ("configs", r_work[:, 0]), ("pairs", r_work[:, 1]), ("nodes", r_scal[:, 6]),
+        ("grow_steps", r_scal[:, 9]), ("connect_steps", r_scal[:, 10]))}
+    rrtc_ms = time_cuda(lambda: rrtc_mega_cuda.plan(spec, c_envs, ctl, nodes0, mega_s), 1, 3)
+    occupancy = dict(rrtc_mega_cuda.LAST_LAUNCH)
+    entry_ms = time_cuda(lambda: rrtc_mega.plan_batch_mega(spec, c_envs, c_st, c_gl, c_mk,
+                                                           mega_s, device=dev), 0, 1)
+    rrtc_plain_ms = time_cuda(lambda: rrtc.plan_batch_compact(spec, c_envs, c_st, c_gl, c_mk,
+                                                              mega_s, device=dev), 0, 1)
+    d = spec.dimension
+    r_bound = bound(
+        int(np.sum(work["configs"] * c_ops)) + int(np.sum(work["pairs"])) * rrtc_mega_cuda.ops_per_pair(d),
+        nbytes(ctl, nodes0, *(getattr(c_envs, n) for n in TABLES))
+        + int(np.sum(work["nodes"])) * (d + 4) * 4            # each node row written once
+        + MEGA_PROBLEMS * (mega_s.max_path * d + rrtc_mega_cuda.SCALARS + 2 * rrtc_mega_cuda.WORK) * 4)
+    iters = kres.iterations.cpu().numpy()
+    emit({"phase": "rrtc_mega", "wall_problem": wall, "problems": MEGA_PROBLEMS,
+          "settings": dataclasses.asdict(mega_s),
+          "identical_share": float(same.float().mean()),
+          "solved": {"kernel": int(kres.solved.sum()), "plain": int(pres.solved.sum())},
+          "median_cost": {"kernel": median(kres.cost[kres.solved]),
+                          "plain": median(pres.cost[pres.solved])},
+          "ms": rrtc_ms, "entry_ms": entry_ms, "plain_ms": rrtc_plain_ms,
+          "work": {k: int(v.sum()) for k, v in work.items()},
+          "iterations": {q: float(np.percentile(iters, p)) for q, p in
+                         (("min", 0), ("p50", 50), ("p90", 90), ("p99", 99), ("max", 100))},
+          "grow_steps_max": int(work["grow_steps"].max()),
+          "occupancy": occupancy, "max_abs_err": rrtc_err, **r_bound, "library_ms": None})
+    check(int(kres.solved.sum()) == MEGA_PROBLEMS, "the planner megakernel solves every cage")
+    check(float(same.float().mean()) >= MIN_SHARE, "rrtc_mega equals plain on the cages")
+
+    # --- simplify_mega: the simplify megakernel against its plain version --
+    ss = simplify.SimplifySettings(pair_chunk=64)
+    wp = rrtc.plan_batch(spec_w, envs_w, st_w, gl_w, mk_w, rrtc.RRTCSettings(
+        range=1.0, max_iterations=1024, max_samples=512, max_path=64, samples_per_step=4,
+        connect_segments=2, sample_window=2))
+    kw_ = simplify_mega.simplify_batch_mega(spec_w, envs_w, wp.path, wp.path_length, ss,
+                                            device=dev)
+    pw_ = simplify_mega.simplify_batch_plain(spec_w, envs_w, wp.path, wp.path_length, ss)
+    torch.cuda.synchronize()
+    simp_err = float((kw_.path - pw_.path).abs().max())
+    check(torch.equal(kw_.path_length, pw_.path_length)
+          and torch.equal(kw_.iterations, pw_.iterations)
+          and bool(((kw_.cost - pw_.cost).abs() <= SIMPLIFY_RTOL * pw_.cost.abs()).all())
+          and simp_err <= 1e-5, "simplify_mega equals plain on the wall problem")
+
+    ksimp = simplify_mega.simplify_batch_mega(spec, c_envs, pres.path, pres.path_length, ss,
+                                              device=dev)
+    psimp = simplify_mega.simplify_batch_plain(spec, c_envs, pres.path, pres.path_length, ss)
+    torch.cuda.synchronize()
+    eq_len = ksimp.path_length == psimp.path_length
+    eq_cost = (ksimp.cost - psimp.cost).abs() <= SIMPLIFY_RTOL * psimp.cost.abs()
+    # the wrapper on the entry point's inputs, for the work counter
+    sp_in, sl_in = pres.path.contiguous(), pres.path_length.to(torch.int32)
+    s_configs = simplify_mega_cuda.simplify(spec, c_envs, sp_in, sl_in, ss)[2]
+    s_configs = s_configs.cpu().numpy().astype(np.int64)
+    simp_ms = time_cuda(lambda: simplify_mega_cuda.simplify(spec, c_envs, sp_in, sl_in, ss), 1, 3)
+    s_occupancy = dict(simplify_mega_cuda.LAST_LAUNCH)
+    simp_plain_ms = time_cuda(lambda: simplify_mega.simplify_batch_plain(
+        spec, c_envs, pres.path, pres.path_length, ss), 0, 1)
+    s_bound = bound(int(np.sum(s_configs * c_ops)),
+                    2 * nbytes(sp_in) + nbytes(sl_in, *(getattr(c_envs, n) for n in TABLES))
+                    + MEGA_PROBLEMS * (2 * 4 + 8))
+    plain_pipeline_cost = median(psimp.cost[pres.solved])
+    emit({"phase": "simplify_mega", "wall_problem": {"path_length": kw_.path_length.tolist(),
+                                                     "max_abs_err": simp_err},
+          "problems": MEGA_PROBLEMS, "equal_length_share": float(eq_len.float().mean()),
+          "cost_rtol_share": float(eq_cost.float().mean()), "rtol": SIMPLIFY_RTOL,
+          "median_cost": {"kernel": median(ksimp.cost[pres.solved]),
+                          "plain": plain_pipeline_cost},
+          "ms": simp_ms, "plain_ms": simp_plain_ms,
+          "configs": int(s_configs.sum()), "occupancy": s_occupancy, **s_bound,
+          "library_ms": None})
+    check(float(eq_len.float().mean()) >= MIN_SHARE
+          and float(eq_cost.float().mean()) >= MIN_SHARE, "simplify_mega equals plain on the cages")
+
+    # --- suite_mega: the port's main path ---------------------------------
+    kernels = {"fkcc": fkcc_cuda, "rrtc_mega": rrtc_mega_cuda, "simplify_mega": simplify_mega_cuda}
+    for lib in kernels.values():
+        lib.LAUNCHES = 0
+    mt = {}
+    t0 = time.perf_counter()
+    mres = mbm.run_suite("panda", data=cages, planner="mega", timings=mt)
+    torch.cuda.synchronize()
+    mwall = time.perf_counter() - t0
+    mega_launches = {n: lib.LAUNCHES for n, lib in kernels.items()}
+    msum = mres.summary()
+    m_ok = int(paths_revalidate(spec, c_envs, mres.simplified.path,
+                                mres.simplified.path_length).sum())
+    cost_ratio = msum["median_simplified_cost"] / plain_pipeline_cost
+    emit({"phase": "suite_mega", "problems": MEGA_PROBLEMS, "wall_s": mwall, "summary": msum,
+          "timings": mt, "launches": mega_launches, "simplified_paths_revalidated": m_ok,
+          "median_simplified_cost_vs_plain": cost_ratio})
+    print(mres.percentile_table(), flush=True)
+    check(all(v > 0 for v in mega_launches.values()), "the main path launched every kernel")
+    check(msum["valid_problems"] == msum["solved_problems"] == MEGA_PROBLEMS,
+          "every cage valid and solved on the mega path")
+    check(m_ok == MEGA_PROBLEMS, "every simplified path of the mega path revalidates")
+    check(abs(cost_ratio - 1.0) <= 0.01, "median simplified cost within 1% of the plain versions'")
+
+    # the kernel phase's MBM-shaped scenes, starts and goals drawn from the
+    # configurations the fkcc kernel found valid
+    ok_cfg = (vk >= 0).cpu().numpy()
+    q_np = q.cpu().numpy()
+    # (about a tenth of the scenes put an obstacle over the robot's base, so
+    # that no configuration is valid there: those scenes hold no problem)
+    rows = [i for i in range(len(problems)) if ok_cfg[i].sum() >= 2]
+    check(len(rows) >= 0.8 * len(problems), "two valid configurations in most scenes")
+    problems = [problems[i] for i in rows]
+    for i, p in zip(rows, problems):
+        idx = np.flatnonzero(ok_cfg[i])
+        p["start"], p["goals"] = q_np[i, idx[0]].tolist(), [q_np[i, idx[1]].tolist()]
+    for lib in kernels.values():
+        lib.LAUNCHES = 0
+    st_ = {}
+    t0 = time.perf_counter()
+    sres = mbm.run_suite("panda", data={"problems": {"mbm_shaped": problems}}, planner="mega",
+                         timings=st_)
+    torch.cuda.synchronize()
+    swall = time.perf_counter() - t0
+    s_launches = {n: lib.LAUNCHES for n, lib in kernels.items()}
+    ssum = sres.summary()
+    solved = np.asarray(sres.plan.solved) & sres.valid
+    s_ok = paths_revalidate(spec, envs.map(lambda t: t[rows]), sres.simplified.path,
+                            sres.simplified.path_length).cpu().numpy()
+    emit({"phase": "suite_mega_mbm_shaped", "problems": len(problems), "wall_s": swall,
+          "summary": ssum, "timings": st_, "launches": s_launches,
+          "solved_paths_revalidated": int((s_ok & solved).sum())})
+    check(bool(s_ok[solved].all()), "every solved MBM-shaped path revalidates")
+
+    # the planner megakernel against its plain version on the first
+    # MBM_CHECK of these scenes (capsule and cuboid tables): at the budget,
+    # then as run_suite's retry (32x the budget, the solved rows' goals
+    # replaced by their starts), where the share is over the retried rows
+    b_envs, b_st, b_gl, b_mk = mbm.build_batch(problems[:MBM_CHECK], device=dev)
+    mbm_check, g, retried = {}, b_gl, torch.ones(len(b_st), dtype=torch.bool, device=dev)
+    for budget in (mega_s.max_iterations, 32 * mega_s.max_iterations):
+        check(bool(retried.any()), f"MBM-shaped problems to compare at budget {budget}")
+        t0 = time.perf_counter()
+        got = rrtc_mega.plan_batch_mega(spec, b_envs, b_st, g, b_mk, mega_s, budget=budget,
+                                        device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = rrtc.plan_batch_compact(spec, b_envs, b_st, g, b_mk,
+                                      dataclasses.replace(mega_s, max_iterations=budget),
+                                      device=dev)
+        torch.cuda.synchronize()
+        same_b = same_plan(got, ref)[retried]
+        mbm_check[str(budget)] = {
+            "problems": int(retried.sum()), "identical": int(same_b.sum()),
+            "solved": {"kernel": int(got.solved[retried].sum()),
+                       "plain": int(ref.solved[retried].sum())},
+            "kernel_s": t1 - t0, "plain_s": time.perf_counter() - t1}
+        check(float(same_b.float().mean()) >= MIN_SHARE,
+              f"rrtc_mega equals plain on the MBM-shaped scenes at budget {budget}")
+        retried = ~got.solved
+        g = torch.where(retried[:, None, None], b_gl, b_st[:, None])
+    emit({"phase": "rrtc_mega_mbm_shaped", "settings": "run_suite's mega settings",
+          "min_share": MIN_SHARE, "by_budget": mbm_check})
+
+    def row(name, ms, plain, b, err, launches):
+        return {"name": name, "route": "cuda", "source": f"vamp_mvt_tpu_torch/csrc/{name}.cu",
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
+                "checked_against_plain": True}
+
+    emit({"kernels": [
+        row("fkcc", kernel_ms, plain_ms, kernel, max_abs_err, mega_launches["fkcc"])
+        | {"replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
+           "replaces_function": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py::_run",
+           "launches_xla_suite": launches},
+        row("rrtc_mega", rrtc_ms, rrtc_plain_ms, r_bound, rrtc_err, mega_launches["rrtc_mega"])
+        | {"replaces": "vamp_mvt_tpu/planning/rrtc_mega.py:943",
+           "replaces_function": "vamp_mvt_tpu/planning/rrtc_mega.py::_run_mega"},
+        row("simplify_mega", simp_ms, simp_plain_ms, s_bound, simp_err,
+            mega_launches["simplify_mega"])
+        | {"replaces": "vamp_mvt_tpu/planning/simplify_mega.py:377",
+           "replaces_function": "vamp_mvt_tpu/planning/simplify_mega.py::_run"},
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version, on an NVIDIA GPU.
+"""The CUDA kernels against their plain PyTorch versions, on an NVIDIA GPU.
 
 Every test here is marked `gpu` and skips without a card: a CUDA kernel has
 no CPU mode.  The file imports neither JAX nor the JAX package, so it also
@@ -6,11 +6,16 @@ runs on a machine without them:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Validity may differ between the kernel and the plain version only where the
-plain minimum signed value lies within 1e-5 of contact (float32 rounding of
-FK: the kernel reads constants as float32 where the plain version folds them
-in float64).
+Validity may differ between the fkcc kernel and the plain version only where
+the plain minimum signed value lies within 1e-5 of contact (float32 rounding
+of FK: the kernel reads constants as float32 where the plain version folds
+them in float64).  The megakernels must match their plain versions (the
+lockstep planner and simplifier) on the sphere-robot wall problem exactly in
+solved flags, iterations, tree sizes and path lengths, with costs within
+rtol 1e-6 (planner) and 1e-5 (simplifier).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -107,3 +112,162 @@ def test_wrapper_rejects_bad_inputs(cuda):
         fkcc_cuda.fkcc_batched(spec, envs.to("cpu"), q)
     with pytest.raises(ValueError):
         fkcc_cuda.fkcc_batched(spec, envs, torch.zeros((3, 8, 7), device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# The planner and simplifier megakernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _wall(device, B=3):
+    """tests/test_mega.py's sphere-robot wall problem (a wall of spheres with
+    a gap), B problems whose goals differ by 0.05 each."""
+    from vamp_mvt_tpu_torch.collision import environment as envmod
+
+    b = envmod.EnvironmentBuilder()
+    for y in np.linspace(-3, 3, 13):
+        for z in np.linspace(0, 3, 7):
+            if not (y > 2.0 and z > 2.0):
+                b.add_sphere([0.0, y, z], 0.3)
+    envs = envmod.broadcast_environment(b.build(device=device), B)
+    starts = torch.tensor([[-2.0, 0.0, 1.0]] * B, device=device)
+    goals = (torch.tensor([[[2.0, 0.0, 1.0]]] * B, device=device)
+             + torch.arange(B, device=device)[:, None, None] * 0.05)
+    masks = torch.ones((B, 1), dtype=torch.bool, device=device)
+    spec = registry.sphere_spec(lows=(-3, -3, 0), highs=(3, 3, 3), radius=0.1)
+    return spec, envs, starts, goals, masks
+
+
+def _wall_settings(k, c, w, **kw):
+    from vamp_mvt_tpu_torch.planning import rrtc
+
+    return rrtc.RRTCSettings(**dict(range=1.0, max_iterations=384, max_samples=512,
+                                    max_path=64, samples_per_step=k, connect_segments=c,
+                                    sample_window=w) | kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,c,w", [(1, 1, 1), (4, 2, 2)])
+def test_rrtc_mega_matches_plain(cuda, k, c, w):
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega
+
+    spec, envs, starts, goals, masks = _wall(cuda)
+    offs = torch.arange(3, device=cuda, dtype=torch.int32) * 100
+    s = _wall_settings(k, c, w)
+
+    def both(g, budget):
+        before = rrtc_mega_cuda.LAUNCHES
+        got = rrtc_mega.plan_batch_mega(spec, envs, starts, g, masks, s, offs, budget=budget,
+                                        device=cuda)
+        torch.cuda.synchronize()
+        assert rrtc_mega_cuda.LAUNCHES == before + 1
+        ref = rrtc.plan_batch(spec, envs, starts, g, masks, dataclasses.replace(
+            s, max_iterations=budget or s.max_iterations), offs)
+        for f in ("solved", "iterations", "size_start", "size_goal", "path_length"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(ref, f).cpu()), (budget, f)
+        torch.testing.assert_close(got.cost, ref.cost, rtol=1e-6, atol=0)
+        for i in range(3):
+            L = int(ref.path_length[i])
+            torch.testing.assert_close(got.path[i, :L], ref.path[i, :L], rtol=0, atol=1e-6)
+        return got
+
+    got = both(goals, None)
+    assert bool(got.solved.any())
+    # run_suite's retry: a small budget, then 32x it with the solved rows'
+    # goals replaced by their starts
+    got = both(goals, 260)
+    both(torch.where(got.solved[:, None, None], starts[:, None], goals), 32 * 260)
+
+
+@pytest.mark.gpu
+def test_simplify_mega_matches_plain(cuda):
+    from vamp_mvt_tpu_torch.ops.kernels import simplify_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc, simplify, simplify_mega
+
+    spec, envs, starts, goals, masks = _wall(cuda)
+    pr = rrtc.plan_batch(spec, envs, starts, goals, masks,
+                         _wall_settings(4, 2, 2, max_iterations=1024))
+    assert bool(pr.solved.all())
+    ss = simplify.SimplifySettings()
+    before = simplify_mega_cuda.LAUNCHES
+    got = simplify_mega.simplify_batch_mega(spec, envs, pr.path, pr.path_length, ss,
+                                            device=cuda)
+    torch.cuda.synchronize()
+    assert simplify_mega_cuda.LAUNCHES == before + 1
+    ref = simplify_mega.simplify_batch_plain(spec, envs, pr.path, pr.path_length, ss)
+    assert torch.equal(got.path_length.cpu(), ref.path_length.cpu())
+    assert torch.equal(got.iterations.cpu(), ref.iterations.cpu())
+    torch.testing.assert_close(got.cost, ref.cost, rtol=1e-5, atol=0)
+    torch.testing.assert_close(got.path, ref.path, rtol=0, atol=1e-5)
+    assert (got.path_length < pr.path_length).all()
+    # the straight-line exit and paths of fewer than three vertices
+    two = simplify_mega.simplify_batch_mega(spec, envs, pr.path, torch.full_like(
+        pr.path_length, 2), ss, device=cuda)
+    assert two.path_length.tolist() == [2, 2, 2] and two.iterations.tolist() == [0, 0, 0]
+
+
+@pytest.mark.gpu
+def test_mega_wrappers_reject_bad_inputs(cuda):
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda, simplify_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc_mega
+
+    spec, envs, starts, goals, masks = _wall(cuda)
+    s = _wall_settings(4, 2, 2)
+    ctl, nodes0, _, _ = rrtc_mega.mega_inputs(spec, envs, starts, goals, masks, s)
+    with pytest.raises(ValueError):
+        rrtc_mega_cuda.plan(spec, envs, ctl.cpu(), nodes0.cpu(), s)
+    with pytest.raises(TypeError):
+        rrtc_mega_cuda.plan(spec, envs, ctl, nodes0.double(), s)
+    with pytest.raises(ValueError):
+        rrtc_mega_cuda.plan(spec, envs, ctl[:, :4].contiguous(), nodes0, s)
+    with pytest.raises(ValueError):
+        rrtc_mega_cuda.plan(spec, envs, ctl, nodes0[:, :, :6].contiguous(), s)
+    with pytest.raises(ValueError):
+        rrtc_mega_cuda.plan(spec, envs, ctl, nodes0.transpose(0, 1).contiguous().transpose(0, 1), s)
+    with pytest.raises(ValueError):
+        rrtc_mega_cuda.plan(spec, envs.to("cpu"), ctl, nodes0, s)
+    paths = torch.zeros((3, 8, 3), device=cuda)
+    lengths = torch.full((3,), 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        simplify_mega_cuda.simplify(spec, envs, paths.cpu(), lengths.cpu(), None)
+    with pytest.raises(TypeError):
+        simplify_mega_cuda.simplify(spec, envs, paths, lengths.long(), None)
+    with pytest.raises(ValueError):
+        simplify_mega_cuda.simplify(spec, envs, paths[..., :2].contiguous(), lengths, None)
+    with pytest.raises(ValueError):
+        simplify_mega_cuda.simplify(spec, envs, paths.transpose(0, 1).contiguous()
+                                    .transpose(0, 1), lengths, None)
+
+
+@pytest.mark.gpu
+def test_refused_launch_raises(cuda, monkeypatch):
+    """A launch the card refuses (more shared memory than a block may have)
+    raises, and leaves no error behind: the next launch matches the plain
+    version."""
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda, simplify_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega, simplify
+
+    spec, envs, starts, goals, masks = _wall(cuda)
+    monkeypatch.setattr(fkcc_cuda, "MAX_SMEM", 1 << 20)
+    big = _wall_settings(4, 2, 2, max_path=70000)
+    ctl, nodes0, _, _ = rrtc_mega.mega_inputs(spec, envs, starts, goals, masks, big)
+    before = rrtc_mega_cuda.LAUNCHES
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, big)
+    assert rrtc_mega_cuda.LAUNCHES == before
+    paths = torch.zeros((3, 3000, 3), device=cuda)
+    lengths = torch.full((3,), 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        simplify_mega_cuda.simplify(spec, envs, paths, lengths, simplify.SimplifySettings())
+    monkeypatch.undo()
+    s = _wall_settings(4, 2, 2)
+    offs = torch.arange(3, device=cuda, dtype=torch.int32) * 100
+    got = rrtc_mega.plan_batch_mega(spec, envs, starts, goals, masks, s, offs, device=cuda)
+    torch.cuda.synchronize()
+    assert rrtc_mega_cuda.LAUNCHES == before + 1
+    ref = rrtc.plan_batch(spec, envs, starts, goals, masks, s, offs)
+    assert bool(got.solved.any())
+    for f in ("solved", "iterations", "size_start", "size_goal", "path_length"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(ref, f).cpu()), f
+    torch.testing.assert_close(got.cost, ref.cost, rtol=1e-6, atol=0)

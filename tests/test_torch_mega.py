@@ -1,0 +1,248 @@
+"""Port parity: the planner and simplifier megakernels' host sides.
+
+The JAX side runs as tests/test_mega.py runs it, the Pallas kernels in
+interpret mode on the CPU.  The port side runs with device="cpu", where
+`plan_batch_mega` and `simplify_batch_mega` take their plain versions (the
+lockstep planner and simplifier); the CUDA kernels themselves are held
+against those plain versions in tests/test_torch_gpu.py and chip_smoke.py.
+
+- `_kernel_config`: the same dict and the same errors as the JAX package.
+- `mega_inputs`: the same control word and initial node rows (configuration,
+  in-start flag, radius, parent, squared norm) on the sphere-robot wall
+  problem and on four Panda cages.
+- `plan_batch_mega` on the wall problem (the assertions of
+  tests/test_mega.py): exact solved flags, iterations, tree sizes and path
+  lengths, costs within rtol 1e-6, paths within atol 1e-6; also the retry
+  call (a runtime budget, solved rows' goals replaced by their starts).
+- `simplify_batch_mega` on the wall problem's planned paths: equal path
+  lengths, costs within rtol 1e-5, paths within atol 1e-5 (B-spline pulls
+  accumulate float32 rounding that the two packages order differently);
+  and the straight-line exit.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from vamp_mvt_tpu.bench import mbm as jmbm
+from vamp_mvt_tpu.planning import rrtc as jrrtc
+from vamp_mvt_tpu.planning import rrtc_mega as jrrtc_mega
+from vamp_mvt_tpu.planning import simplify as jsimplify
+from vamp_mvt_tpu.planning import simplify_mega as jsimplify_mega
+from vamp_mvt_tpu.robots import registry as jregistry
+from vamp_mvt_tpu_torch.bench import mbm
+from vamp_mvt_tpu_torch.collision import environment as envmod
+from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega, simplify, simplify_mega
+from vamp_mvt_tpu_torch.robots import registry
+
+from test_torch_planner import assert_same_plan, sphere_problem
+
+torch.set_num_threads(1)
+
+OFFSETS = np.arange(3, dtype=np.int32) * 100
+
+
+def _suite_settings(robot: str) -> dict:
+    """run_suite's planner="mega" defaults (mbm.py, both packages)."""
+    return dict(range=registry.RRT_RANGES.get(robot, 1.0), max_iterations=4096,
+                max_samples=16384, max_path=96,
+                samples_per_step=32 if robot == "fetch" else 16, connect_segments=8,
+                sample_window=4 if robot == "fetch" else 8)
+
+
+def _wall_settings(k, c, w, **kw) -> dict:
+    return dict(range=1.0, max_iterations=384, max_samples=512, max_path=64,
+                samples_per_step=k, connect_segments=c, sample_window=w) | kw
+
+
+@pytest.mark.parametrize("robot", ["panda", "fetch", "baxter", "sphere"])
+def test_kernel_config_matches_jax(robot):
+    kw = _suite_settings(robot)
+    jspec, spec = jregistry.load(robot), registry.load(robot)
+    for G in (1, 4):
+        ref = jrrtc_mega._kernel_config(jspec, jrrtc.RRTCSettings(**kw), G)
+        assert rrtc_mega._kernel_config(spec, rrtc.RRTCSettings(**kw), G) == ref
+
+
+@pytest.mark.parametrize("k,c,w", [(32, 8, 8), (60, 8, 1), (33, 30, 1)])
+def test_kernel_config_raises_as_jax(k, c, w):
+    kw = _suite_settings("panda") | dict(samples_per_step=k, connect_segments=c,
+                                         sample_window=w)
+    with pytest.raises(ValueError) as ref:
+        jrrtc_mega._kernel_config(jregistry.load("panda"), jrrtc.RRTCSettings(**kw), 1)
+    with pytest.raises(ValueError) as got:
+        rrtc_mega._kernel_config(registry.load("panda"), rrtc.RRTCSettings(**kw), 1)
+    assert str(got.value) == str(ref.value)
+
+
+def _two_goal_wall():
+    """The wall problem with a second goal per row: row 0's reaches the start
+    in a straight line (a direct solve), row 1's is masked out."""
+    jspec, spec, envs_j, envs_t, starts, goals, masks = sphere_problem()
+    second = np.tile(np.float32([-1.5, 0.5, 1.0]), (3, 1, 1))
+    second[1:] = np.float32([2.0, 0.5, 2.0])
+    goals = np.concatenate([goals, second], 1)
+    masks = np.array([[True, True], [True, False], [True, True]])
+    return jspec, spec, envs_j, envs_t, starts, goals, masks
+
+
+def _assert_same_inputs(ref, got, d):
+    ctl_j, nodes_j, ad_j, fd_j = (np.asarray(x) for x in ref)
+    ctl, nodes, ad, fd = (x.numpy() for x in got)
+    dp = max(8, 8 * ((d + 7) // 8))
+    np.testing.assert_array_equal(ctl, ctl_j[:, 0])
+    np.testing.assert_array_equal(ad, ad_j)
+    np.testing.assert_array_equal(fd, fd_j)
+    np.testing.assert_array_equal(nodes[..., :d], nodes_j[..., :d])   # configuration
+    for lane in range(4):  # in_start, radius, parent, squared norm
+        np.testing.assert_array_equal(nodes[..., d + lane], nodes_j[..., dp + lane], str(lane))
+
+
+def test_mega_inputs_match_jax_on_the_wall():
+    jspec, spec, envs_j, envs_t, starts, goals, masks = _two_goal_wall()
+    kw = _wall_settings(4, 2, 2)
+    ref = jrrtc_mega.mega_inputs(
+        jspec, envs_j, jnp.asarray(starts), jnp.asarray(goals), jnp.asarray(masks),
+        jrrtc.RRTCSettings(**kw), jnp.asarray(OFFSETS), 777)
+    got = rrtc_mega.mega_inputs(
+        spec, envs_t, torch.as_tensor(starts), torch.as_tensor(goals), torch.as_tensor(masks),
+        rrtc.RRTCSettings(**kw), torch.as_tensor(OFFSETS), 777)
+    _assert_same_inputs(ref, got, 3)
+    assert got[2].tolist() == [True, False, False]
+    assert got[0][:, 2].tolist() == [2, 1, 2] and got[0][:, 3].tolist() == [777] * 3
+
+
+def test_mega_inputs_match_jax_on_panda_cages():
+    problems = mbm.cage_suite(4, seed=3)["problems"]["cage"]
+    envs_j, starts, goals, masks = jmbm.build_batch(problems)
+    envs_t, st, gl, mk = mbm.build_batch(problems, device="cpu")
+    np.testing.assert_array_equal(st.numpy(), np.asarray(starts))
+    kw = _suite_settings("panda")
+    ref = jrrtc_mega.mega_inputs(jregistry.load("panda"), envs_j, starts, goals, masks,
+                                 jrrtc.RRTCSettings(**kw))
+    got = rrtc_mega.mega_inputs(registry.load("panda"), envs_t, st, gl, mk,
+                                rrtc.RRTCSettings(**kw))
+    _assert_same_inputs(ref, got, 7)
+
+
+def _plan_both(kw, starts, goals, budget=None):
+    jspec, spec, envs_j, envs_t, _, _, masks = sphere_problem()
+    ref = jrrtc_mega.plan_batch_mega(
+        jspec, envs_j, jnp.asarray(starts), jnp.asarray(goals), jnp.asarray(masks),
+        jrrtc.RRTCSettings(**kw), jnp.asarray(OFFSETS), budget=budget)
+    got = rrtc_mega.plan_batch_mega(
+        spec, envs_t, torch.as_tensor(starts), torch.as_tensor(goals), torch.as_tensor(masks),
+        rrtc.RRTCSettings(**kw), torch.as_tensor(OFFSETS), budget=budget, device="cpu")
+    return ref, got
+
+
+@pytest.mark.parametrize("k,c,w", [(1, 1, 1), (4, 2, 2)])
+def test_plan_batch_mega_matches_jax(k, c, w):
+    _, _, _, _, starts, goals, _ = sphere_problem()
+    ref, got = _plan_both(_wall_settings(k, c, w), starts, goals)
+    assert bool(got.solved.any())
+    assert_same_plan(ref, got, 3, rtol=1e-6)
+
+
+def test_plan_batch_mega_retry_call_matches_jax():
+    """run_suite's retry: the same kernel at 32x a small budget, with the
+    goals of the rows the first call solved replaced by their starts."""
+    _, _, _, _, starts, goals, _ = sphere_problem()
+    kw = _wall_settings(4, 2, 2)
+    ref, got = _plan_both(kw, starts, goals, budget=260)
+    assert_same_plan(ref, got, 3, rtol=1e-6)
+    unsolved = ~got.solved.numpy()
+    assert unsolved.any() and not unsolved.all()
+    goals2 = np.where(unsolved[:, None, None], goals, starts[:, None])
+    ref, got = _plan_both(kw, starts, goals2, budget=32 * 260)
+    assert_same_plan(ref, got, 3, rtol=1e-6)
+    assert bool(got.solved.all())
+    # solved rows became start == goal problems, closed by the direct check
+    assert (got.iterations.numpy()[~unsolved] == 0).all()
+
+
+def test_unported_planner_settings_raise():
+    _, spec, _, envs_t, starts, goals, masks = sphere_problem(1)
+    args = (spec, envs_t, torch.as_tensor(starts), torch.as_tensor(goals), torch.as_tensor(masks))
+    base = rrtc.RRTCSettings(**_wall_settings(4, 2, 2))
+    for change in (dict(interleave=True), dict(profile_mask=3), dict(pc_phase=1),
+                   dict(sampler="threefry")):
+        with pytest.raises(NotImplementedError):
+            rrtc_mega.plan_batch_mega(*args, dataclasses.replace(base, **change), device="cpu")
+    with pytest.raises(ValueError):
+        rrtc_mega.plan_batch_mega(
+            *args, dataclasses.replace(base, samples_per_step=32, sample_window=8), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def planned():
+    jspec, spec, envs_j, envs_t, starts, goals, masks = sphere_problem()
+    settings = jrrtc.RRTCSettings(**_wall_settings(4, 2, 2, max_iterations=1024))
+    pr = jax.jit(lambda e, s, g, m: jrrtc.plan_batch(jspec, e, s, g, m, settings))(
+        envs_j, jnp.asarray(starts), jnp.asarray(goals), jnp.asarray(masks))
+    assert bool(np.all(np.asarray(pr.solved)))
+    return jspec, spec, envs_j, envs_t, np.array(pr.path), np.array(pr.path_length)
+
+
+def test_simplify_batch_mega_matches_jax(planned):
+    jspec, spec, envs_j, envs_t, paths, lengths = planned
+    ss = simplify.SimplifySettings()
+    ref = jsimplify_mega.simplify_batch_mega(
+        jspec, envs_j, jnp.asarray(paths), jnp.asarray(lengths), jsimplify.SimplifySettings())
+    got = simplify_mega.simplify_batch_mega(
+        spec, envs_t, torch.as_tensor(paths), torch.as_tensor(lengths), ss, device="cpu")
+    np.testing.assert_array_equal(got.path_length.numpy(), np.asarray(ref.path_length))
+    np.testing.assert_array_equal(got.iterations.numpy(), np.asarray(ref.iterations))
+    np.testing.assert_allclose(got.cost.numpy(), np.asarray(ref.cost), rtol=1e-5)
+    for i in range(3):
+        L = int(np.asarray(ref.path_length)[i])
+        np.testing.assert_allclose(got.path.numpy()[i, :L], np.asarray(ref.path)[i, :L],
+                                   atol=1e-5)
+    assert (got.path_length.numpy() < lengths).all()
+
+
+def test_simplify_batch_mega_straight_line():
+    """tests/test_mega.py's straight-line case: endpoints that connect
+    directly give a 2-vertex path after 0 iterations, in both packages."""
+    from vamp_mvt_tpu.collision import environment as jenv
+
+    lows, highs = (-3, -3, 0), (3, 3, 3)
+    jb, tb = jenv.EnvironmentBuilder(), envmod.EnvironmentBuilder()
+    jb.add_sphere([0.0, 0.0, 2.9], 0.05)
+    tb.add_sphere([0.0, 0.0, 2.9], 0.05)
+    envs_j = jax.tree_util.tree_map(lambda a: jnp.broadcast_to(a[None], (2,) + a.shape), jb.build())
+    envs_t = envmod.broadcast_environment(tb.build(device="cpu"), 2)
+    path = np.zeros((2, 16, 3), np.float32)
+    path[:, 0] = [-2.0, -2.5, 1.0]
+    path[:, 1] = [-1.0, -2.6, 1.2]
+    path[:, 2] = [0.5, -2.7, 1.1]
+    path[:, 3:] = [1.5, -2.5, 1.0]
+    lengths = np.array([4, 4], np.int32)
+    ref = jsimplify_mega.simplify_batch_mega(
+        jregistry.sphere_spec(lows=lows, highs=highs, radius=0.1), envs_j,
+        jnp.asarray(path), jnp.asarray(lengths), jsimplify.SimplifySettings())
+    got = simplify_mega.simplify_batch_mega(
+        registry.sphere_spec(lows=lows, highs=highs, radius=0.1), envs_t,
+        torch.as_tensor(path), torch.as_tensor(lengths), simplify.SimplifySettings(),
+        device="cpu")
+    for f in ("path_length", "iterations"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f)))
+    np.testing.assert_array_equal(got.path_length.numpy(), [2, 2])
+    np.testing.assert_allclose(got.path.numpy()[:, :2], np.asarray(ref.path)[:, :2])
+    np.testing.assert_allclose(got.cost.numpy(), np.asarray(ref.cost), rtol=1e-6)
+
+
+def test_unported_simplify_settings_raise(planned):
+    _, spec, _, envs_t, paths, lengths = planned
+    for ops in (("shortcut", "reduce"), ("bspline", "shortcut"), ("shortcut",)):
+        ss = simplify.SimplifySettings(operations=ops)
+        assert not simplify_mega.supports(ss)
+        with pytest.raises(ValueError):
+            simplify_mega.simplify_batch_mega(
+                spec, envs_t, torch.as_tensor(paths), torch.as_tensor(lengths), ss,
+                device="cpu")
+    assert simplify_mega.supports(simplify.SimplifySettings())

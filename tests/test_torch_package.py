@@ -44,7 +44,7 @@ def test_port_imports_without_jax():
         capture_output=True, text=True, timeout=120, cwd=ROOT,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 15
+    assert int(out.stdout.strip().splitlines()[-1]) >= 21
 
 
 def test_port_sources_name_no_jax():
@@ -73,7 +73,8 @@ def test_entry_points_need_a_device():
         pytest.skip("a GPU is present: the default device is valid")
     from vamp_mvt_tpu_torch.collision import environment as envmod
     from vamp_mvt_tpu_torch.ops import fkcc
-    from vamp_mvt_tpu_torch.planning import rrtc, simplify
+    from vamp_mvt_tpu_torch.bench import mbm
+    from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega, simplify, simplify_mega
     from vamp_mvt_tpu_torch.robots import registry
 
     spec = registry.sphere_spec()
@@ -87,4 +88,37 @@ def test_entry_points_need_a_device():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         simplify.simplify_batch_compact(spec, envs, torch.zeros((1, 4, 3)), torch.tensor([2]),
                                         simplify.SimplifySettings())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rrtc_mega.plan_batch_mega(spec, envs, q, q[:, None], torch.ones((1, 1), dtype=torch.bool),
+                                  rrtc.RRTCSettings())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simplify_mega.simplify_batch_mega(spec, envs, torch.zeros((1, 4, 3)), torch.tensor([2]),
+                                          simplify.SimplifySettings())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mbm.run_suite("panda", data=mbm.cage_suite(1), batch_size=1, planner="mega")
     assert bool(fkcc.fkcc(spec, envmod.empty_environment(), q, device="cpu").all())
+    res = rrtc_mega.plan_batch_mega(spec, envs, q, q[:, None] + 0.5,
+                                    torch.ones((1, 1), dtype=torch.bool),
+                                    rrtc.RRTCSettings(max_path=8), device="cpu")
+    assert bool(res.solved[0]) and int(res.path_length[0]) == 2
+
+
+def test_build_key_covers_every_source(tmp_path):
+    """The kernels' build key hashes every csrc/*.cu and *.cuh file and the
+    nvcc flags, so a change to a shared header rebuilds every library."""
+    from vamp_mvt_tpu_torch.ops.kernels import build
+
+    names = sorted(p.name for p in build.CSRC.iterdir())
+    assert {"fkcc.cu", "fkcc_device.cuh", "rrtc_mega.cu", "simplify_mega.cu"} <= set(names)
+    for name in names:
+        (tmp_path / name).write_bytes((build.CSRC / name).read_bytes())
+    key = build.source_key(tmp_path)
+    assert key == build.source_key(build.CSRC)
+    for name in names:
+        f = tmp_path / name
+        data = f.read_bytes()
+        f.write_bytes(data + b"\n")
+        assert build.source_key(tmp_path) != key, name
+        f.write_bytes(data)
+    assert build.source_key(tmp_path) == key
+    assert build.source_key(tmp_path, build.NVCC_FLAGS + ("-G",)) != key

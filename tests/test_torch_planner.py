@@ -62,10 +62,10 @@ def sphere_problem(B=3):
     )
 
 
-def assert_same_plan(ref, got, B):
+def assert_same_plan(ref, got, B, rtol=1e-5):
     for f in ("solved", "iterations", "size_start", "size_goal", "path_length"):
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f)), f)
-    np.testing.assert_allclose(got.cost.numpy(), np.asarray(ref.cost), rtol=1e-5)
+    np.testing.assert_allclose(got.cost.numpy(), np.asarray(ref.cost), rtol=rtol)
     for i in range(B):
         L = int(np.asarray(ref.path_length)[i])
         np.testing.assert_allclose(

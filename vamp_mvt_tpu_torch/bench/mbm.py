@@ -1,9 +1,10 @@
 """MotionBenchMaker problem suite: loading, environment building, batch runner.
 
-Port of `vamp_mvt_tpu/bench/mbm.py` for the lockstep configuration
-(planner="xla"): batch assembly, start/goal validity, lockstep planning with
-straggler compaction, the 32x-budget retry of unsolved problems,
-simplification and the gather of results to the host.
+Port of `vamp_mvt_tpu/bench/mbm.py`: batch assembly, start/goal validity,
+planning, the 32x-budget retry of unsolved problems, simplification and the
+gather of results to the host.  planner="mega" plans and simplifies with the
+megakernels (`planning/rrtc_mega.py`, `planning/simplify_mega.py`);
+planner="xla" with the lockstep state machines and straggler compaction.
 
 Problem data comes from the MoveIt-YAML tarballs under
 VAMP_MVT_TPU_RESOURCES (`<robot>/problems.tar.bz2`), or from a `data` dict in
@@ -28,7 +29,7 @@ import torch
 from vamp_mvt_tpu_torch.collision import environment as envmod
 from vamp_mvt_tpu_torch.device import resolve_device
 from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
-from vamp_mvt_tpu_torch.planning import rrtc, simplify
+from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega, simplify, simplify_mega
 from vamp_mvt_tpu_torch.robots import registry
 
 RESOURCES = Path(os.environ.get("VAMP_MVT_TPU_RESOURCES", "/root/reference/resources"))
@@ -507,6 +508,37 @@ class SuiteResult:
         return "\n".join(rows)
 
 
+def default_settings(robot: str, planner: str) -> rrtc.RRTCSettings:
+    """run_suite's planner settings for `robot` (planner "mega" or "xla")."""
+    if planner == "mega":
+        return rrtc.RRTCSettings(
+            range=registry.RRT_RANGES.get(robot, 1.0),
+            max_iterations=4096,
+            # node capacity sized for the 32x retry, which reuses the kernel
+            # with a larger runtime budget; the kernel only ever reads the
+            # live tree prefix
+            max_samples=16384,
+            max_path=96,
+            # K * W <= 128 samples a step: the window is 8 at K = 16 and 4 at
+            # K = 32 (Fetch, whose problems need many more samples)
+            samples_per_step=32 if robot == "fetch" else 16,
+            connect_segments=8,
+            sample_window=4 if robot == "fetch" else 8,
+        )
+    return rrtc.RRTCSettings(
+        range=registry.RRT_RANGES.get(robot, 1.0),
+        max_iterations=4096,
+        # node-buffer capacity: small on purpose — the masked brute-force NN
+        # and the lockstep state copies scale with it; the rare problem that
+        # fills it is rerun by the straggler retry at a large capacity
+        max_samples=512,
+        max_path=96,
+        samples_per_step=16,
+        connect_segments=8,
+        sample_window=4,
+    )
+
+
 def run_suite(
     robot: str = "panda",
     problem_names=None,
@@ -522,9 +554,12 @@ def run_suite(
 ) -> SuiteResult:
     """Plan + simplify a whole MBM suite as batched device work.
 
-    Only planner="xla" is ported: the lockstep state machine with straggler
-    compaction, then a 32x-budget retry of unsolved problems.  "auto" means
-    "xla"; "mega" (the planner megakernel) raises until it is ported.
+    planner="mega" runs the planner megakernel over the whole batch (each
+    problem stops the moment it is done), replans the unsolved ones at a 32x
+    budget with the same kernel, and simplifies with the simplify megakernel
+    when `simplify_mega.supports(simp_settings)`.  planner="xla" runs the
+    lockstep state machine with straggler compaction and the lockstep
+    simplifier.  "auto" means "mega" on a GPU and "xla" on the CPU.
 
     Pass a dict as `timings` for a wall-clock phase breakdown
     (build_batch/validity/warmup/plan/retry/simplify/gather).  Runs on
@@ -533,38 +568,15 @@ def run_suite(
     dev = resolve_device(device)
     spec = registry.load(robot)
     if planner == "auto":
-        planner = "xla"
-    if planner == "mega":
-        raise NotImplementedError(
-            "planner='mega' is not yet ported (ROADMAP queue 2); use planner='xla'"
-        )
-    if planner != "xla":
+        planner = "mega" if dev.type == "cuda" else "xla"
+    if planner not in ("mega", "xla"):
         raise ValueError(f"unknown planner {planner!r}")
     if settings is None:
-        settings = rrtc.RRTCSettings(
-            range=registry.RRT_RANGES.get(robot, 1.0),
-            max_iterations=4096,
-            # node-buffer capacity: small on purpose — the masked brute-force
-            # NN and the lockstep state copies scale with it; the rare problem
-            # that fills it is rerun by the straggler retry at a large capacity
-            max_samples=512,
-            max_path=96,
-            samples_per_step=16,
-            connect_segments=8,
-            sample_window=4,
-        )
+        settings = default_settings(robot, planner)
+    retry_budget = 32 * settings.max_iterations
     if simp_settings is None:
         simp_settings = simplify.SimplifySettings(pair_chunk=64)
-    # straggler phase: much larger sample budget and node buffer at high K
-    retry_settings = dataclasses.replace(
-        settings,
-        max_iterations=32 * 4096,
-        max_samples=16384,
-        samples_per_step=128,
-        connect_segments=16,
-        sample_window=4,
-    )
-    RETRY_B = 16  # fixed straggler batch size
+    RETRY_B = 16  # fixed straggler batch size of the lockstep retry
 
     from_tarballs = data is None
     if from_tarballs:
@@ -605,39 +617,97 @@ def run_suite(
     valid = _valid_fused(spec, envs, starts, goals, masks).cpu().numpy()[:n_real]
     _phase("validity")
 
-    def plan_fn(e, s_, g, m):
-        return rrtc.plan_batch_compact(spec, e, s_, g, m, settings, segment_steps=64,
-                                       device=dev)
+    if planner == "mega":
 
-    def retry_fn(e, s_, g, m):
-        return rrtc.plan_batch_compact(spec, e, s_, g, m, retry_settings,
-                                       segment_steps=64, min_batch=RETRY_B, device=dev)
+        def plan_fn(e, s_, g, m, budget):
+            return rrtc_mega.plan_batch_mega(spec, e, s_, g, m, settings, budget=budget,
+                                             device=dev)
 
-    def simp_fn(e, p, l):
-        return simplify.simplify_batch_compact(spec, e, p, l, simp_settings, device=dev)
-
-    def solve_batch(e, s_, g, m):
-        pr = plan_fn(e, s_, g, m)
-        sync()
-        t_retry = time.perf_counter()
-        unsolved = ~pr.solved.cpu().numpy()
-        if unsolved.any():
-            # rerun stragglers at the 32x budget in fixed-size batches and
-            # write their results back in place
-            idx = np.flatnonzero(unsolved)
-            pr = type(pr)(*(t.clone() for t in pr))
-            for off in range(0, len(idx), RETRY_B):
-                part = idx[off : off + RETRY_B]
-                take = torch.as_tensor(np.resize(part, RETRY_B), device=dev)
-                rr = retry_fn(e.map(lambda t: t[take]), s_[take], g[take], m[take])
-                rows = torch.as_tensor(part, device=dev)
-                for dst, src in zip(pr, rr):
-                    dst[rows] = src[: len(part)]
+        def solve_batch(e, s_, g, m):
+            pr = plan_fn(e, s_, g, m, settings.max_iterations)
             sync()
-        return pr, t_retry
+            t_retry = time.perf_counter()
+            um = ~pr.solved
+            if bool(um.any()):
+                # the retry replays the same search with a larger budget, so
+                # a problem that filled the node buffer would fill it again
+                n_nodes = pr.size_start + pr.size_goal + (~m).sum(1)
+                full = um & (n_nodes >= settings.max_samples)
+                if bool(full.any()):
+                    raise ValueError(
+                        f"max_samples={settings.max_samples} cannot hold the 32x "
+                        f"retry: {int(full.sum())} problems filled the node "
+                        "buffer within the first budget; raise max_samples")
+                # the same kernel at 32x budget; solved rows get start == goal
+                # problems that the direct check ends at once
+                g2 = torch.where(um[:, None, None], g, s_[:, None, :])
+                rr = plan_fn(e, s_, g2, m, retry_budget)
+                pr = type(pr)(*(
+                    torch.where(um.reshape(um.shape + (1,) * (o.dim() - 1)), n, o)
+                    for o, n in zip(pr, rr)
+                ))
+                sync()
+            return pr, t_retry
+
+    else:
+        # straggler phase: much larger sample budget and node buffer at high K
+        retry_settings = dataclasses.replace(
+            settings,
+            max_iterations=32 * 4096,
+            max_samples=16384,
+            samples_per_step=128,
+            connect_segments=16,
+            sample_window=4,
+        )
+
+        def plan_fn(e, s_, g, m):
+            return rrtc.plan_batch_compact(spec, e, s_, g, m, settings, segment_steps=64,
+                                           device=dev)
+
+        def retry_fn(e, s_, g, m):
+            return rrtc.plan_batch_compact(spec, e, s_, g, m, retry_settings,
+                                           segment_steps=64, min_batch=RETRY_B, device=dev)
+
+        def solve_batch(e, s_, g, m):
+            pr = plan_fn(e, s_, g, m)
+            sync()
+            t_retry = time.perf_counter()
+            unsolved = ~pr.solved.cpu().numpy()
+            if unsolved.any():
+                # rerun stragglers at the 32x budget in fixed-size batches and
+                # write their results back in place
+                idx = np.flatnonzero(unsolved)
+                pr = type(pr)(*(t.clone() for t in pr))
+                for off in range(0, len(idx), RETRY_B):
+                    part = idx[off : off + RETRY_B]
+                    take = torch.as_tensor(np.resize(part, RETRY_B), device=dev)
+                    rr = retry_fn(e.map(lambda t: t[take]), s_[take], g[take], m[take])
+                    rows = torch.as_tensor(part, device=dev)
+                    for dst, src in zip(pr, rr):
+                        dst[rows] = src[: len(part)]
+                sync()
+            return pr, t_retry
+
+    if planner == "mega" and simplify_mega.supports(simp_settings):
+
+        def simp_fn(e, p, l):
+            return simplify_mega.simplify_batch_mega(spec, e, p, l, simp_settings, device=dev)
+
+    else:
+
+        def simp_fn(e, p, l):
+            return simplify.simplify_batch_compact(spec, e, p, l, simp_settings, device=dev)
 
     if warmup and dev.type == "cuda":
-        fkcc_cuda.library()  # build/load the kernel outside the timed phases
+        # build and load every kernel outside the timed phases; the mega path
+        # launches each of its kernels once on the first problem, at both
+        # budgets (the retry's on its start-replaced goal, which ends at once)
+        fkcc_cuda.library()
+        if planner == "mega":
+            e0, s0, g0, m0 = envs.map(lambda t: t[:1]), starts[:1], goals[:1], masks[:1]
+            r0 = plan_fn(e0, s0, g0, m0, settings.max_iterations)
+            plan_fn(e0, s0, s0[:, None].expand_as(g0), m0, retry_budget)
+            simp_fn(e0, r0.path, r0.path_length)
     _phase("warmup")
 
     plan_parts, simp_parts = [], []

@@ -1,12 +1,13 @@
 """Where the suite runner's time goes on the GPU.
 
-    python -m vamp_mvt_tpu_torch.bench.profile_suite [--problems 700]
+    python -m vamp_mvt_tpu_torch.bench.profile_suite [--problems 700] [--planner mega]
 
-Runs `run_suite("panda", planner="xla")` on the seeded sphere-cage suite once
-to warm up, then once under `torch.profiler`, and prints one JSON line: the
-wall time under the profiler, the device's busy time (the summed duration of
-every CUDA kernel and copy), its idle share, the fkcc kernel's device time and
-launches, and the kernels that took the most device time.  The profiler adds
+Runs `run_suite("panda", planner=...)` ("mega" or "xla") on the seeded
+sphere-cage suite once to warm up, then once under `torch.profiler`, and
+prints one JSON line: the wall time under the profiler, the device's busy
+time (the summed duration of every CUDA kernel and copy), its idle share,
+each of the port's kernels' device time and launches, and the kernels that
+took the most device time.  The profiler adds
 host overhead to every launch, so the wall time here is longer than an
 unprofiled run's; the device times are not affected.
 """
@@ -29,16 +30,18 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--problems", type=int, default=700)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--planner", choices=("mega", "xla"), default="mega")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_suite needs a CUDA device")
 
     data = mbm.cage_suite(args.problems, seed=args.seed)
-    mbm.run_suite("panda", data=data, batch_size=args.problems)  # warm-up
+    run = dict(data=data, batch_size=args.problems, planner=args.planner)
+    mbm.run_suite("panda", **run)  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = mbm.run_suite("panda", data=data, batch_size=args.problems)
+        res = mbm.run_suite("panda", **run)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -48,18 +51,24 @@ def main() -> None:
             per_name[e.name][0] += e.time_range.elapsed_us()
             per_name[e.name][1] += 1
     busy_us = sum(v[0] for v in per_name.values())
-    fkcc = [v for k, v in per_name.items() if "fkcc_kernel" in k]
+    ours = {
+        name: [v for k, v in per_name.items() if f"{name}_kernel" in k]
+        for name in ("fkcc", "rrtc_mega", "simplify_mega")
+    }
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "problems": args.problems,
+        "planner": args.planner,
         "solved": res.summary()["solved_problems"],
         "wall_s_profiled": wall,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "device_launches": sum(v[1] for v in per_name.values()),
-        "fkcc_device_s": sum(v[0] for v in fkcc) / 1e6,
-        "fkcc_launches": sum(v[1] for v in fkcc),
+        "kernels": {
+            name: {"device_s": sum(v[0] for v in vs) / 1e6, "launches": sum(v[1] for v in vs)}
+            for name, vs in ours.items()
+        },
         "top_kernels": [
             {"name": k[:80], "device_s": v[0] / 1e6, "launches": v[1]} for k, v in top
         ],

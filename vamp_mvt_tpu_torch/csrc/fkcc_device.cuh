@@ -1,0 +1,271 @@
+// Fused forward kinematics + collision check of one configuration, as device
+// functions shared by every kernel of the port (fkcc.cu, rrtc_mega.cu,
+// simplify_mega.cu).  Counterpart of the TPU function
+// vamp_mvt_tpu/ops/kernels/fkcc_pallas.py::tile_vmin, primitive and
+// self-collision branches.
+//
+// A block first copies its problem's shape rows into shared memory and
+// counts the live prefix of every table (rows with |x0| < 1e7, the
+// _live_counts rule): load_env().  Then each thread evaluates one
+// configuration at a time with config_vmin(), which returns
+//
+//   vmin = min( min over robot spheres x live shape rows of the signed value,
+//               min over the self-collision pair table of d^2 - (ri + rj)^2 )
+//
+// and the configuration is valid iff vmin >= 0.  The robot arrives as small
+// device tables built from its RobotSpec (frame chain, sphere placement, pair
+// table).  FK walks the frames in order, keeping the previous frame's pose in
+// registers; only frames that parent a non-adjacent frame are kept in shared
+// memory (s_pose), and every sphere centre is stored there too (s_ctr, SoA,
+// one float per thread per coordinate) for the pair loop.
+//
+// Numerics.  Built with --fmad=false and without --use_fast_math, using
+// cosf/sinf, with every sum taken in the index order of ops/smat.dot_terms
+// and collision/primitives.py, so its rounding follows the plain PyTorch
+// version and validity can differ only inside the contact band.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace fkcc {
+
+constexpr int kRevolute = 1;
+constexpr int kPrismatic = 2;
+constexpr float kLiveLimit = 1.0e7f;
+// frame_f row: origin_rot(9) origin_xyz(3) axis(3) A(9) I-A(9) K(9)
+constexpr int kFrameFloats = 42;
+// frame_i row: parent, joint_type, q_index, slot, sphere_begin, sphere_end
+constexpr int kFrameInts = 6;
+
+// The robot's device tables (ops/kernels/fkcc_cuda.py::robot_tables).
+struct Robot {
+  const int* frame_i;
+  const float* frame_f;
+  int F;
+  int n_slots;
+  const int* sphere_order;
+  const float* sphere_f;
+  int S;
+  const int* pairs;
+  const float* pair_thr;
+  int P;
+};
+
+// One problem's shape tables: global pointers of the whole batch and their
+// row counts (env_batched = 0: one environment shared by every problem).
+struct EnvTables {
+  const float* sph;
+  const float* cap;
+  const float* zcap;
+  const float* cub;
+  const float* zcub;
+  int ns, nc, nzc, nb, nzb;
+  int env_batched;
+};
+
+// The block's copy of its problem's shape rows, and their live counts.
+struct Env {
+  const float* sph;
+  const float* cap;
+  const float* zcap;
+  const float* cub;
+  const float* zcub;
+  int ls, lc, lzc, lb, lzb;
+};
+
+__device__ __forceinline__ float sq(float x) { return x * x; }
+
+// Floats of shared memory the shape rows take.
+__host__ __device__ inline int env_floats(const EnvTables& e) {
+  return e.ns * 4 + (e.nc + e.nzc) * 8 + (e.nb + e.nzb) * 15;
+}
+
+// Floats of shared memory the FK scratch of T threads takes.
+__host__ __device__ inline int scratch_floats(const Robot& r, int T) {
+  return (r.n_slots * 12 + r.S * 3) * T;
+}
+
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int count) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
+}
+
+// Number of rows with |x0| < 1e7.  Every thread of the block must call it.
+__device__ __forceinline__ int live_count(const float* rows, int n, int f) {
+  int c = 0;
+  for (int base = 0; base < n; base += blockDim.x) {
+    const int r = base + threadIdx.x;
+    c += __syncthreads_count(r < n && fabsf(rows[r * f]) < kLiveLimit);
+  }
+  return c;
+}
+
+// Copy problem b's shape rows to `smem` (env_floats(e) floats) and count
+// their live prefixes.  Every thread of the block must call it.
+__device__ inline Env load_env(const EnvTables& e, int b, float* smem) {
+  const long long be = e.env_batched ? b : 0;
+  Env env;
+  float* s_sph = smem;
+  float* s_cap = s_sph + e.ns * 4;
+  float* s_zcap = s_cap + e.nc * 8;
+  float* s_cub = s_zcap + e.nzc * 8;
+  float* s_zcub = s_cub + e.nb * 15;
+  load_rows(s_sph, e.sph + be * e.ns * 4, e.ns * 4);
+  load_rows(s_cap, e.cap + be * e.nc * 8, e.nc * 8);
+  load_rows(s_zcap, e.zcap + be * e.nzc * 8, e.nzc * 8);
+  load_rows(s_cub, e.cub + be * e.nb * 15, e.nb * 15);
+  load_rows(s_zcub, e.zcub + be * e.nzb * 15, e.nzb * 15);
+  __syncthreads();
+  env.sph = s_sph;
+  env.cap = s_cap;
+  env.zcap = s_zcap;
+  env.cub = s_cub;
+  env.zcub = s_zcub;
+  env.ls = live_count(s_sph, e.ns, 4);
+  env.lc = live_count(s_cap, e.nc, 8);
+  env.lzc = live_count(s_zcap, e.nzc, 8);
+  env.lb = live_count(s_cub, e.nb, 15);
+  env.lzb = live_count(s_zcub, e.nzb, 15);
+  return env;
+}
+
+// vmin of the configuration qp[j * q_sd] (j = joint index) for thread `tid`
+// of a block of T threads; s_pose and s_ctr are the block's FK scratch
+// (scratch_floats(r, T) floats, s_pose first).  No barrier inside.
+__device__ inline float config_vmin(const Env& env, const Robot& r, float* s_pose,
+                                    int T, int tid, const float* qp, long long q_sd) {
+  float* s_ctr = s_pose + r.n_slots * 12 * T;  // S x 3 x T
+  float vmin = __int_as_float(0x7f800000);  // +inf
+  float R[9], t[3];
+  for (int f = 0; f < r.F; ++f) {
+    const int* fi = r.frame_i + f * kFrameInts;
+    const float* ff = r.frame_f + f * kFrameFloats;
+    const int parent = fi[0];
+    if (parent < 0) {
+      for (int e = 0; e < 9; ++e) R[e] = ff[e];
+      for (int e = 0; e < 3; ++e) t[e] = ff[9 + e];
+    } else {
+      float Rp[9], tp[3];
+      if (parent == f - 1) {
+        for (int e = 0; e < 9; ++e) Rp[e] = R[e];
+        for (int e = 0; e < 3; ++e) tp[e] = t[e];
+      } else {
+        const float* src = s_pose + r.frame_i[parent * kFrameInts + 3] * 12 * T + tid;
+        for (int e = 0; e < 9; ++e) Rp[e] = src[e * T];
+        for (int e = 0; e < 3; ++e) tp[e] = src[(9 + e) * T];
+      }
+      // R = Rp @ origin_rot;  t = Rp @ origin_xyz + tp
+      for (int i = 0; i < 3; ++i) {
+        for (int j = 0; j < 3; ++j) {
+          float acc = Rp[i * 3 + 0] * ff[0 * 3 + j];
+          acc = acc + Rp[i * 3 + 1] * ff[1 * 3 + j];
+          acc = acc + Rp[i * 3 + 2] * ff[2 * 3 + j];
+          R[i * 3 + j] = acc;
+        }
+        float acc = Rp[i * 3 + 0] * ff[9];
+        acc = acc + Rp[i * 3 + 1] * ff[10];
+        acc = acc + Rp[i * 3 + 2] * ff[11];
+        t[i] = acc + tp[i];
+      }
+    }
+    const int jt = fi[1];
+    if (jt == kRevolute) {
+      const float x = qp[fi[2] * q_sd];
+      const float c = cosf(x);
+      const float s = sinf(x);
+      float Q[9];
+      for (int e = 0; e < 9; ++e) Q[e] = (ff[15 + e] + ff[24 + e] * c) + ff[33 + e] * s;
+      float Rn[9];
+      for (int i = 0; i < 3; ++i) {
+        for (int j = 0; j < 3; ++j) {
+          float acc = R[i * 3 + 0] * Q[0 * 3 + j];
+          acc = acc + R[i * 3 + 1] * Q[1 * 3 + j];
+          acc = acc + R[i * 3 + 2] * Q[2 * 3 + j];
+          Rn[i * 3 + j] = acc;
+        }
+      }
+      for (int e = 0; e < 9; ++e) R[e] = Rn[e];
+    } else if (jt == kPrismatic) {
+      const float x = qp[fi[2] * q_sd];
+      for (int i = 0; i < 3; ++i) {
+        float acc = R[i * 3 + 0] * ff[12];
+        acc = acc + R[i * 3 + 1] * ff[13];
+        acc = acc + R[i * 3 + 2] * ff[14];
+        t[i] = t[i] + x * acc;
+      }
+    }
+    if (fi[3] >= 0) {
+      float* dst = s_pose + fi[3] * 12 * T + tid;
+      for (int e = 0; e < 9; ++e) dst[e * T] = R[e];
+      for (int e = 0; e < 3; ++e) dst[(9 + e) * T] = t[e];
+    }
+
+    // Spheres carried by this frame: centre, environment checks, store.
+    for (int idx = fi[4]; idx < fi[5]; ++idx) {
+      const int k = r.sphere_order[idx];
+      const float* sf = r.sphere_f + k * 4;
+      float p[3];
+      for (int i = 0; i < 3; ++i) {
+        float acc = R[i * 3 + 0] * sf[0];
+        acc = acc + R[i * 3 + 1] * sf[1];
+        acc = acc + R[i * 3 + 2] * sf[2];
+        p[i] = acc + t[i];
+      }
+      const float px = p[0], py = p[1], pz = p[2], rad = sf[3];
+      s_ctr[(k * 3 + 0) * T + tid] = px;
+      s_ctr[(k * 3 + 1) * T + tid] = py;
+      s_ctr[(k * 3 + 2) * T + tid] = pz;
+
+      for (int m = 0; m < env.ls; ++m) {
+        const float* o = env.sph + m * 4;
+        const float d2 = sq(px - o[0]) + sq(py - o[1]) + sq(pz - o[2]);
+        const float rs = rad + o[3];
+        vmin = fminf(vmin, d2 - rs * rs);
+      }
+      for (int m = 0; m < env.lc; ++m) {
+        const float* o = env.cap + m * 8;
+        const float dot = (px - o[0]) * o[3] + (py - o[1]) * o[4] + (pz - o[2]) * o[5];
+        const float u = fminf(fmaxf(dot * o[7], 0.0f), 1.0f);
+        const float d2 = sq(px - (o[0] + o[3] * u)) + sq(py - (o[1] + o[4] * u)) +
+                         sq(pz - (o[2] + o[5] * u));
+        const float rs = rad + o[6];
+        vmin = fminf(vmin, d2 - rs * rs);
+      }
+      for (int m = 0; m < env.lzc; ++m) {
+        const float* o = env.zcap + m * 8;
+        const float u = fminf(fmaxf((pz - o[2]) * o[5] * o[7], 0.0f), 1.0f);
+        const float d2 = sq(px - o[0]) + sq(py - o[1]) + sq(pz - (o[2] + o[5] * u));
+        const float rs = rad + o[6];
+        vmin = fminf(vmin, d2 - rs * rs);
+      }
+      for (int m = 0; m < env.lb; ++m) {
+        const float* o = env.cub + m * 15;
+        const float xs = px - o[0], ys = py - o[1], zs = pz - o[2];
+        const float a1 = fmaxf(fabsf(o[3] * xs + o[4] * ys + o[5] * zs) - o[12], 0.0f);
+        const float a2 = fmaxf(fabsf(o[6] * xs + o[7] * ys + o[8] * zs) - o[13], 0.0f);
+        const float a3 = fmaxf(fabsf(o[9] * xs + o[10] * ys + o[11] * zs) - o[14], 0.0f);
+        vmin = fminf(vmin, a1 * a1 + a2 * a2 + a3 * a3 - rad * rad);
+      }
+      for (int m = 0; m < env.lzb; ++m) {
+        const float* o = env.zcub + m * 15;
+        const float xs = px - o[0], ys = py - o[1], zs = pz - o[2];
+        const float a1 = fmaxf(fabsf(o[3] * xs + o[4] * ys) - o[12], 0.0f);
+        const float a2 = fmaxf(fabsf(o[6] * xs + o[7] * ys) - o[13], 0.0f);
+        const float a3 = fmaxf(fabsf(zs) - o[14], 0.0f);
+        vmin = fminf(vmin, a1 * a1 + a2 * a2 + a3 * a3 - rad * rad);
+      }
+    }
+  }
+
+  // Self-collision pair table.
+  for (int m = 0; m < r.P; ++m) {
+    const int i = r.pairs[2 * m], j = r.pairs[2 * m + 1];
+    const float dx = s_ctr[(i * 3 + 0) * T + tid] - s_ctr[(j * 3 + 0) * T + tid];
+    const float dy = s_ctr[(i * 3 + 1) * T + tid] - s_ctr[(j * 3 + 1) * T + tid];
+    const float dz = s_ctr[(i * 3 + 2) * T + tid] - s_ctr[(j * 3 + 2) * T + tid];
+    vmin = fminf(vmin, dx * dx + dy * dy + dz * dz - r.pair_thr[m]);
+  }
+  return vmin;
+}
+
+}  // namespace fkcc

@@ -1,0 +1,659 @@
+// RRT-Connect planner megakernel for NVIDIA Hopper (sm_90a): one whole
+// dynamic-domain, balanced, bidirectional RRT-Connect solve per block.
+//
+// Replaces the TPU kernel vamp_mvt_tpu/planning/rrtc_mega.py::_run_mega
+// (its body _make_mega_kernel).  The grid is one block per problem; the
+// block loops until its own problem is solved, out of sample budget or out
+// of node capacity, so a finished problem frees its SM at once.  One step
+// mirrors the lockstep plain version, vamp_mvt_tpu_torch/planning/rrtc.py
+// (_make_step), which the tests hold it against:
+//
+//   grow step (no connect chain active):
+//     - tree balancing;
+//     - K*W Halton samples (the integer digit recurrence of sampling/halton.py,
+//       numerator times the float32 constant 1/denom, scaled by the float32
+//       spans and lows of the plain version);
+//     - nearest node of tree a for every sample, in the dot form
+//       |n|^2 + |s|^2 - 2 n.s with each node's norm stored at insert; ties go
+//       to the smallest node index;
+//     - the dynamic-domain window prefilter, compaction of the first K kept
+//       samples (a warp ballot / popc scan) and the consumed-sample rule;
+//     - extension edges, FK + collision of their interpolation points
+//       (fkcc_device.cuh), inserts, dynamic-domain radius updates;
+//     - nearest node of tree b for every inserted node, and entry into a
+//       connect chain from the one nearest to tree b;
+//   connect step: up to C increments of the chain, inserted while valid.
+//
+// At the end the block walks both parent chains and exports only the
+// max_path path rows and the scalars (plus its work counters).
+//
+// Node memory.  On the TPU the (M + 32, 128) node buffer lived in VMEM.  Here
+// each problem owns M rows of (d + 4) floats in global memory (configuration,
+// in_start flag, dynamic-domain radius, parent index as int bits, squared
+// norm); only the live prefix is ever read, and for the trees of a typical
+// problem it stays in L1/L2.  Nearest-neighbour scans stage 128 node rows at
+// a time into shared memory.
+//
+// What bounds it.  Per grow step the block evaluates up to K edges of
+// 8 * ceil(length * resolution / 8) points each through FK + collision
+// (some 18k-30k FP32 operations per Panda configuration) and scans the live
+// tree once per sample (2d + 3 operations per node-sample pair), so it is
+// bound by FP32 arithmetic; the node rows it reads are a few KB a step.  The
+// block runs one problem with T threads, and its shared memory (mostly the
+// FK scratch of T threads: 117,676 bytes for Panda at T = 128) allows one
+// block per SM, so 132 problems are in flight on an H100 and the slowest
+// problem sets the kernel's end.
+//
+// Numerics.  --fmad=false; every sum in the plain version's order (sum_last
+// is left to right); `range / x` is computed as reciprocal(x) * range and
+// `x / range` as x * (1 / range), as PyTorch computes them on the card.  The
+// plain version's dot products go through cuBLAS, whose order is its own, so
+// a near tie in a nearest-neighbour scan can resolve differently.
+
+#include <cuda_runtime.h>
+
+#include <cstring>
+
+#include "fkcc_device.cuh"
+
+namespace {
+
+constexpr int kMaxDim = 16;
+constexpr int kMaxLanes = 128;   // K * W
+constexpr int kMaxEdges = 64;    // K + C
+constexpr int kChunk = 128;      // node rows staged per nearest-neighbour pass
+constexpr int kMeta = 4;         // in_start, radius, parent, norm
+constexpr int kLanesPerThread = kMaxLanes / 32;
+constexpr int kScalars = 16;
+constexpr int kWork = 2;
+// Radius of a node never updated: a finite stand-in for infinity, as in the
+// TPU kernel's node rows (mega_inputs writes it for the roots).
+constexpr float kBig = 1.0e30f;
+
+// The launcher's integer parameters (ip[]) then its float ones (fp[]), in
+// this order (ops/kernels/rrtc_mega_cuda.py::params).
+struct PlanParams {
+  int d, K, C, KW, M, max_path, num_points, dyn, balance, a_start0, G1, B;
+  int base[kMaxDim], digits[kMaxDim];
+  float range, inv_range, res8, radius, grow_ok, shrink_fail, min_radius, tree_ratio;
+  float inv_denom[kMaxDim], low[kMaxDim], span[kMaxDim];
+};
+constexpr int kIntParams = 12 + 2 * kMaxDim;
+constexpr int kFloatParams = 8 + 3 * kMaxDim;
+static_assert(sizeof(PlanParams) == 4 * (kIntParams + kFloatParams), "PlanParams is packed");
+
+// Planner state, kept in shared memory and written by thread 0 only.
+struct State {
+  int iters, sample_idx, n_nodes, size_start, size_goal, a_is_start, connect;
+  int c_tip, c_rem, c_other, done, junc_a, junc_b, a_j_start, gsteps, csteps;
+  int budget, consumed, n_acc, n_ins, kc;
+  float c_len;
+};
+
+// Shared-memory layout in floats (ints share the 4-byte slots).
+struct Layout {
+  int env, pose, q, samp, s2, chunk, ecfg, evec, enew, en, enear, endist, enrad,
+      eq2, eoff, ebad, epos, eod, eoidx, tip, inc, words, pathidx, total;
+  __host__ __device__ Layout(const PlanParams& p, const fkcc::EnvTables& et,
+                             const fkcc::Robot& r, int T) {
+    const int d = p.d, E = kMaxEdges;
+    int o = 0;
+    env = o; o += fkcc::env_floats(et);
+    pose = o; o += fkcc::scratch_floats(r, T);
+    q = o; o += d * T;
+    samp = o; o += kMaxLanes * d;
+    s2 = o; o += kMaxLanes;
+    chunk = o; o += kChunk * (d + 2);
+    ecfg = o; o += E * d;
+    evec = o; o += E * d;
+    enew = o; o += E * d;
+    en = o; o += E;
+    enear = o; o += E;
+    endist = o; o += E;
+    enrad = o; o += E;
+    eq2 = o; o += E;
+    eoff = o; o += E + 1;
+    ebad = o; o += E;
+    epos = o; o += E;
+    eod = o; o += E;
+    eoidx = o; o += E;
+    tip = o; o += d;
+    inc = o; o += d;
+    words = o; o += kMaxLanes / 32;
+    pathidx = o; o += p.max_path;
+    total = o;
+  }
+};
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+// Left-to-right sum of squares (validate.sum_last of v * v).
+__device__ __forceinline__ float sum_sq(const float* v, int d) {
+  float acc = v[0] * v[0];
+  for (int j = 1; j < d; ++j) acc = acc + v[j] * v[j];
+  return acc;
+}
+
+// Dot product in index order, no fused multiply-add (--fmad=false).
+__device__ __forceinline__ float dot(const float* a, const float* b, int d) {
+  float acc = a[0] * b[0];
+  for (int j = 1; j < d; ++j) acc = acc + a[j] * b[j];
+  return acc;
+}
+
+// Scan the live prefix [0, n_nodes) of a node buffer for the nearest node of
+// each query among rows whose in_start flag equals `want` (in_tree) or
+// differs from it.  Queries qidx = tid + r * T < nq of s_queries (nq x d) with
+// squared norms qn2; best d2 / index per query in best[] / bidx[].  Every
+// thread of the block must call it.
+__device__ void nearest_scan(const float* nb, int RS, int d, int n_nodes, float want,
+                             bool in_tree, const float* s_queries, const float* s_qn2,
+                             int nq, float* s_chunk, float best[kLanesPerThread],
+                             int bidx[kLanesPerThread], long long& pairs) {
+  const int T = blockDim.x, tid = threadIdx.x;
+  for (int r = 0; r < kLanesPerThread; ++r) {
+    best[r] = inf_f();
+    bidx[r] = 0;
+  }
+  for (int base = 0; base < n_nodes; base += kChunk) {
+    const int cnt = min(kChunk, n_nodes - base);
+    __syncthreads();
+    for (int i = tid; i < cnt * (d + 2); i += T) {
+      const int row = i / (d + 2), col = i % (d + 2);
+      const float* src = nb + (long long)(base + row) * RS;
+      s_chunk[i] = col < d ? src[col] : (col == d ? src[d + 3] : src[d]);
+    }
+    __syncthreads();
+    for (int r = 0; r < kLanesPerThread; ++r) {
+      const int qi = tid + r * T;
+      if (qi >= nq) break;
+      const float* qv = s_queries + qi * d;
+      const float q2 = s_qn2[qi];
+      float bd = best[r];
+      int bi = bidx[r];
+      for (int k = 0; k < cnt; ++k) {
+        const float* row = s_chunk + k * (d + 2);
+        if ((row[d + 1] == want) != in_tree) continue;
+        const float d2 = (q2 + row[d]) - 2.0f * dot(qv, row, d);
+        ++pairs;
+        if (d2 < bd) {
+          bd = d2;
+          bi = base + k;
+        }
+      }
+      best[r] = bd;
+      bidx[r] = bi;
+    }
+  }
+  __syncthreads();
+}
+
+__global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
+                                 const int* __restrict__ ctl,
+                                 const float* __restrict__ nodes0,
+                                 float* __restrict__ nodes, float* __restrict__ out_path,
+                                 int* __restrict__ out_scal,
+                                 long long* __restrict__ out_work) {
+  extern __shared__ float smem[];
+  __shared__ State st;
+  __shared__ unsigned long long s_pairs;
+  const int T = blockDim.x, tid = threadIdx.x, b = blockIdx.x;
+  const int d = p.d, K = p.K, C = p.C, KW = p.KW, M = p.M, RS = d + kMeta;
+  const Layout L(p, et, robot, T);
+  const fkcc::Env env = fkcc::load_env(et, b, smem + L.env);
+  float* s_pose = smem + L.pose;
+  float* s_q = smem + L.q;
+  float* s_samp = smem + L.samp;
+  float* s_s2 = smem + L.s2;
+  float* s_chunk = smem + L.chunk;
+  float* s_ecfg = smem + L.ecfg;
+  float* s_evec = smem + L.evec;
+  float* s_enew = smem + L.enew;
+  float* s_en = smem + L.en;
+  int* s_enear = reinterpret_cast<int*>(smem + L.enear);
+  float* s_endist = smem + L.endist;
+  float* s_enrad = smem + L.enrad;
+  float* s_eq2 = smem + L.eq2;
+  int* s_eoff = reinterpret_cast<int*>(smem + L.eoff);
+  int* s_ebad = reinterpret_cast<int*>(smem + L.ebad);
+  int* s_epos = reinterpret_cast<int*>(smem + L.epos);
+  float* s_eod = smem + L.eod;
+  int* s_eoidx = reinterpret_cast<int*>(smem + L.eoidx);
+  float* s_tip = smem + L.tip;
+  float* s_inc = smem + L.inc;
+  unsigned* s_words = reinterpret_cast<unsigned*>(smem + L.words);
+  int* s_pathidx = reinterpret_cast<int*>(smem + L.pathidx);
+
+  float* nb = nodes + (long long)b * M * RS;
+  long long configs = 0, pairs = 0;
+
+  // ------------------------------ initialisation --------------------------
+  const int* c = ctl + b * 8;
+  for (int i = tid; i < p.G1 * RS; i += T) {
+    const int row = i / RS, col = i % RS;
+    const float v = nodes0[((long long)b * p.G1 + row) * RS + col];
+    nb[(long long)row * RS + col] = col == d + 2 ? __int_as_float((int)v) : v;
+  }
+  if (tid == 0) {
+    st.iters = 0;
+    st.sample_idx = c[0] + 1;
+    st.n_nodes = p.G1;
+    st.size_start = 1;
+    st.size_goal = c[2];
+    st.a_is_start = p.a_start0;
+    st.connect = 0;
+    st.c_tip = 0;
+    st.c_rem = 0;
+    st.c_other = 0;
+    st.done = c[1];
+    st.junc_a = 0;
+    st.junc_b = 0;
+    st.a_j_start = 1;
+    st.gsteps = 0;
+    st.csteps = 0;
+    st.budget = c[3];
+    st.c_len = 1.0f;
+    s_pairs = 0;
+  }
+  for (int j = tid; j < d; j += T) s_inc[j] = 0.0f;
+  __syncthreads();
+
+  // --------------------------------- loop ---------------------------------
+  while (true) {
+    __syncthreads();
+    const int n_nodes = st.n_nodes;
+    if (!(st.done == 0 && (st.iters < st.budget || st.connect) && n_nodes < M)) break;
+    const bool grow = st.connect == 0;
+
+    // tree balancing (rrtc.hh:100-108), grow steps only
+    int a_is = st.a_is_start;
+    if (grow) {
+      const float asize = (float)(a_is ? st.size_start : st.size_goal);
+      const float bsize = (float)(a_is ? st.size_goal : st.size_start);
+      const float ratio = fabsf(asize - bsize) / asize;
+      if (!p.balance || ratio < p.tree_ratio) a_is = 1 - a_is;
+    }
+    const float af = (float)a_is;
+    int n_edges;
+    float n_conn = 1.0f;
+
+    if (grow) {
+      // --- K*W Halton samples scaled to the joint limits
+      for (int lane = tid; lane < KW; lane += T) {
+        const int idx = st.sample_idx + lane;
+        float* sv = s_samp + lane * d;
+        for (int j = 0; j < d; ++j) {
+          const int bj = p.base[j];
+          int i = idx, n = 0;
+          for (int k = 0; k < p.digits[j]; ++k) {
+            n = n * bj + i % bj;
+            i = i / bj;
+          }
+          const float u = (float)n * p.inv_denom[j];
+          sv[j] = u * p.span[j] + p.low[j];
+        }
+        s_s2[lane] = sum_sq(sv, d);
+      }
+      if (tid == 0) st.consumed = KW;
+      __syncthreads();
+
+      // --- nearest node of tree a for every sample
+      float best[kLanesPerThread];
+      int bidx[kLanesPerThread];
+      nearest_scan(nb, RS, d, n_nodes, af, true, s_samp, s_s2, KW, s_chunk, best, bidx,
+                   pairs);
+
+      // --- dynamic-domain prefilter, ballot scan of the kept samples
+      bool acc[kLanesPerThread];
+      float ndist[kLanesPerThread], nrad[kLanesPerThread];
+      for (int r = 0; r < kLanesPerThread; ++r) {
+        const int lane = tid + r * T;
+        acc[r] = false;
+        if (lane < KW) {
+          ndist[r] = sqrtf(fmaxf(best[r], 0.0f));
+          nrad[r] = nb[(long long)bidx[r] * RS + d + 1];
+          acc[r] = !(p.dyn && nrad[r] < ndist[r]);
+        }
+        const int first = r * T;
+        if (first < KW) {  // warp-uniform: lanes of a warp share r
+          const unsigned word = __ballot_sync(0xffffffffu, acc[r]);
+          if ((tid & 31) == 0 && lane < KW) s_words[lane >> 5] = word;
+        }
+      }
+      __syncthreads();
+      const int n_words = (KW + 31) / 32;
+      int total_acc = 0;
+      for (int w = 0; w < n_words; ++w) total_acc += __popc(s_words[w]);
+      const int n_acc = min(total_acc, K);
+      for (int r = 0; r < kLanesPerThread; ++r) {
+        const int lane = tid + r * T;
+        if (lane >= KW || !acc[r]) continue;
+        int rank = __popc(s_words[lane >> 5] & ((1u << (lane & 31)) - 1u));
+        for (int w = 0; w < (lane >> 5); ++w) rank += __popc(s_words[w]);
+        if (rank >= K) continue;
+        if (rank == K - 1) st.consumed = lane + 1;
+        for (int j = 0; j < d; ++j) s_ecfg[rank * d + j] = s_samp[lane * d + j];
+        s_enear[rank] = bidx[r];
+        s_endist[rank] = ndist[r];
+        s_enrad[rank] = nrad[r];
+      }
+      __syncthreads();
+
+      // --- extension edges of the kept samples
+      for (int e = tid; e < n_acc; e += T) {
+        const float nd = s_endist[e];
+        const float* near = nb + (long long)s_enear[e] * RS;
+        const float scale = nd < p.range ? 1.0f : (1.0f / fmaxf(nd, 1e-12f)) * p.range;
+        float* cfg = s_ecfg + e * d;  // the sample; becomes the edge start
+        float* vec = s_evec + e * d;
+        float* nw = s_enew + e * d;
+        for (int j = 0; j < d; ++j) {
+          const float nj = near[j];
+          vec[j] = (cfg[j] - nj) * scale;
+          cfg[j] = nj;
+          nw[j] = nj + vec[j];
+        }
+        s_en[e] = fmaxf(ceilf(fminf(nd, p.range) * p.res8), 1.0f);
+        s_eq2[e] = sum_sq(nw, d);
+      }
+      n_edges = n_acc;
+      if (tid == 0) st.n_acc = n_acc;
+    } else {
+      n_edges = min(C, st.c_rem);
+      const float* tip = nb + (long long)st.c_tip * RS;
+      for (int j = tid; j < d; j += T) s_tip[j] = tip[j];
+      n_conn = fmaxf(ceilf(st.c_len * p.res8), 1.0f);
+    }
+    __syncthreads();
+    if (tid == 0) {
+      s_eoff[0] = 0;
+      for (int e = 0; e < n_edges; ++e) {
+        const float n = grow ? s_en[e] : n_conn;
+        s_eoff[e + 1] = s_eoff[e] + min(8 * (int)n, p.num_points);
+        s_ebad[e] = 0;
+      }
+      configs += s_eoff[n_edges];
+    }
+    __syncthreads();
+
+    // --- FK + collision of every interpolation point of the active edges
+    const int total = s_eoff[n_edges];
+    for (int pt = tid; pt < total; pt += T) {
+      int e = 0;
+      while (s_eoff[e + 1] <= pt) ++e;
+      const int k = pt - s_eoff[e] + 1;
+      const float n = grow ? s_en[e] : n_conn;
+      const float frac = fminf((float)k / (8.0f * n), 1.0f);
+      if (grow) {
+        for (int j = 0; j < d; ++j) s_q[j * T + tid] = s_ecfg[e * d + j] + s_evec[e * d + j] * frac;
+      } else {
+        const float seg = (float)e + frac;
+        for (int j = 0; j < d; ++j) s_q[j * T + tid] = s_tip[j] + s_inc[j] * seg;
+      }
+      if (fkcc::config_vmin(env, robot, s_pose, T, tid, s_q + tid, T) < 0.0f) s_ebad[e] = 1;
+    }
+    __syncthreads();
+
+    if (grow) {
+      const int n_acc = st.n_acc;
+      // --- insert positions: every valid edge, in order, while room remains
+      if (tid == 0) {
+        const int room = M - n_nodes;
+        int order = 0, n_ins = 0;
+        for (int e = 0; e < n_acc; ++e) {
+          s_epos[e] = -1;
+          if (s_ebad[e]) continue;
+          if (order < room) {
+            s_epos[e] = n_nodes + order;
+            ++n_ins;
+          }
+          ++order;
+        }
+        st.n_ins = n_ins;
+      }
+      __syncthreads();
+      const int n_ins = st.n_ins;
+
+      // --- nearest node of tree b (pre-step) for every edge, connect entry
+      if (n_ins > 0) {
+        float best[kLanesPerThread];
+        int bidx[kLanesPerThread];
+        nearest_scan(nb, RS, d, n_nodes, af, false, s_enew, s_eq2, n_acc, s_chunk, best,
+                     bidx, pairs);
+        for (int r = 0; r < kLanesPerThread; ++r) {
+          const int e = tid + r * T;
+          if (e < n_acc) {
+            s_eod[e] = sqrtf(fmaxf(best[r], 0.0f));
+            s_eoidx[e] = bidx[r];
+          }
+        }
+        }
+      __syncthreads();
+
+      // --- inserts: configuration, tree flag, radius, parent, norm
+      for (int e = tid; e < n_acc; e += T) {
+        const int pos = s_epos[e];
+        if (pos < 0) continue;
+        float* row = nb + (long long)pos * RS;
+        for (int j = 0; j < d; ++j) row[j] = s_enew[e * d + j];
+        row[d] = af;
+        row[d + 1] = kBig;
+        row[d + 2] = __int_as_float(s_enear[e]);
+        row[d + 3] = s_eq2[e];
+      }
+      if (tid == 0) {
+        // dynamic-domain radius updates (rrtc.hh:152-155, 226-237): from the
+        // pre-step radii, in lane order, so the last lane sharing a node wins
+        if (p.dyn) {
+          for (int e = 0; e < n_acc; ++e) {
+            const float r = s_enrad[e];
+            const bool inf_r = r > 0.5f * kBig;
+            const float nr = !s_ebad[e] ? (inf_r ? r : r * p.grow_ok)
+                                        : (inf_r ? p.radius : fmaxf(r * p.shrink_fail, p.min_radius));
+            nb[(long long)s_enear[e] * RS + d + 1] = nr;
+          }
+        }
+        int kc = 0;
+        if (n_ins > 0) {
+          float bd = inf_f();
+          for (int e = 0; e < n_acc; ++e) {
+            if (s_epos[e] >= 0 && s_eod[e] < bd) {
+              bd = s_eod[e];
+              kc = e;
+            }
+          }
+        }
+        st.kc = kc;
+      }
+      __syncthreads();
+
+      // --- state update (thread 0), connect-chain entry
+      const int kc = st.kc;
+      const float other_dist = s_eod[kc];
+      const int other = s_eoidx[kc];
+      const int n_ext = (int)ceilf(other_dist * p.inv_range);
+      const float n_ext_f = fmaxf((float)n_ext, 1.0f);
+      const bool enter = n_ins > 0;
+      if (enter) {
+        const float* orow = nb + (long long)other * RS;
+        for (int j = tid; j < d; j += T) s_inc[j] = (orow[j] - s_enew[kc * d + j]) / n_ext_f;
+      }
+      if (tid == 0) {
+        const int n_nodes_new = n_nodes + n_ins;
+        if (a_is) st.size_start += n_ins;
+        else st.size_goal += n_ins;
+        const int tip_after = enter ? s_epos[kc] : st.c_tip;
+        const int rem_after = enter ? n_ext : 0;
+        const bool joined = enter && n_ext == 0 && st.done == 0;
+        const bool cnext = enter && n_ext > 0 && !joined && n_nodes_new < M;
+        if (enter) st.c_len = other_dist / n_ext_f;
+        if (joined) {
+          st.done = 1;
+          st.junc_a = tip_after;
+          st.junc_b = other;
+          st.a_j_start = a_is;
+        }
+        if (enter) st.c_other = other;
+        st.c_tip = tip_after;
+        st.c_rem = rem_after;
+        st.connect = cnext ? 1 : 0;
+        st.a_is_start = a_is;
+        st.n_nodes = n_nodes_new;
+        st.iters += st.consumed;
+        st.sample_idx += st.consumed;
+        st.gsteps += 1;
+      }
+    } else {
+      // --- connect step: insert the leading run of valid increments
+      const int attempted = n_edges;
+      int prefix = 0;
+      while (prefix < attempted && !s_ebad[prefix]) ++prefix;
+      const int c_ins = min(prefix, M - n_nodes);
+      for (int j = tid; j < c_ins; j += T) {
+        float* row = nb + (long long)(n_nodes + j) * RS;
+        const float step = (float)j + 1.0f;
+        for (int k = 0; k < d; ++k) row[k] = s_tip[k] + s_inc[k] * step;
+        row[d] = af;
+        row[d + 1] = kBig;
+        row[d + 2] = __int_as_float(j == 0 ? st.c_tip : n_nodes + j - 1);
+        row[d + 3] = sum_sq(row, d);
+      }
+      __syncthreads();
+      if (tid == 0) {
+        const int n_nodes_new = n_nodes + c_ins;
+        if (a_is) st.size_start += c_ins;
+        else st.size_goal += c_ins;
+        const bool fail_chain = prefix < attempted;
+        const bool chain_ok = !fail_chain && c_ins == prefix;
+        const int tip_after = chain_ok && prefix > 0 ? n_nodes + prefix - 1 : st.c_tip;
+        const int rem_after = st.c_rem - prefix;
+        const bool joined = chain_ok && rem_after == 0 && st.done == 0;
+        const bool cnext = chain_ok && rem_after > 0 && !joined && n_nodes_new < M;
+        if (joined) {
+          st.done = 1;
+          st.junc_a = tip_after;
+          st.junc_b = st.c_other;
+          st.a_j_start = a_is;
+        }
+        st.c_tip = tip_after;
+        st.c_rem = rem_after;
+        st.connect = cnext ? 1 : 0;
+        st.a_is_start = a_is;
+        st.n_nodes = n_nodes_new;
+        st.csteps += 1;
+      }
+    }
+  }
+
+  // ------------------------------ path export -----------------------------
+  // rows 0..la-1: chain A root..junction; la..la+lb-1: chain B junction..root
+  // (the positions rrtc._recover_path scatters to); other rows are zero
+  const int PP = p.max_path;
+  if (tid == 0) {
+    for (int i = 0; i < PP; ++i) s_pathidx[i] = -1;
+    int la = -1, lb = -1, cur = st.junc_a;
+    for (int i = 0; i < PP; ++i) {
+      const int par = __float_as_int(nb[(long long)cur * RS + d + 2]);
+      if (la < 0 && par == cur) la = i + 1;
+      cur = par;
+    }
+    la = max(la, 1);
+    cur = st.junc_b;
+    for (int i = 0; i < PP; ++i) {
+      const int par = __float_as_int(nb[(long long)cur * RS + d + 2]);
+      if (lb < 0 && par == cur) lb = i + 1;
+      cur = par;
+    }
+    lb = max(lb, 1);
+    cur = st.junc_a;
+    for (int k = 0; k < la; ++k) {
+      s_pathidx[la - 1 - k] = cur;
+      cur = __float_as_int(nb[(long long)cur * RS + d + 2]);
+    }
+    cur = st.junc_b;
+    for (int k = 0; k < lb && la + k < PP; ++k) {
+      s_pathidx[la + k] = cur;
+      cur = __float_as_int(nb[(long long)cur * RS + d + 2]);
+    }
+    int* sc = out_scal + (long long)b * kScalars;
+    sc[0] = st.done;
+    sc[1] = st.junc_a;
+    sc[2] = st.junc_b;
+    sc[3] = st.a_j_start;
+    sc[4] = st.iters;
+    sc[5] = st.sample_idx - 1;
+    sc[6] = st.n_nodes;
+    sc[7] = st.size_start;
+    sc[8] = st.size_goal;
+    sc[9] = st.gsteps;
+    sc[10] = st.csteps;
+    sc[11] = la;
+    sc[12] = lb;
+    sc[13] = 0;
+    sc[14] = 0;
+    sc[15] = 0;
+  }
+  atomicAdd(&s_pairs, (unsigned long long)pairs);
+  __syncthreads();
+  for (int i = tid; i < PP * d; i += T) {
+    const int row = i / d, col = i % d;
+    const int node = s_pathidx[row];
+    out_path[(long long)b * PP * d + i] = node >= 0 ? nb[(long long)node * RS + col] : 0.0f;
+  }
+  if (tid == 0) {
+    long long* w = out_work + (long long)b * kWork;
+    w[0] = configs;
+    w[1] = (long long)s_pairs;
+  }
+}
+
+}  // namespace
+
+// Launch one block per problem on `stream`; returns the CUDA error code of
+// the launch (0 = ok), or -1 when no block size fits in shared memory.
+// ip / fp are host arrays in PlanParams order; the block has the largest of
+// 128, 64, 32 threads whose shared memory fits in max_smem bytes.  launch_info
+// receives the threads, the dynamic shared memory in bytes and the blocks
+// the card keeps resident on one SM.
+extern "C" int rrtc_mega_launch(
+    const float* sph, const float* cap, const float* zcap, const float* cub,
+    const float* zcub, int ns, int nc, int nzc, int nb, int nzb, int env_batched,
+    const int* frame_i, const float* frame_f, int F, int n_slots,
+    const int* sphere_order, const float* sphere_f, int S, const int* pairs,
+    const float* pair_thr, int P, const int* ip, const float* fp, const int* ctl,
+    const float* nodes0, float* nodes, float* out_path, int* out_scal,
+    long long* out_work, int max_smem, int* launch_info, void* stream) {
+  const fkcc::EnvTables et{sph, cap, zcap, cub, zcub, ns, nc, nzc, nb, nzb, env_batched};
+  const fkcc::Robot robot{frame_i, frame_f, F, n_slots, sphere_order, sphere_f, S,
+                          pairs, pair_thr, P};
+  PlanParams p;
+  memcpy(&p, ip, kIntParams * 4);
+  memcpy(reinterpret_cast<char*>(&p) + kIntParams * 4, fp, kFloatParams * 4);
+  int T = 0, bytes = 0;
+  const int cands[] = {128, 64, 32};
+  for (int cand : cands) {
+    const int need = Layout(p, et, robot, cand).total * 4;
+    if (need <= max_smem) {
+      T = cand;
+      bytes = need;
+      break;
+    }
+  }
+  if (T == 0) return -1;
+  cudaError_t err = cudaFuncSetAttribute(
+      rrtc_mega_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so the next launch's check does not see it
+    return (int)err;
+  }
+  launch_info[0] = T;
+  launch_info[1] = bytes;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&launch_info[2], rrtc_mega_kernel, T, bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  rrtc_mega_kernel<<<p.B, T, bytes, (cudaStream_t)stream>>>(et, robot, p, ctl, nodes0, nodes,
+                                                           out_path, out_scal, out_work);
+  return (int)cudaGetLastError();
+}

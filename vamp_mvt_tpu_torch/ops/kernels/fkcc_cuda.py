@@ -2,9 +2,10 @@
 
 Port of `vamp_mvt_tpu/ops/kernels/fkcc_pallas.py` (`_run`, its entry points
 `fkcc_pallas_batched` / `fkcc_pallas_batched_lanes`) for the primitive and
-self-collision branches.  The kernel is `csrc/fkcc.cu`, CUDA C++ for sm_90a,
-compiled with nvcc into `build/` at first use (keyed by a hash of the source
-and flags) and bound with ctypes.
+self-collision branches.  The kernel is `csrc/fkcc.cu` (its FK + collision
+code is `csrc/fkcc_device.cuh`, which the megakernels share), CUDA C++ for
+sm_90a, built by `ops/kernels/build.py` into `build/` at first use and bound
+with ctypes.
 
   fkcc_batched(spec, envs, q)          q (B, N, d)  -> (B, N) bool
   fkcc_batched_lanes(spec, envs, q_d)  q_d (B, d, N) -> (B, N) bool
@@ -19,13 +20,6 @@ a failed build, load or launch raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -33,26 +27,16 @@ import torch
 from vamp_mvt_tpu_torch.collision.environment import TABLES, Environment
 from vamp_mvt_tpu_torch.ops import fkcc as fkcc_ops
 from vamp_mvt_tpu_torch.ops import smat
+from vamp_mvt_tpu_torch.ops.kernels import build
 from vamp_mvt_tpu_torch.robots.spec import PRISMATIC, REVOLUTE, RobotSpec
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "fkcc.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-)
 # Shared memory one block may use on an H100 (227 KB).
 MAX_SMEM = 232448
 THREADS = (128, 64, 32)
 
 # Kernel launches made by this process; callers reset it to 0 around a run.
 LAUNCHES = 0
-# What the last build reported: seconds, whether the library came from the
-# cache, and nvcc's output (registers and shared memory per kernel).
-BUILD_INFO: dict = {}
-
 _LIB = None
-_LIB_LOCK = threading.Lock()
 _TABLES: dict = {}
 _HOST_TABLES: dict = {}
 
@@ -62,55 +46,22 @@ _HOST_TABLES: dict = {}
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the fkcc kernel cannot be built")
-
-
 def library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (see ops/kernels/build.py) and load the kernel library."""
     global _LIB
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
-        t0 = time.perf_counter()
-        src = SOURCE.read_bytes()
-        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"fkcc_{key}.so"
-        cached = so.exists()
-        log = ""
-        if not cached:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True, check=False,
-            )
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed building {SOURCE}:\n{log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+    if _LIB is None:
+        lib = build.library("fkcc")
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.fkcc_launch.argtypes = [
-            P, P, P, P, P, I, I, I, I, I, I,      # env tables, rows, batched
+            *ENV_ARGTYPES,                        # env tables, rows, batched
             P, L, L, L, I, I,                     # q, strides, B, N
-            P, P, I, I,                           # frame tables, F, slots
-            P, P, I, P, P, I,                     # spheres, S, pairs, P
+            *ROBOT_ARGTYPES,                      # frame, sphere, pair tables
             P, P,                                 # outputs
             I, I, P,                              # threads, smem, stream
         ]
         lib.fkcc_launch.restype = ctypes.c_int
-        BUILD_INFO.update(
-            seconds=time.perf_counter() - t0, cached=cached, log=log, path=str(so)
-        )
         _LIB = lib
-        return lib
+    return _LIB
 
 
 # ---------------------------------------------------------------------------
@@ -208,6 +159,35 @@ def _check_inputs(spec: RobotSpec, envs: Environment, q: torch.Tensor, B: int):
             raise ValueError(f"fkcc: env.{name} batch {t.shape[0]} vs q batch {B}")
 
 
+# ctypes argument types of the shape tables and of the robot tables, in the
+# order every launcher of the port (fkcc, rrtc_mega, simplify_mega) takes them.
+ENV_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+ROBOT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None and t.numel() else None
+
+
+def table_args(spec: RobotSpec, envs: Environment, device: torch.device):
+    """Launch arguments of the shape tables (pointers, row counts, batched
+    flag) and of the robot tables, plus the tensors they point into (keep
+    them alive until the launch returns)."""
+    env_t = [getattr(envs, n).contiguous() for n in TABLES]
+    tabs = _device_tables(spec, device)
+    env = [_ptr(t) for t in env_t] + [t.shape[1] for t in env_t] + [
+        int(envs.spheres.shape[0] > 1)]
+    robot = [
+        _ptr(tabs["frame_i"]), _ptr(tabs["frame_f"]), len(spec.frames),
+        tabs["n_slots"], _ptr(tabs["sphere_order"]), _ptr(tabs["sphere_f"]),
+        spec.n_spheres, _ptr(tabs["pairs"]), _ptr(tabs["pair_thr"]),
+        len(spec.self_collision_pairs),
+    ]
+    return env, robot, env_t
+
+
 def _launch(spec, envs, q, q_strides, B, N, want_vmin):
     global LAUNCHES
     if not q.is_cuda:
@@ -215,10 +195,7 @@ def _launch(spec, envs, q, q_strides, B, N, want_vmin):
     _check_inputs(spec, envs, q, B)
     if B > 65535:
         raise ValueError(f"fkcc: batch {B} exceeds the grid's 65535 problems")
-    tabs = _device_tables(spec, q.device)
-    env_t = [getattr(envs, n).contiguous() for n in TABLES]
-    env_batched = int(envs.spheres.shape[0] > 1)
-    rows = {n: t.shape[1] for n, t in zip(TABLES, env_t)}
+    rows = {n: getattr(envs, n).shape[1] for n in TABLES}
     threads = next(
         (T for T in THREADS if smem_bytes(spec, rows, T) <= MAX_SMEM), None
     )
@@ -233,14 +210,9 @@ def _launch(spec, envs, q, q_strides, B, N, want_vmin):
     if N == 0:
         return valid, vmin
     lib = library()
-    ptr = lambda t: t.data_ptr() if t is not None and t.numel() else None
+    env, robot, _keep = table_args(spec, envs, q.device)
     err = lib.fkcc_launch(
-        *[ptr(t) for t in env_t], *[rows[n] for n in TABLES], env_batched,
-        q.data_ptr(), *q_strides, B, N,
-        ptr(tabs["frame_i"]), ptr(tabs["frame_f"]), len(spec.frames),
-        tabs["n_slots"], ptr(tabs["sphere_order"]), ptr(tabs["sphere_f"]),
-        spec.n_spheres, ptr(tabs["pairs"]), ptr(tabs["pair_thr"]),
-        len(spec.self_collision_pairs), valid.data_ptr(), ptr(vmin),
+        *env, q.data_ptr(), *q_strides, B, N, *robot, valid.data_ptr(), _ptr(vmin),
         threads, smem_bytes(spec, rows, threads),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -327,15 +299,16 @@ def fkcc_vmin(spec: RobotSpec, envs: Environment, q: torch.Tensor) -> torch.Tens
 # ---------------------------------------------------------------------------
 
 # FP32 operations per robot sphere and live row of each table, and per pair,
-# counted from csrc/fkcc.cu (sin/cos count as one operation each).
+# counted from csrc/fkcc_device.cuh (sin/cos count as one operation each).
 OPS_PER_ROW = {"spheres": 12, "capsules": 29, "z_capsules": 19,
                "cuboids": 35, "z_cuboids": 26}
 OPS_PER_PAIR = 10
 
 
-def op_count(spec: RobotSpec, live: dict[str, np.ndarray], n_configs: int) -> int:
-    """FP32 operations the kernel does for `n_configs` configurations of each
-    problem, given each problem's live row counts (arrays of shape (B,))."""
+def ops_per_config(spec: RobotSpec, live: dict[str, np.ndarray]) -> np.ndarray:
+    """FP32 operations of one configuration's FK + collision check
+    (csrc/fkcc_device.cuh) in each problem, given each problem's live row
+    counts (arrays of shape (B,)); shared by all three kernels."""
     fk = 0
     for f in spec.frames:
         if f.parent >= 0:
@@ -345,7 +318,12 @@ def op_count(spec: RobotSpec, live: dict[str, np.ndarray], n_configs: int) -> in
         elif f.joint_type == PRISMATIC:
             fk += 21
     fk += 18 * spec.n_spheres + OPS_PER_PAIR * len(spec.self_collision_pairs) + 1
-    per_problem = sum(
+    return fk + sum(
         OPS_PER_ROW[n] * np.asarray(live[n], np.int64) for n in TABLES
     ) * spec.n_spheres
-    return int(n_configs * (fk * len(per_problem) + int(np.sum(per_problem))))
+
+
+def op_count(spec: RobotSpec, live: dict[str, np.ndarray], n_configs: int) -> int:
+    """FP32 operations the kernel does for `n_configs` configurations of each
+    problem, given each problem's live row counts (arrays of shape (B,))."""
+    return int(n_configs * np.sum(ops_per_config(spec, live)))

@@ -1,0 +1,150 @@
+"""The RRT-Connect planner megakernel for Hopper: binding and launch.
+
+Port of the TPU kernel `vamp_mvt_tpu/planning/rrtc_mega.py::_run_mega`
+(body `_make_mega_kernel`).  The kernel is `csrc/rrtc_mega.cu`, CUDA C++ for
+sm_90a, built by `ops/kernels/build.py`; its host side (control word, initial
+node rows, result) is `planning/rrtc_mega.py`, and its plain version is the
+lockstep planner `planning/rrtc.py::plan_batch`.
+
+  plan(spec, envs, ctl, nodes0, settings)
+      ctl (B, 8) int32, nodes0 (B, 1 + G, d + 4) float32, CUDA tensors
+      -> path (B, max_path, d) float32, scal (B, 16) int32, work (B, 2) int64
+
+`scal` holds done, junction a, junction b, a-tree-was-start at the join,
+iterations, samples drawn, nodes, start-tree size, goal-tree size, grow steps,
+connect steps and the two chain lengths; `work` holds the configurations
+checked and the node-sample pairs scanned.  A failed
+build or launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from vamp_mvt_tpu_torch.collision.environment import Environment
+from vamp_mvt_tpu_torch.ops.kernels import build, fkcc_cuda
+from vamp_mvt_tpu_torch.planning import validate as validate_mod
+from vamp_mvt_tpu_torch.robots.spec import RobotSpec
+from vamp_mvt_tpu_torch.sampling.halton import PRIMES, _digit_counts
+
+MAX_DIM = 16       # kMaxDim of the kernel (one Halton base per dimension)
+SCALARS = 16
+WORK = 2
+# the kernel's static shared memory (state) comes on top of the dynamic part
+_STATIC_SMEM = 1024
+
+# Kernel launches made by this process; callers reset it to 0 around a run.
+LAUNCHES = 0
+# The last launch's threads a block, dynamic shared memory (bytes) and the
+# blocks the card keeps resident on one SM.
+LAST_LAUNCH: dict = {}
+_LIB = None
+
+
+def library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = build.library("rrtc_mega")
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.rrtc_mega_launch.argtypes = [
+            *fkcc_cuda.ENV_ARGTYPES, *fkcc_cuda.ROBOT_ARGTYPES,
+            P, P,                    # integer and float parameters (host)
+            P, P, P,                 # ctl, nodes0, node buffer
+            P, P, P,                 # path, scalars, work counters
+            I, P, P,                 # max shared memory, launch info, stream
+        ]
+        lib.rrtc_mega_launch.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def params(spec: RobotSpec, s, G1: int, B: int) -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's integer and float parameters, as float32 values equal to
+    the ones the plain version computes with."""
+    d = spec.dimension
+    if d > MAX_DIM:
+        raise ValueError(f"rrtc_mega: dimension {d} above {MAX_DIM}")
+    f32 = np.float32
+    digits = _digit_counts(d)
+    bases = list(PRIMES[:d])
+    pad = [0] * (MAX_DIM - d)
+    ip = np.array(
+        [d, s.samples_per_step, s.connect_segments,
+         s.samples_per_step * s.sample_window, s.max_samples, s.max_path,
+         validate_mod.n_points_bound(spec, s.range), int(s.dynamic_domain),
+         int(s.balance), int(not s.start_tree_first), G1, B]
+        + bases + pad + digits + pad, np.int32,
+    )
+    lows = np.asarray(spec.limits_low, f32)
+    spans = np.asarray(spec.limits_high, f32) - lows
+    fpad = [f32(0)] * (MAX_DIM - d)
+    fp = np.array(
+        [f32(s.range), f32(1.0) / f32(s.range), f32(spec.resolution / 8.0),
+         f32(s.radius), f32(1.0 + s.alpha), f32(1.0 - s.alpha), f32(s.min_radius),
+         f32(s.tree_ratio)]
+        + [f32(1.0 / float(b ** c)) for b, c in zip(bases, digits)] + fpad
+        + list(lows) + fpad + list(spans) + fpad, np.float32,
+    )
+    return ip, fp
+
+
+def _check(spec, envs: Environment, ctl, nodes0, s):
+    if not (ctl.is_cuda and nodes0.is_cuda):
+        raise ValueError("rrtc_mega kernel launch needs CUDA tensors")
+    if ctl.dtype != torch.int32 or nodes0.dtype != torch.float32:
+        raise TypeError("rrtc_mega: ctl must be int32 and nodes0 float32")
+    B = ctl.shape[0]
+    d = spec.dimension
+    if ctl.shape != (B, 8) or nodes0.dim() != 3 or nodes0.shape[0] != B \
+            or nodes0.shape[2] != d + 4:
+        raise ValueError(
+            f"rrtc_mega: ctl {tuple(ctl.shape)} must be (B, 8) and nodes0 "
+            f"{tuple(nodes0.shape)} (B, 1 + G, {d + 4})")
+    if not (ctl.is_contiguous() and nodes0.is_contiguous()):
+        raise ValueError("rrtc_mega: ctl and nodes0 must be contiguous")
+    if nodes0.shape[1] > s.max_samples:
+        raise ValueError("rrtc_mega: more roots than node rows")
+    fkcc_cuda._check_inputs(spec, envs, nodes0, B)
+
+
+def plan(spec: RobotSpec, envs: Environment, ctl: torch.Tensor, nodes0: torch.Tensor,
+         settings):
+    """Launch the planner megakernel, one block per problem (see module doc)."""
+    global LAUNCHES
+    _check(spec, envs, ctl, nodes0, settings)
+    B, G1, _ = nodes0.shape
+    d, M, P = spec.dimension, settings.max_samples, settings.max_path
+    dev = ctl.device
+    ip, fp = params(spec, settings, G1, B)
+    nodes = torch.empty((B, M, d + 4), dtype=torch.float32, device=dev)
+    path = torch.empty((B, P, d), dtype=torch.float32, device=dev)
+    scal = torch.empty((B, SCALARS), dtype=torch.int32, device=dev)
+    work = torch.empty((B, WORK), dtype=torch.int64, device=dev)
+    if B == 0:
+        return path, scal, work
+    lib = library()
+    env, robot, _keep = fkcc_cuda.table_args(spec, envs, dev)
+    info = (ctypes.c_int * 3)()
+    err = lib.rrtc_mega_launch(
+        *env, *robot, ip.ctypes.data, fp.ctypes.data, ctl.data_ptr(), nodes0.data_ptr(),
+        nodes.data_ptr(), path.data_ptr(), scal.data_ptr(), work.data_ptr(),
+        fkcc_cuda.MAX_SMEM - _STATIC_SMEM, info,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err == -1:
+        raise ValueError(f"rrtc_mega: {spec.name} does not fit a block's shared memory")
+    if err != 0:
+        raise RuntimeError(f"rrtc_mega kernel launch failed with CUDA error {err}")
+    LAUNCHES += 1
+    LAST_LAUNCH.update(threads=info[0], smem_bytes=info[1], blocks_per_sm=info[2])
+    return path, scal, work
+
+
+# FP32 operations per node-sample pair of the nearest-neighbour scans
+# (d products, d - 1 sums, then + norm, 2x, -, compare), counted from
+# csrc/rrtc_mega.cu.
+def ops_per_pair(d: int) -> int:
+    return 2 * d + 3

@@ -381,7 +381,9 @@ def _walk(parents: torch.Tensor, start_idx: torch.Tensor, cap: int):
 
 
 def _recover_path(st: _State, P: int, d: int):
-    """Reconstruct each path through both junction nodes (rrtc.hh:193-224)."""
+    """Each problem's path through both junction nodes (rrtc.hh:193-224),
+    laid out as chain A root..junction at rows 0..la-1 and chain B
+    junction..root after it.  Returns (path (B, P, d), total = la + lb)."""
     B = st.n_nodes.shape[0]
     dev = st.configs.device
     chain_a, la = _walk(st.parents, st.junction_a, P)
@@ -397,17 +399,46 @@ def _recover_path(st: _State, P: int, d: int):
     pos_b = torch.where(k[None] < lb[:, None], la[:, None] + k[None], P)
     pos_b = torch.clamp_max(pos_b, P)
     path = _scatter_rows(path, pos_b, _gather_rows(st.configs, chain_b))[:, :P]
+    return path, total
 
+
+def result_from_chains(path, total, a_start_at_join, solved, iterations, size_start,
+                       size_goal, sample_count, starts, goals, any_direct,
+                       first_direct) -> RRTCResult:
+    """Planner result from the chain rows of _recover_path: orientation,
+    padding, cost and the direct-connection overrides (rrtc.hh:193-224).
+    Shared by the lockstep planner and the megakernel's host side."""
+    P = path.shape[1]
+    k = torch.arange(P, device=path.device)
     # If tree_a was the goal tree at join, reverse the whole path:
     # roll(flip(path), total - P)[k] = path[P - 1 - ((k - total + P) mod P)]
     src = P - 1 - torch.remainder(k[None] - total[:, None] + P, P)
     rev = _gather_rows(path, src)
-    path = torch.where(st.a_start_at_join[:, None, None], path, rev)
+    path = torch.where(a_start_at_join[:, None, None], path, rev)
     last = _gather_rows(path, torch.clamp_min(total - 1, 0)[:, None])
     path = torch.where((k[None] < total[:, None])[..., None], path, last)
     lens = norm_last(path[:, 1:] - path[:, :-1])
     cost = torch.where(k[None, 1:] < total[:, None], lens, 0.0).sum(1)
-    return path, total, cost
+
+    direct_goal = _gather_rows(goals, first_direct[:, None])[:, 0]       # (B, d)
+    direct_path = torch.where(
+        (k == 0)[None, :, None], starts[:, None], direct_goal[:, None]
+    )
+    path = torch.where(any_direct[:, None, None], direct_path, path)
+    total = torch.where(any_direct, 2, total)
+    cost = torch.where(any_direct, norm_last(direct_goal - starts), cost)
+
+    i32 = torch.int32
+    return RRTCResult(
+        solved=solved,
+        path=path,
+        path_length=torch.where(solved, total, 0).to(i32),
+        cost=torch.where(solved, cost, _INF),
+        iterations=iterations.to(i32),
+        size_start=size_start.to(i32),
+        size_goal=size_goal.to(i32),
+        sample_count=sample_count.to(i32),
+    )
 
 
 def _init_state(spec, envs, starts, goals, goal_masks, settings, sample_offsets):
@@ -501,29 +532,10 @@ def _run_steps(spec, s, envs, st, num_points, max_steps=None, nn_prefix=None):
 def _finalize(spec, s: RRTCSettings, st: _State, starts, goals, any_direct,
               first_direct) -> RRTCResult:
     """Path recovery + direct-connection overrides (rrtc.hh:193-224)."""
-    P, d = s.max_path, spec.dimension
-    path, total, cost = _recover_path(st, P, d)
-
-    direct_goal = _gather_rows(goals, first_direct[:, None])[:, 0]       # (B, d)
-    k = torch.arange(P, device=path.device)
-    direct_path = torch.where(
-        (k == 0)[None, :, None], starts[:, None], direct_goal[:, None]
-    )
-    path = torch.where(any_direct[:, None, None], direct_path, path)
-    total = torch.where(any_direct, 2, total)
-    cost = torch.where(any_direct, norm_last(direct_goal - starts), cost)
-
-    solved = st.done
-    i32 = torch.int32
-    return RRTCResult(
-        solved=solved,
-        path=path,
-        path_length=torch.where(solved, total, 0).to(i32),
-        cost=torch.where(solved, cost, _INF),
-        iterations=st.iters.to(i32),
-        size_start=st.size_start.to(i32),
-        size_goal=st.size_goal.to(i32),
-        sample_count=(st.sample_idx - 1).to(i32),
+    path, total = _recover_path(st, s.max_path, spec.dimension)
+    return result_from_chains(
+        path, total, st.a_start_at_join, st.done, st.iters, st.size_start,
+        st.size_goal, st.sample_idx - 1, starts, goals, any_direct, first_direct,
     )
 
 

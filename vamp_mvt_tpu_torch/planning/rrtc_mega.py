@@ -1,0 +1,176 @@
+"""RRT-Connect with the planner megakernel: host side.
+
+Port of `vamp_mvt_tpu/planning/rrtc_mega.py`.  The kernel
+(`csrc/rrtc_mega.cu`, bound in `ops/kernels/rrtc_mega_cuda.py`) runs one
+whole solve per block and stops the moment its problem is done, so finished
+problems cost nothing.  This module builds its inputs (the direct-goal
+check, the control word and the initial node rows, `mega_inputs`) and turns
+its outputs into an `RRTCResult` (`_finalize_mega`).
+
+On CUDA tensors `plan_batch_mega` launches the kernel; on CPU tensors it runs
+the plain version, the lockstep planner `planning/rrtc.py`, which the kernel
+matches step for step.  The sample budget is a runtime value of the control
+word, so the 32x-budget retry of `run_suite` reuses the same kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from vamp_mvt_tpu_torch.collision.environment import Environment
+from vamp_mvt_tpu_torch.device import resolve_device
+from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
+from vamp_mvt_tpu_torch.planning import rrtc
+from vamp_mvt_tpu_torch.planning import validate as validate_mod
+from vamp_mvt_tpu_torch.planning.rrtc import RRTCResult, RRTCSettings
+from vamp_mvt_tpu_torch.planning.validate import sum_last
+from vamp_mvt_tpu_torch.robots.spec import RobotSpec
+
+# Radius of a node never updated (a finite stand-in for infinity).
+_BIG = 1e30
+
+
+def _pad_div128(n: int) -> int:
+    """Smallest divisor of 128 that is >= n (points-per-edge padding)."""
+    for p in (8, 16, 32, 64, 128):
+        if p >= n:
+            return p
+    raise ValueError(f"edge needs {n} > 128 interpolation points")
+
+
+def _kernel_config(spec: RobotSpec, s: RRTCSettings, G: int) -> dict:
+    """The TPU kernel's configuration, with its limits: K * W <= 128 samples
+    a step and K + C <= 64 edges.  The CUDA kernel keeps those limits; the
+    tile figures (P, R, EPT, NT, CH, C0, PP) describe the TPU layout."""
+    d = spec.dimension
+    dp = max(8, 8 * ((d + 7) // 8))
+    K, C, W = s.samples_per_step, s.connect_segments, s.sample_window
+    KW = K * W
+    if KW > 128:
+        raise ValueError("samples_per_step * sample_window must be <= 128")
+    E = K + C
+    Erow0 = 32 if E <= 32 else 64
+    if E > 64:
+        raise ValueError("K + C must be <= 64")
+    N = validate_mod.n_points_bound(spec, s.range)
+    P = _pad_div128(N)
+    R = min(128 // P, Erow0 // 8)
+    EPT = 8 * R
+    C0 = ((K + EPT - 1) // EPT) * EPT
+    rows = C0 + C
+    if rows > 64:
+        raise ValueError("aligned K + C must be <= 64 edge rows")
+    Erow = 32 if rows <= 32 else 64
+    NT = (rows + EPT - 1) // EPT
+    M = s.max_samples
+    CH = min(M, 128)
+    assert M % CH == 0 and M % 8 == 0
+    PP = max(8 * ((s.max_path + 7) // 8), 8)
+    return dict(d=d, dp=dp, K=K, C=C, W=W, KW=KW, E=E, Erow=Erow, N=N, P=P,
+                R=R, EPT=EPT, NT=NT, M=M, G=G, CH=CH, C0=C0, PP=PP)
+
+
+def _check_settings(s: RRTCSettings) -> None:
+    """Raise for settings the megakernel does not run."""
+    rrtc._check_settings(s)
+    if s.interleave:
+        raise NotImplementedError(
+            "interleave=True (grow every step, connect riding along) is not "
+            "ported: it has no lockstep twin (ROADMAP queue 1)")
+    if s.profile_mask != -1:
+        raise NotImplementedError("profile_mask is a profiling-only switch, not ported")
+    if s.pc_phase != 2:
+        raise NotImplementedError("pc_phase is a profiling-only switch, not ported")
+
+
+def mega_inputs(spec, envs, starts, goals, goal_masks, settings,
+                sample_offsets=None, budget=None):
+    """Control word and initial node rows of the kernel.
+
+    Returns (ctl (B, 8) int32: sample offset, any direct goal, goal count,
+    sample budget; nodes0 (B, 1 + G, d + 4) float32: configuration, in-start
+    flag, dynamic-domain radius, parent index, squared norm; any_direct (B,);
+    first_direct (B,))."""
+    B, d = starts.shape
+    G = goals.shape[1]
+    dev = starts.device
+    if sample_offsets is None:
+        sample_offsets = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    # --- straight-line direct-goal check (rrtc.hh:60-73)
+    span = float(np.linalg.norm(spec.limits_high - spec.limits_low))
+    direct = validate_mod.validate_motion_batch(
+        spec, envs, starts[:, None].expand(B, G, d), goals,
+        validate_mod.n_points_bound(spec, span),
+    ) & goal_masks
+    any_direct = direct.any(1)
+    first_direct = torch.argmax(direct.to(torch.int32), dim=1)
+
+    # --- node 0 = start, nodes 1..G = goals (masked goals parked far away);
+    # roots are their own parents
+    far = torch.where(goal_masks[..., None], 0.0, 1e8)
+    cfg = torch.cat([starts[:, None], (goals + far).to(torch.float32)], 1)   # (B, 1+G, d)
+    ones = torch.ones((B, 1 + G, 1), dtype=torch.float32, device=dev)
+    in_start = (torch.arange(1 + G, device=dev) == 0).to(torch.float32)
+    parent = torch.arange(1 + G, dtype=torch.float32, device=dev)
+    nodes0 = torch.cat([
+        cfg, ones * in_start[:, None], ones * _BIG, ones * parent[:, None],
+        sum_last(cfg * cfg)[..., None],
+    ], 2).contiguous()
+
+    if budget is None:
+        budget = settings.max_iterations
+    ctl = torch.zeros((B, 8), dtype=torch.int32, device=dev)
+    ctl[:, 0] = sample_offsets.to(torch.int32)
+    ctl[:, 1] = any_direct.to(torch.int32)
+    ctl[:, 2] = goal_masks.to(torch.int32).sum(1)
+    ctl[:, 3] = int(budget)
+    return ctl, nodes0, any_direct, first_direct
+
+
+def _finalize_mega(paths, scal, starts, goals, any_direct, first_direct) -> RRTCResult:
+    """Orientation, padding, cost and direct overrides of the exported chain
+    rows (the kernel writes them where rrtc._recover_path scatters them)."""
+    scal = scal.long()
+    return rrtc.result_from_chains(
+        paths, scal[:, 11] + scal[:, 12], scal[:, 3] > 0, scal[:, 0] > 0, scal[:, 4],
+        scal[:, 7], scal[:, 8], scal[:, 5], starts, goals, any_direct, first_direct,
+    )
+
+
+def plan_batch_mega(
+    spec: RobotSpec,
+    envs: Environment,
+    starts: torch.Tensor,            # (B, d)
+    goals: torch.Tensor,             # (B, G, d)
+    goal_masks: torch.Tensor,        # (B, G) bool
+    settings: RRTCSettings,
+    sample_offsets: torch.Tensor | None = None,
+    budget: int | None = None,
+    device=None,
+) -> RRTCResult:
+    """Solve a batch with the planner megakernel, on `device` (default: the
+    GPU).  `budget` replaces settings.max_iterations (the sample budget)."""
+    _check_settings(settings)
+    _kernel_config(spec, settings, goals.shape[1])
+    dev = resolve_device(device)
+    envs = envs.to(dev)
+    starts, goals, goal_masks = starts.to(dev), goals.to(dev), goal_masks.to(dev)
+    if sample_offsets is not None:
+        sample_offsets = sample_offsets.to(dev)
+    if budget is None:
+        budget = settings.max_iterations
+    if dev.type != "cuda":
+        return rrtc.plan_batch_compact(
+            spec, envs, starts, goals, goal_masks,
+            dataclasses.replace(settings, max_iterations=int(budget)),
+            sample_offsets, device=dev,
+        )
+    ctl, nodes0, any_direct, first_direct = mega_inputs(
+        spec, envs, starts, goals, goal_masks, settings, sample_offsets, budget
+    )
+    paths, scal, _ = rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, settings)
+    return _finalize_mega(paths, scal, starts, goals, any_direct, first_direct)
