@@ -7,8 +7,9 @@ Phases, each printed as one JSON line (no failure is caught: a failed check
 or an exception exits non-zero):
 
   card           nvidia-smi's name and power limit, torch and CUDA versions
-  build          the three kernels (csrc/fkcc.cu, csrc/rrtc_mega.cu,
-                 csrc/simplify_mega.cu) built with nvcc into build/, one nvcc
+  build          the four kernels (csrc/fkcc.cu, csrc/rrtc_mega.cu,
+                 csrc/simplify_mega.cu, csrc/probe_gather.cu) built with nvcc
+                 into build/, one nvcc
                  each, all at once (or loaded from there), and what ptxas
                  reported for each
   kernel         700 seeded MBM-shaped Panda scenes (every primitive table) x
@@ -43,9 +44,32 @@ or an exception exits non-zero):
                  first MBM_CHECK of those scenes (capsule and cuboid tables),
                  at the budget and as run_suite's 32x retry: at least
                  MIN_SHARE of the results identical at each
+  pc_kernel      the 700 scenes again, start and goal drawn from the
+                 configurations the fkcc kernel finds valid among their
+                 cylinders and boxes (the obstacles a cloud samples); their
+                 pointclouds built as run_suite_pointcloud builds them
+                 (PC_SAMPLES surface samples an object, SCDF, the kernel
+                 form); the fkcc kernel against its plain version
+                 (pc_vmin_plain) on the first PC_CHECK x 1024
+                 configurations: no validity mismatch outside the contact
+                 band, both outcomes, the counted work and the bound
+  suite_pointcloud
+                 this slice's main path, run_suite_pointcloud("panda") at its
+                 defaults on those scenes (again at run_suite's 16384 node
+                 rows if its guard refuses the 16x retry at 4096): every
+                 kernel launched and evaluated pointcloud points, every solved
+                 simplified path revalidated by the plain version
+  rrtc_mega_pc / simplify_mega_pc
+                 each megakernel against its plain version on the first
+                 PC_CHECK pointcloud scenes at the budget: at least MIN_SHARE
+                 identical, times, work counters and the bound
+  probe_gather   the six gather probes (csrc/probe_gather.cu, off the main
+                 path) against numpy, with ns per gather
 
-then the kernels line and, last, {"ok": true, "device": {...}}.  The script
-imports nothing of JAX or of the JAX package.  Without a GPU it exits 1.
+then the kernels line (the pointcloud branch of each kernel as its own row,
+with the launches of suite_pointcloud) and, last, {"ok": true, "device":
+{...}}.  The script imports nothing of JAX or of the JAX package.  Without a
+GPU it exits 1.
 """
 
 import json
@@ -71,6 +95,10 @@ SIMPLIFY_RTOL = 1e-5
 # MIN_SHARE.
 MIN_SHARE = 0.95
 MBM_CHECK = 64  # MBM-shaped scenes the planner is compared on
+PC_CHECK = 64   # pointcloud scenes the kernels are compared on
+PC_SAMPLES = 10000  # surface samples per object (run_suite_pointcloud's default)
+PC_RETRY_SAMPLES = 16384  # run_suite's node rows, if the 4096 of the pointcloud suite fill
+PROBE_TILES = 4096  # (8, 128) index tiles a gather probe reads
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -177,6 +205,51 @@ def paths_revalidate(spec, envs, paths, lengths):
     return (ok | (k[None] >= lengths[:, None])).all(1)
 
 
+def paths_revalidate_plain(spec, envs, paths, lengths):
+    """(B,) bool: every segment of each path is collision-free under the
+    plain version (fkcc_vmin_plain, on the card), checked at its own points
+    k / N, k = 1..N, N = 8 * ceil(length * resolution / 8): validate.py's
+    points, which the kernels check."""
+    import torch
+
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
+    from vamp_mvt_tpu_torch.planning import validate
+
+    dev = envs.spheres.device
+    paths = torch.as_tensor(paths, device=dev)
+    res8 = spec.resolution / validate.RAKE
+    qs = []
+    for b, n in enumerate(torch.as_tensor(lengths).tolist()):
+        if n < 2:
+            qs.append(paths[b, :1])
+            continue
+        a = paths[b, : n - 1]
+        v = paths[b, 1:n] - a
+        N = validate.RAKE * torch.clamp_min(torch.ceil(validate.norm_last(v) * res8), 1.0)
+        seg = torch.repeat_interleave(torch.arange(n - 1, device=dev), N.long())
+        first = torch.cumsum(N, 0) - N
+        k = torch.arange(seg.shape[0], device=dev, dtype=torch.float32) - first[seg] + 1.0
+        qs.append(a[seg] + v[seg] * (k / N[seg])[:, None])
+    T = max(x.shape[0] for x in qs)
+    q = torch.stack([torch.cat([x, x[-1:].expand(T - x.shape[0], -1)]) for x in qs])
+    return (fkcc_cuda.fkcc_vmin_plain(spec, envs, q) >= 0).all(1)
+
+
+def pointcloud_envs(problems):
+    """The kernel form of each Panda problem's cloud, built as
+    run_suite_pointcloud builds it (pointcloud/pipeline.py: PC_SAMPLES
+    surface samples an object, SCDF), stacked on the host."""
+    from vamp_mvt_tpu_torch.collision import environment as envmod
+    from vamp_mvt_tpu_torch.pointcloud import pipeline
+
+    envs = []
+    for p in problems:
+        b = pipeline.problem_to_pointcloud_env("panda", p, pc_repr="capt",
+                                               samples_per_object=PC_SAMPLES)[0]
+        envs.append(envmod.EnvironmentBuilder(pck=b.pck).build(device="cpu"))
+    return envmod.stack_environments(envs)
+
+
 def bound(ops: int, n_bytes: int) -> dict:
     """The card's least time for `ops` FP32 operations moving `n_bytes`."""
     ops_ms = ops / PEAK_FP32_FLOPS * 1e3
@@ -248,13 +321,16 @@ def main() -> int:
     from vamp_mvt_tpu_torch.ops.kernels import build, rrtc_mega_cuda, simplify_mega_cuda
 
     t0 = time.perf_counter()
-    for lib in (fkcc_cuda, rrtc_mega_cuda, simplify_mega_cuda):
+    from vamp_mvt_tpu_torch.probes import gather
+
+    for lib in (fkcc_cuda, rrtc_mega_cuda, simplify_mega_cuda, gather):
         lib.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": {
         name: {"cached": info["cached"], "seconds": info["seconds"],
                "library": os.path.relpath(info["path"]), "ptxas": build.ptxas_lines(name)}
         for name, info in sorted(build.BUILD_INFO.items())}})
-    check({"fkcc", "rrtc_mega", "simplify_mega"} <= set(build.BUILD_INFO), "every kernel built")
+    check({"fkcc", "rrtc_mega", "simplify_mega", "probe_gather"} <= set(build.BUILD_INFO),
+          "every kernel built")
 
     # --- kernel vs plain ---------------------------------------------------
     spec = registry.load("panda")
@@ -425,7 +501,7 @@ def main() -> int:
     eq_cost = (ksimp.cost - psimp.cost).abs() <= SIMPLIFY_RTOL * psimp.cost.abs()
     # the wrapper on the entry point's inputs, for the work counter
     sp_in, sl_in = pres.path.contiguous(), pres.path_length.to(torch.int32)
-    s_configs = simplify_mega_cuda.simplify(spec, c_envs, sp_in, sl_in, ss)[2]
+    s_configs = simplify_mega_cuda.simplify(spec, c_envs, sp_in, sl_in, ss)[2][:, 0]
     s_configs = s_configs.cpu().numpy().astype(np.int64)
     simp_ms = time_cuda(lambda: simplify_mega_cuda.simplify(spec, c_envs, sp_in, sl_in, ss), 1, 3)
     s_occupancy = dict(simplify_mega_cuda.LAST_LAUNCH)
@@ -531,6 +607,188 @@ def main() -> int:
     emit({"phase": "rrtc_mega_mbm_shaped", "settings": "run_suite's mega settings",
           "min_share": MIN_SHARE, "by_budget": mbm_check})
 
+    # --- the pointcloud path ----------------------------------------------
+    # the 700 scenes again; start and goal are the first two configurations
+    # the fkcc kernel finds valid among the scene's cylinders and boxes, the
+    # obstacles the cloud samples (its spheres are not sampled)
+    pc_scenes = mbm_shaped_problems(KERNEL_PROBLEMS, seed=1)
+    cb_envs = mbm.build_batch([dict(p, sphere=[]) for p in pc_scenes], device=dev)[0]
+    ok_cb = fkcc_cuda.fkcc_batched(spec, cb_envs, q).cpu().numpy()
+    pc_rows = [i for i in range(len(pc_scenes)) if ok_cb[i].sum() >= 2]
+    for i in pc_rows:
+        idx = np.flatnonzero(ok_cb[i])
+        pc_scenes[i]["start"] = q_np[i, idx[0]].tolist()
+        pc_scenes[i]["goals"] = [q_np[i, idx[1]].tolist()]
+    pc_problems = [pc_scenes[i] for i in pc_rows]
+    t0 = time.perf_counter()
+    pc_all = pointcloud_envs(pc_problems)
+    host_build_s = time.perf_counter() - t0
+    pc_live = {n: np.zeros(len(pc_problems), np.int64) for n in TABLES}  # no primitive rows
+    pc_ops = fkcc_cuda.ops_per_config(spec, pc_live)
+
+    # pc_kernel: the fkcc kernel against its plain version on pointclouds
+    pk_envs = pc_all.map(lambda t: t[:PC_CHECK]).to(dev)
+    pk_rows = pc_rows[:PC_CHECK]
+    pq = q[pk_rows]
+    pvk = fkcc_cuda.fkcc_vmin(spec, pk_envs, pq)
+    fkcc_cuda.PC_WORK = None
+    pok = fkcc_cuda.fkcc_batched(spec, pk_envs, pq)
+    pwork = fkcc_cuda.PC_WORK.cpu()
+    pvp = fkcc_cuda.fkcc_vmin_plain(spec, pk_envs, pq)
+    torch.cuda.synchronize()
+    check(torch.equal(pok, pvk >= 0), "pointcloud kernel validity agrees with its own vmin")
+    p_mism = (pvk >= 0) != (pvp >= 0)
+    p_out = p_mism & (pvp.abs() > CONTACT_BAND)
+    p_err = float(p_out.float().max())  # validity, the kernel's output
+    pk_ms = time_cuda(lambda: fkcc_cuda.fkcc_batched(spec, pk_envs, pq), 3, 20)
+    pp_ms = time_cuda(lambda: fkcc_cuda.fkcc_vmin_plain(spec, pk_envs, pq), 1, 3)
+    pk_bound = bound(
+        int(pc_ops[:PC_CHECK].sum()) * KERNEL_CONFIGS + fkcc_cuda.pc_ops(pwork),
+        nbytes(pq, *pk_envs.pck) + sum(v.nbytes for v in tabs.values()
+                                       if isinstance(v, np.ndarray)) + pq.shape[0] * pq.shape[1])
+    pk_valid = float((pvk >= 0).float().mean())
+    emit({"phase": "pc_kernel", "problems": PC_CHECK, "configs_per_problem": KERNEL_CONFIGS,
+          "samples_per_object": PC_SAMPLES, "host_build_s_all_scenes": host_build_s,
+          "scenes": len(pc_problems), "live_chunks_mean": float(pk_envs.pck.meta[:, 0, 6].mean()),
+          "valid_share": pk_valid, "mismatches": int(p_mism.sum()),
+          "mismatches_inside_band": int((p_mism & ~p_out).sum()),
+          "mismatches_outside_band": int(p_out.sum()), "band": CONTACT_BAND,
+          "work": dict(zip(("gates", "chunks", "points"), pwork.tolist())),
+          "kernel_ms": pk_ms, "plain_ms": pp_ms, **pk_bound, "library_ms": None})
+    check(int(p_out.sum()) == 0, "pointcloud kernel and plain agree outside the contact band")
+    check(0.0 < pk_valid < 1.0, "both outcomes occur on the pointcloud scenes")
+
+    # suite_pointcloud: this slice's main path, run_suite_pointcloud at its
+    # defaults; if the node-buffer guard refuses the 16x retry at 4096 node
+    # rows, again at run_suite's 16384
+    pc_data = {"problems": {"mbm_shaped": pc_problems}}
+    pc_settings = mbm.pointcloud_settings("panda")
+    attempts = []
+    while True:
+        for lib in kernels.values():
+            lib.LAUNCHES = 0
+            lib.PC_WORK = None
+        t0 = time.perf_counter()
+        try:
+            pc_res, ptm = mbm.run_suite_pointcloud("panda", data=pc_data, settings=pc_settings)
+        except ValueError as e:
+            if "cannot hold" not in str(e) or pc_settings.max_samples >= PC_RETRY_SAMPLES:
+                raise
+            attempts.append({"max_samples": pc_settings.max_samples, "refused": str(e),
+                             "wall_s": time.perf_counter() - t0})
+            pc_settings = dataclasses.replace(pc_settings, max_samples=PC_RETRY_SAMPLES)
+            continue
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+        break
+    pc_launches = {n: lib.LAUNCHES for n, lib in kernels.items()}
+    pc_points = {n: (lib.PC_WORK.tolist() if lib.PC_WORK is not None else [0, 0, 0])
+                 for n, lib in kernels.items()}
+    psum = pc_res.summary()
+    p_solved = np.asarray(pc_res.plan.solved) & pc_res.valid
+    p_reval = paths_revalidate_plain(spec, pc_all.to(dev), pc_res.simplified.path,
+                                     pc_res.simplified.path_length).cpu().numpy()
+    emit({"phase": "suite_pointcloud", "problems": len(pc_problems), "wall_s": pwall,
+          "max_samples": pc_settings.max_samples, "refused_attempts": attempts,
+          "summary": psum, "filter_median_ms": ptm["filter_median_ms"],
+          "build_median_ms": ptm["build_median_ms"], "phases": ptm["phases"],
+          "launches": pc_launches, "pc_work": pc_points,
+          "solved_paths_revalidated_plain": int((p_reval & p_solved).sum())})
+    print(pc_res.percentile_table(), flush=True)
+    check(all(v > 0 for v in pc_launches.values()), "the pointcloud path launched every kernel")
+    check(all(w[2] > 0 for w in pc_points.values()),
+          "every kernel evaluated pointcloud points on the pointcloud path")
+    check(bool(p_reval[p_solved].all()), "every solved pointcloud path revalidates (plain)")
+    check(psum["solved_problems"] > 0 and np.isfinite(
+        np.asarray(pc_res.simplified.cost)[p_solved]).all(), "finite solved pointcloud costs")
+
+    # rrtc_mega_pc / simplify_mega_pc: the megakernels against their plain
+    # versions on the first PC_CHECK pointcloud scenes, at the budget
+    c_st = torch.as_tensor(np.asarray([p["start"] for p in pc_problems[:PC_CHECK]],
+                                      np.float32), device=dev)
+    c_gl = torch.as_tensor(np.asarray([p["goals"] for p in pc_problems[:PC_CHECK]],
+                                      np.float32), device=dev)
+    c_mk = torch.ones(c_gl.shape[:2], dtype=torch.bool, device=dev)
+    kp = rrtc_mega.plan_batch_mega(spec, pk_envs, c_st, c_gl, c_mk, pc_settings, device=dev)
+    t0 = time.perf_counter()
+    pp = rrtc.plan_batch_compact(spec, pk_envs, c_st, c_gl, c_mk, pc_settings, device=dev)
+    torch.cuda.synchronize()
+    rpc_plain_ms = (time.perf_counter() - t0) * 1e3
+    same_pc = same_plan(kp, pp)
+    ctl, nodes0, _, _ = rrtc_mega.mega_inputs(spec, pk_envs, c_st, c_gl, c_mk, pc_settings)
+    _, rp_scal, rp_work = rrtc_mega_cuda.plan(spec, pk_envs, ctl, nodes0, pc_settings)
+    rp_work = rp_work.cpu().numpy().astype(np.int64)
+    rpc_ms = time_cuda(lambda: rrtc_mega_cuda.plan(spec, pk_envs, ctl, nodes0, pc_settings), 1, 3)
+    rpc_bound = bound(
+        int(np.sum(rp_work[:, 0] * pc_ops[:PC_CHECK])) + fkcc_cuda.pc_ops(rp_work[:, 2:5])
+        + int(rp_work[:, 1].sum()) * rrtc_mega_cuda.ops_per_pair(spec.dimension),
+        nbytes(ctl, nodes0, *pk_envs.pck)
+        + int(rp_scal[:, 6].sum()) * (spec.dimension + 4) * 4
+        + PC_CHECK * (pc_settings.max_path * spec.dimension + rrtc_mega_cuda.SCALARS
+                      + 2 * rrtc_mega_cuda.WORK) * 4)
+    k_ = torch.arange(kp.path.shape[1], device=dev)
+    rpc_err = float(torch.where((k_[None] < pp.path_length[:, None])[..., None],
+                                (kp.path - pp.path).abs(), 0).max())
+    emit({"phase": "rrtc_mega_pc", "problems": PC_CHECK, "max_samples": pc_settings.max_samples,
+          "identical_share": float(same_pc.float().mean()),
+          "solved": {"kernel": int(kp.solved.sum()), "plain": int(pp.solved.sum())},
+          "ms": rpc_ms, "plain_ms": rpc_plain_ms, "max_abs_err": rpc_err,
+          "work": dict(zip(("configs", "pairs", "gates", "chunks", "points"),
+                           rp_work.sum(0).tolist())),
+          **rpc_bound, "library_ms": None})
+    check(float(same_pc.float().mean()) >= MIN_SHARE, "rrtc_mega equals plain on pointclouds")
+
+    sp_in, sl_in = pp.path.contiguous(), pp.path_length.to(torch.int32)
+    ks = simplify_mega.simplify_batch_mega(spec, pk_envs, pp.path, pp.path_length, ss,
+                                           device=dev)
+    t0 = time.perf_counter()
+    ps = simplify_mega.simplify_batch_plain(spec, pk_envs, pp.path, pp.path_length, ss)
+    torch.cuda.synchronize()
+    spc_plain_ms = (time.perf_counter() - t0) * 1e3
+    spc_len = ks.path_length == ps.path_length
+    spc_cost = (ks.cost - ps.cost).abs() <= SIMPLIFY_RTOL * ps.cost.abs()
+    sp_work = simplify_mega_cuda.simplify(spec, pk_envs, sp_in, sl_in, ss)[2]
+    sp_work = sp_work.cpu().numpy().astype(np.int64)
+    spc_ms = time_cuda(lambda: simplify_mega_cuda.simplify(spec, pk_envs, sp_in, sl_in, ss), 1, 3)
+    spc_bound = bound(int(np.sum(sp_work[:, 0] * pc_ops[:PC_CHECK]))
+                      + fkcc_cuda.pc_ops(sp_work[:, 1:4]),
+                      2 * nbytes(sp_in) + nbytes(sl_in, *pk_envs.pck) + PC_CHECK * (2 * 4 + 32))
+    spc_err = float(torch.where(spc_len[:, None, None], (ks.path - ps.path).abs(), 0).max())
+    emit({"phase": "simplify_mega_pc", "problems": PC_CHECK,
+          "equal_length_share": float(spc_len.float().mean()),
+          "cost_rtol_share": float(spc_cost.float().mean()), "rtol": SIMPLIFY_RTOL,
+          "ms": spc_ms, "plain_ms": spc_plain_ms, "max_abs_err": spc_err,
+          "work": dict(zip(("configs", "gates", "chunks", "points"), sp_work.sum(0).tolist())),
+          **spc_bound, "library_ms": None})
+    check(float(spc_len.float().mean()) >= MIN_SHARE
+          and float(spc_cost.float().mean()) >= MIN_SHARE,
+          "simplify_mega equals plain on pointclouds")
+
+    # probe_gather: the six gather probes against numpy (off the main path)
+    probes = {}
+    for pname in gather.PROBES:
+        tab, gi, gi2 = gather.inputs(pname, PROBE_TILES, seed=3, device=dev)
+        got = gather.gather(pname, tab, gi, gi2).cpu().numpy()
+        want = gather.reference(pname, tab.cpu().numpy(), gi.cpu().numpy(),
+                                None if gi2 is None else gi2.cpu().numpy())
+        g_ms = time_cuda(lambda: gather.launch(pname, tab, gi, gi2), 3, 20)
+        g_plain = time_cuda(lambda: gather.plain(pname, tab, gi, gi2), 1, 5)
+        per = PROBE_TILES * 1024 * (gather.TIMING_GATHERS if pname == "timing" else 1)
+        ops, g_bytes = gather.work(pname, PROBE_TILES)
+        probes[pname] = {"equal": bool(np.array_equal(got, want)), "ms": g_ms,
+                         "plain_ms": g_plain, "ns_per_gather": g_ms * 1e6 / per,
+                         **bound(ops, g_bytes)}
+    emit({"phase": "probe_gather", "tiles": PROBE_TILES, "probes": probes,
+          "kernel": {"name": "probe_gather", "route": "cuda",
+                     "source": "vamp_mvt_tpu_torch/csrc/probe_gather.cu",
+                     "replaces": "tools/probe_gather.py:32",
+                     "launches": 0, "on_main_path": False,
+                     "max_abs_err": 0.0 if all(v["equal"] for v in probes.values()) else None,
+                     "ms": probes["timing"]["ms"], "plain_ms": probes["timing"]["plain_ms"],
+                     "bound_ms": probes["timing"]["bound_ms"],
+                     "bound_by": probes["timing"]["bound_by"], "library_ms": None}})
+    check(all(v["equal"] for v in probes.values()), "every gather probe equals numpy")
+
     def row(name, ms, plain, b, err, launches):
         return {"name": name, "route": "cuda", "source": f"vamp_mvt_tpu_torch/csrc/{name}.cu",
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -549,6 +807,19 @@ def main() -> int:
             mega_launches["simplify_mega"])
         | {"replaces": "vamp_mvt_tpu/planning/simplify_mega.py:377",
            "replaces_function": "vamp_mvt_tpu/planning/simplify_mega.py::_run"},
+        # the pointcloud branch in each kernel, on this slice's path
+        row("fkcc", pk_ms, pp_ms, pk_bound, p_err, pc_launches["fkcc"])
+        | {"name": "fkcc_pc", "replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
+           "replaces_function": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py::tile_vmin "
+                                "pointcloud branch (248-457)",
+           "max_abs_err_of": "validity outside the contact band"},
+        row("rrtc_mega", rpc_ms, rpc_plain_ms, rpc_bound, rpc_err, pc_launches["rrtc_mega"])
+        | {"name": "rrtc_mega_pc", "replaces": "vamp_mvt_tpu/planning/rrtc_mega.py:943",
+           "replaces_function": "vamp_mvt_tpu/planning/rrtc_mega.py::_run_mega on pck"},
+        row("simplify_mega", spc_ms, spc_plain_ms, spc_bound, spc_err,
+            pc_launches["simplify_mega"])
+        | {"name": "simplify_mega_pc", "replaces": "vamp_mvt_tpu/planning/simplify_mega.py:377",
+           "replaces_function": "vamp_mvt_tpu/planning/simplify_mega.py::_run on pck"},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -271,3 +271,169 @@ def test_refused_launch_raises(cuda, monkeypatch):
     for f in ("solved", "iterations", "size_start", "size_goal", "path_length"):
         assert torch.equal(getattr(got, f).cpu(), getattr(ref, f).cpu()), f
     torch.testing.assert_close(got.cost, ref.cost, rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The pointcloud branch (env.pck) in all three kernels
+# ---------------------------------------------------------------------------
+
+PC_WMIN, PC_WMAX = (-3.0, -3.0, 0.0), (3.0, 3.0, 6.0)
+R_POINT = 0.0025
+
+
+def _wall_points(n_side=9):
+    """tests/test_kernel_branches.py's thin wall of points at x = 0 with a
+    gap around (y, z) = (0, 2.6)."""
+    ys = np.linspace(-2.0, 2.0, n_side)
+    zs = np.linspace(0.5, 3.0, n_side)
+    return np.asarray([[0.0, y, z] for y in ys for z in zs
+                       if not (abs(y) < 0.7 and z > 2.2)], np.float32)
+
+
+def _pck_env(spec, pts, max_radius, device):
+    from vamp_mvt_tpu_torch.collision import pc_kernel
+
+    b = envmod.EnvironmentBuilder()
+    b.add_kernel_pointcloud(pts, pc_kernel.radius_classes(spec.sphere_radius), PC_WMIN,
+                            PC_WMAX, R_POINT, max_radius)
+    return b.build(device=device)
+
+
+def _pc_check(spec, envs, q):
+    """Kernel against plain on pointcloud tables: validity equal outside the
+    contact band; returns the kernel's validity and its pointcloud work
+    (spheres gated, chunk bounds tested, points evaluated)."""
+    before = fkcc_cuda.LAUNCHES
+    vk = fkcc_cuda.fkcc_vmin(spec, envs, q)
+    fkcc_cuda.PC_WORK = None
+    ok = fkcc_cuda.fkcc_batched(spec, envs, q)
+    work = fkcc_cuda.PC_WORK.tolist()
+    vp = fkcc_cuda.fkcc_vmin_plain(spec, envs, q)
+    torch.cuda.synchronize()
+    assert fkcc_cuda.LAUNCHES == before + 2
+    assert torch.equal(ok, vk >= 0)
+    mism = (vk >= 0) != (vp >= 0)
+    print(f"{spec.name}: {int(mism.sum())} validity mismatches of {vk.numel()}, work {work}")
+    assert not (mism & (vp.abs() > BAND)).any()
+    return ok, work
+
+
+@pytest.mark.gpu
+def test_pc_kernel_matches_plain(cuda):
+    # the sphere-robot wall, configurations banded around the wall
+    spec = registry.sphere_spec(lows=PC_WMIN, highs=PC_WMAX, radius=0.25)
+    env = _pck_env(spec, _wall_points(), 0.25, cuda)
+    rng = np.random.default_rng(3)
+    q = rng.uniform(np.asarray(PC_WMIN) - 0.5, np.asarray(PC_WMAX) + 0.5, (2, 4096, 3))
+    q[:, :1200, 0] = rng.normal(0.0, 0.3, (2, 1200))
+    envs = envmod.broadcast_environment(env, 2)
+    ok, work = _pc_check(spec, envs, torch.as_tensor(q.astype(np.float32), device=cuda))
+    assert 0.0 < float(ok.float().mean()) < 1.0
+    assert min(work) > 0
+    # the Panda wall, and a batch of two clouds of different sizes (the
+    # smaller padded to the larger's chunks)
+    spec = registry.load("panda")
+    pts = _wall_points()
+    pts = pts[pts[:, 2] < 1.5] * np.float32(0.4) + np.float32([0.45, 0, 0.2])
+    dense = _wall_points(40)
+    dense = dense[dense[:, 2] < 1.5] * np.float32(0.4) + np.float32([0.35, 0.1, 0.2])
+    envs = envmod.stack_environments([_pck_env(spec, p, spec.max_radius, "cpu")
+                                      for p in (pts, dense)]).to(cuda)
+    assert int(envs.pck.meta[0, 0, 6]) < envs.pck.chunks.shape[1]
+    q = np.random.default_rng(5).uniform(spec.limits_low, spec.limits_high, (2, 4096, 7))
+    ok, work = _pc_check(spec, envs, torch.as_tensor(q.astype(np.float32), device=cuda))
+    assert 0.0 < float(ok.float().mean()) < 1.0
+    assert min(work) > 0
+
+
+@pytest.mark.gpu
+def test_pc_radius_class_soundness(cuda):
+    """A robot with more distinct radii than the bitmap has classes: the
+    small sphere that shares class 0.25 must not take its certain-hit bits
+    (tests/test_torch_pc_fkcc.py builds the same robot)."""
+    radii = np.float32([0.01, 0.012, 0.014, 0.016, 0.018, 0.02,
+                        0.25, 0.251, 0.252, 0.253, 0.254, 0.255, 0.256])
+    base = registry.sphere_spec(lows=PC_WMIN, highs=PC_WMAX, radius=0.25)
+    local = np.zeros((len(radii), 3), np.float32)
+    local[6:, 2] = -2.0
+    spec = dataclasses.replace(
+        base, sphere_frame=np.full(len(radii), 3, np.int32), sphere_local=local,
+        sphere_radius=radii, self_collision_pairs=np.zeros((0, 2), np.int32))
+    cell = 6.0 / int(np.floor(6.0 / radii.max()))
+    point = np.float32([-3.0 + 12.5 * cell, -3.0 + 12.5 * cell, 12.5 * cell])
+    env = _pck_env(spec, point[None], float(radii.max()), cuda)
+    rng = np.random.default_rng(13)
+    q = np.concatenate([
+        np.stack([point + np.float32([0.06, 0, 0]), point + np.float32([0.02, 0, 0]),
+                  point + np.float32([0.25, 0, 2.0]), point + np.float32([0.262, 0, 2.0])]),
+        point + rng.uniform(-0.05, 0.05, (508, 3)),
+        point + np.float32([0, 0, 2.0]) + rng.uniform(-0.35, 0.35, (512, 3))])
+    envs = envmod.broadcast_environment(env, 1)
+    ok, _ = _pc_check(spec, envs, torch.as_tensor(q[None].astype(np.float32), device=cuda))
+    assert ok[0, :4].tolist() == [True, False, False, True]
+
+
+def _pc_wall_problem(device, B=2):
+    """A planning problem on tests/test_kernel_branches.py's pck wall, with
+    start and goal low on either side, so that no straight line joins them."""
+    spec = registry.sphere_spec(lows=PC_WMIN, highs=PC_WMAX, radius=0.25)
+    envs = envmod.broadcast_environment(_pck_env(spec, _wall_points(), 0.25, device), B)
+    starts = torch.tensor([[-2.0, 1.5, 1.0]] * B, device=device)
+    goals = (torch.tensor([[[2.0, -1.5, 1.0]]] * B, device=device)
+             + torch.arange(B, device=device)[:, None, None] * 0.1)
+    masks = torch.ones((B, 1), dtype=torch.bool, device=device)
+    return spec, envs, starts, goals, masks
+
+
+@pytest.mark.gpu
+def test_rrtc_mega_pc_matches_plain(cuda):
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega
+
+    spec, envs, starts, goals, masks = _pc_wall_problem(cuda)
+    offs = torch.arange(2, device=cuda, dtype=torch.int32) * 100
+    s = _wall_settings(4, 2, 2, max_iterations=1024, max_samples=512)
+    got = rrtc_mega.plan_batch_mega(spec, envs, starts, goals, masks, s, offs, device=cuda)
+    ctl, nodes0, _, _ = rrtc_mega.mega_inputs(spec, envs, starts, goals, masks, s, offs)
+    _, _, work = rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, s)
+    ref = rrtc.plan_batch(spec, envs, starts, goals, masks, s, offs)
+    torch.cuda.synchronize()
+    assert bool(ref.solved.any())
+    for f in ("solved", "iterations", "size_start", "size_goal", "path_length"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(ref, f).cpu()), f
+    torch.testing.assert_close(got.cost, ref.cost, rtol=1e-6, atol=0)
+    assert bool((work[:, 4] > 0).all()), "the planner scanned pointcloud points"
+
+
+@pytest.mark.gpu
+def test_simplify_mega_pc_matches_plain(cuda):
+    from vamp_mvt_tpu_torch.ops.kernels import simplify_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc, simplify, simplify_mega
+
+    spec, envs, starts, goals, masks = _pc_wall_problem(cuda)
+    pr = rrtc.plan_batch(spec, envs, starts, goals, masks,
+                         _wall_settings(4, 2, 2, max_iterations=1024, max_samples=512))
+    assert bool(pr.solved.all())
+    ss = simplify.SimplifySettings()
+    got = simplify_mega.simplify_batch_mega(spec, envs, pr.path, pr.path_length, ss,
+                                            device=cuda)
+    _, _, work = simplify_mega_cuda.simplify(spec, envs, pr.path.contiguous(),
+                                             pr.path_length.to(torch.int32), ss)
+    ref = simplify_mega.simplify_batch_plain(spec, envs, pr.path, pr.path_length, ss)
+    torch.cuda.synchronize()
+    assert torch.equal(got.path_length.cpu(), ref.path_length.cpu())
+    torch.testing.assert_close(got.cost, ref.cost, rtol=1e-5, atol=0)
+    assert bool((work[:, 3] > 0).all()), "the simplifier scanned pointcloud points"
+
+
+@pytest.mark.gpu
+def test_probe_gather_kernels_match_plain(cuda):
+    from vamp_mvt_tpu_torch.probes import gather
+
+    for name in gather.PROBES:
+        table, idx, idx2 = gather.inputs(name, tiles=64, seed=11, device=cuda)
+        before = gather.LAUNCHES
+        got = gather.gather(name, table, idx, idx2)
+        torch.cuda.synchronize()
+        assert gather.LAUNCHES == before + 1
+        assert torch.equal(got, gather.plain(name, table, idx, idx2)), name

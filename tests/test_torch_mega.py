@@ -61,22 +61,72 @@ def _wall_settings(k, c, w, **kw) -> dict:
 
 @pytest.mark.parametrize("robot", ["panda", "fetch", "baxter", "sphere"])
 def test_kernel_config_matches_jax(robot):
+    """The port keeps the settings' figures of the JAX package's dict (not
+    its TPU tile figures: dp, P, R, EPT, NT, CH, C0, Erow, PP)."""
     kw = _suite_settings(robot)
     jspec, spec = jregistry.load(robot), registry.load(robot)
     for G in (1, 4):
         ref = jrrtc_mega._kernel_config(jspec, jrrtc.RRTCSettings(**kw), G)
-        assert rrtc_mega._kernel_config(spec, rrtc.RRTCSettings(**kw), G) == ref
+        got = rrtc_mega._kernel_config(spec, rrtc.RRTCSettings(**kw), G)
+        assert set(got) == {"d", "K", "C", "W", "KW", "E", "N", "M", "G"}
+        assert got == {k: ref[k] for k in got}
 
 
-@pytest.mark.parametrize("k,c,w", [(32, 8, 8), (60, 8, 1), (33, 30, 1)])
-def test_kernel_config_raises_as_jax(k, c, w):
+@pytest.mark.parametrize("k,c,w,cuda_runs", [
+    pytest.param(32, 8, 8, False, id="32-8-8"),
+    pytest.param(60, 8, 1, False, id="60-8-1"),
+    # the TPU's "aligned K + C" rule refuses it; K + C = 63 fits the kernel
+    pytest.param(33, 30, 1, True, id="33-30-1"),
+])
+def test_kernel_config_raises_as_jax(k, c, w, cuda_runs):
+    """The JAX package's refusals that are the CUDA kernel's limits too
+    (K * W <= 128, K + C <= 64) raise alike; its TPU-only refusal does not."""
     kw = _suite_settings("panda") | dict(samples_per_step=k, connect_segments=c,
                                          sample_window=w)
     with pytest.raises(ValueError) as ref:
         jrrtc_mega._kernel_config(jregistry.load("panda"), jrrtc.RRTCSettings(**kw), 1)
+    if cuda_runs:
+        got = rrtc_mega._kernel_config(registry.load("panda"), rrtc.RRTCSettings(**kw), 1)
+        assert (got["KW"], got["E"]) == (33, 63) and "aligned" in str(ref.value)
+        return
     with pytest.raises(ValueError) as got:
         rrtc_mega._kernel_config(registry.load("panda"), rrtc.RRTCSettings(**kw), 1)
     assert str(got.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("what", ["KW", "E", "d"])
+def test_kernel_config_cuda_limits(what):
+    """csrc/rrtc_mega.cu's own limits, one past each edge: K * W = 129
+    (kMaxLanes 128), K + C = 65 (kMaxEdges 64), d = 17 (kMaxDim 16); at the
+    edge itself the settings pass."""
+    spec = registry.load("panda")
+    edge, past = {
+        "KW": (dict(samples_per_step=16, sample_window=8),
+               dict(samples_per_step=43, sample_window=3)),
+        "E": (dict(samples_per_step=56, connect_segments=8, sample_window=2),
+              dict(samples_per_step=57, connect_segments=8, sample_window=2)),
+        "d": ({}, {}),
+    }[what]
+    s_edge = rrtc.RRTCSettings(**(_suite_settings("panda") | edge))
+    s_past = rrtc.RRTCSettings(**(_suite_settings("panda") | past))
+    spec_edge = dataclasses.replace(spec, dimension=16) if what == "d" else spec
+    spec_past = dataclasses.replace(spec, dimension=17) if what == "d" else spec
+    got = rrtc_mega._kernel_config(spec_edge, s_edge, 1)
+    assert {"KW": got["KW"], "E": got["E"], "d": got["d"]}[what] == {
+        "KW": 128, "E": 64, "d": 16}[what]
+    with pytest.raises(ValueError):
+        rrtc_mega._kernel_config(spec_past, s_past, 1)
+
+
+def test_kernel_config_long_edges():
+    """An edge of more than 128 interpolation points: the TPU layout refused
+    it (_pad_div128); the CUDA kernel has no per-edge point limit."""
+    spec = registry.load("sphere")
+    s = rrtc.RRTCSettings(**_wall_settings(4, 2, 2, range=50.0))
+    with pytest.raises(ValueError):
+        jrrtc_mega._kernel_config(jregistry.load("sphere"), jrrtc.RRTCSettings(
+            **_wall_settings(4, 2, 2, range=50.0)), 1)
+    assert rrtc_mega._kernel_config(spec, s, 1)["N"] > 128
 
 
 def _two_goal_wall():

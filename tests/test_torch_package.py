@@ -33,7 +33,7 @@ _BLOCKED_IMPORT = textwrap.dedent(
         importlib.import_module(name)
     import chip_smoke
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
-    print(len(names))
+    print(" ".join(names))
     """
 )
 
@@ -44,7 +44,12 @@ def test_port_imports_without_jax():
         capture_output=True, text=True, timeout=120, cwd=ROOT,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 21
+    names = set(out.stdout.strip().splitlines()[-1].split())
+    assert len(names) >= 30
+    assert {f"vamp_mvt_tpu_torch.{m}" for m in (
+        "native", "collision.mvt", "collision.capt", "collision.pc_kernel",
+        "pointcloud.sampling", "pointcloud.filters", "pointcloud.pipeline",
+        "probes.gather")} <= names
 
 
 def test_port_sources_name_no_jax():
@@ -96,6 +101,8 @@ def test_entry_points_need_a_device():
                                           simplify.SimplifySettings())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mbm.run_suite("panda", data=mbm.cage_suite(1), batch_size=1, planner="mega")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mbm.run_suite_pointcloud("panda", data=mbm.cage_suite(1), batch_size=1)
     assert bool(fkcc.fkcc(spec, envmod.empty_environment(), q, device="cpu").all())
     res = rrtc_mega.plan_batch_mega(spec, envs, q, q[:, None] + 0.5,
                                     torch.ones((1, 1), dtype=torch.bool),
@@ -109,7 +116,8 @@ def test_build_key_covers_every_source(tmp_path):
     from vamp_mvt_tpu_torch.ops.kernels import build
 
     names = sorted(p.name for p in build.CSRC.iterdir())
-    assert {"fkcc.cu", "fkcc_device.cuh", "rrtc_mega.cu", "simplify_mega.cu"} <= set(names)
+    assert {"fkcc.cu", "fkcc_device.cuh", "rrtc_mega.cu", "simplify_mega.cu",
+            "probe_gather.cu"} <= set(names)
     for name in names:
         (tmp_path / name).write_bytes((build.CSRC / name).read_bytes())
     key = build.source_key(tmp_path)

@@ -5,6 +5,8 @@ planning, the 32x-budget retry of unsolved problems, simplification and the
 gather of results to the host.  planner="mega" plans and simplifies with the
 megakernels (`planning/rrtc_mega.py`, `planning/simplify_mega.py`);
 planner="xla" with the lockstep state machines and straggler compaction.
+`run_suite_pointcloud` runs the suite against pointclouds sampled from the
+problems' obstacles (pointcloud/pipeline.py).
 
 Problem data comes from the MoveIt-YAML tarballs under
 VAMP_MVT_TPU_RESOURCES (`<robot>/problems.tar.bz2`), or from a `data` dict in
@@ -623,31 +625,7 @@ def run_suite(
             return rrtc_mega.plan_batch_mega(spec, e, s_, g, m, settings, budget=budget,
                                              device=dev)
 
-        def solve_batch(e, s_, g, m):
-            pr = plan_fn(e, s_, g, m, settings.max_iterations)
-            sync()
-            t_retry = time.perf_counter()
-            um = ~pr.solved
-            if bool(um.any()):
-                # the retry replays the same search with a larger budget, so
-                # a problem that filled the node buffer would fill it again
-                n_nodes = pr.size_start + pr.size_goal + (~m).sum(1)
-                full = um & (n_nodes >= settings.max_samples)
-                if bool(full.any()):
-                    raise ValueError(
-                        f"max_samples={settings.max_samples} cannot hold the 32x "
-                        f"retry: {int(full.sum())} problems filled the node "
-                        "buffer within the first budget; raise max_samples")
-                # the same kernel at 32x budget; solved rows get start == goal
-                # problems that the direct check ends at once
-                g2 = torch.where(um[:, None, None], g, s_[:, None, :])
-                rr = plan_fn(e, s_, g2, m, retry_budget)
-                pr = type(pr)(*(
-                    torch.where(um.reshape(um.shape + (1,) * (o.dim() - 1)), n, o)
-                    for o, n in zip(pr, rr)
-                ))
-                sync()
-            return pr, t_retry
+        solve_batch = _mega_solver(plan_fn, settings, 32, sync)
 
     else:
         # straggler phase: much larger sample budget and node buffer at high K
@@ -668,25 +646,7 @@ def run_suite(
             return rrtc.plan_batch_compact(spec, e, s_, g, m, retry_settings,
                                            segment_steps=64, min_batch=RETRY_B, device=dev)
 
-        def solve_batch(e, s_, g, m):
-            pr = plan_fn(e, s_, g, m)
-            sync()
-            t_retry = time.perf_counter()
-            unsolved = ~pr.solved.cpu().numpy()
-            if unsolved.any():
-                # rerun stragglers at the 32x budget in fixed-size batches and
-                # write their results back in place
-                idx = np.flatnonzero(unsolved)
-                pr = type(pr)(*(t.clone() for t in pr))
-                for off in range(0, len(idx), RETRY_B):
-                    part = idx[off : off + RETRY_B]
-                    take = torch.as_tensor(np.resize(part, RETRY_B), device=dev)
-                    rr = retry_fn(e.map(lambda t: t[take]), s_[take], g[take], m[take])
-                    rows = torch.as_tensor(part, device=dev)
-                    for dst, src in zip(pr, rr):
-                        dst[rows] = src[: len(part)]
-                sync()
-            return pr, t_retry
+        solve_batch = _lockstep_solver(plan_fn, retry_fn, RETRY_B, sync, dev)
 
     if planner == "mega" and simplify_mega.supports(simp_settings):
 
@@ -710,9 +670,271 @@ def run_suite(
             simp_fn(e0, r0.path, r0.path_length)
     _phase("warmup")
 
+    plan_parts, simp_parts, t_plan, t_simp = _run_batches(
+        envs, starts, goals, masks, batch_size, solve_batch, simp_fn, sync, timings)
+    tmark = time.perf_counter()
+    plan_res, simp_res = _gather(plan_parts, n_real), _gather(simp_parts, n_real)
+    _phase("gather")
+    return SuiteResult(names, plan_res, simp_res, valid, t_plan, t_simp)
+
+
+def pointcloud_settings(robot: str) -> rrtc.RRTCSettings:
+    """run_suite_pointcloud's planner settings for `robot`."""
+    return rrtc.RRTCSettings(
+        range=registry.RRT_RANGES.get(robot, 1.0),
+        max_iterations=4096,
+        max_samples=4096,
+        max_path=96,
+        samples_per_step=16,
+        connect_segments=8,
+        sample_window=8,
+    )
+
+
+def run_suite_pointcloud(
+    robot: str = "panda",
+    pc_repr: str = "capt",
+    filter_type: str = "scdf",
+    problem_names=None,
+    settings: rrtc.RRTCSettings | None = None,
+    simp_settings: simplify.SimplifySettings | None = None,
+    max_problems: int | None = None,
+    batch_size: int = 100,
+    samples_per_object: int = 10000,
+    warmup: bool = True,
+    data: dict | None = None,
+    device=None,
+):
+    """Pointcloud-mode MBM suite (reference scripts/evaluate_mbm.py:106-136).
+
+    Per problem, on the host: sample the cylinder and box surfaces, filter
+    (scdf / centervox) and build the pointcloud structures
+    (pointcloud/pipeline.py, the C++ library), timed per problem like the
+    reference's timing columns (resources/README.md:151-183).  Then plan and
+    simplify.  On a GPU the planner and simplifier megakernels run on the
+    kernel-resident structure (collision/pc_kernel.py), and the requested
+    MVT / CAPT representation is built for its build-time metric only; the
+    unsolved problems are replanned at 16x the budget.  With device="cpu"
+    the lockstep planner and simplifier run on batched MVT / CAPT
+    structures, with the stragglers rerun at 16x the budget in batches of 8,
+    as the JAX package does on the CPU.  A retry that would replay a search
+    which filled the node buffer raises (raise max_samples).
+
+    Returns (SuiteResult, timings): filter_ns and build_ns per problem,
+    their medians in ms, pc_repr, filter_type, and `phases`, the wall-clock
+    breakdown (pointcloud, validity, warmup, plan, retry, simplify, gather)
+    in seconds.  Runs on `device` (default: the GPU).
+    """
+    from vamp_mvt_tpu_torch.pointcloud import pipeline
+
+    dev = resolve_device(device)
+    spec = registry.load(robot)
+    if settings is None:
+        settings = pointcloud_settings(robot)
+    retry_factor = 16
+    RETRY_B = 8
+    if simp_settings is None:
+        simp_settings = simplify.SimplifySettings(pair_chunk=64)
+
+    if data is None:
+        data = load_problems(robot)
+    problems, names = [], []
+    for pname, plist in data["problems"].items():
+        if problem_names and pname not in problem_names:
+            continue
+        for p in plist:
+            problems.append(p)
+            names.append((pname, p["index"]))
+    if max_problems:
+        problems, names = problems[:max_problems], names[:max_problems]
+    n_real = len(problems)
+    pad = (-n_real) % batch_size
+    problems = problems + [problems[-1]] * pad
+    use_mega = dev.type == "cuda"
+
+    def sync():
+        if use_mega:
+            torch.cuda.synchronize(dev)
+
+    phases: dict = {}
+    tmark = time.perf_counter()
+
+    def _phase(name):
+        nonlocal tmark
+        sync()
+        t = time.perf_counter()
+        phases[name] = phases.get(name, 0.0) + (t - tmark)
+        tmark = t
+
+    # sample + filter + build, timed per problem.  On the GPU the planner
+    # reads the kernel form; the requested MVT / CAPT is built for its
+    # build-time metric.  Environments are stacked on the host (pointcloud
+    # structures padded to the batch's largest) and moved once.
+    envs_list, filter_ns, build_ns = [], [], []
+    for p in problems:
+        b, _orig, _filt, f_ns, b_ns = pipeline.problem_to_pointcloud_env(
+            robot, p, pc_repr=pc_repr, samples_per_object=samples_per_object,
+            filter_type=filter_type, kernel_pc=use_mega)
+        filter_ns.append(f_ns)
+        build_ns.append(b_ns)
+        clouds = {"pck": b.pck} if use_mega else {pc_repr: getattr(b, pc_repr)}
+        envs_list.append(envmod.EnvironmentBuilder(**clouds).build(device="cpu"))
+    envs = envmod.stack_environments(envs_list).to(dev)
+    del envs_list
+
+    G = max(len(p["goals"]) for p in problems)
+    d = len(problems[0]["start"])
+    starts = np.zeros((len(problems), d), np.float32)
+    goals = np.zeros((len(problems), G, d), np.float32)
+    masks = np.zeros((len(problems), G), bool)
+    for i, p in enumerate(problems):
+        starts[i] = p["start"]
+        for g, goal in enumerate(p["goals"]):
+            goals[i, g] = goal
+            masks[i, g] = True
+    starts, goals, masks = (torch.as_tensor(a, device=dev) for a in (starts, goals, masks))
+    _phase("pointcloud")
+
+    valid = _valid_fused(spec, envs, starts, goals, masks).cpu().numpy()[:n_real]
+    _phase("validity")
+
+    if use_mega:
+
+        def plan_fn(e, s_, g, m, budget):
+            return rrtc_mega.plan_batch_mega(spec, e, s_, g, m, settings, budget=budget,
+                                             device=dev)
+
+        solve_batch = _mega_solver(plan_fn, settings, retry_factor, sync)
+        if simplify_mega.supports(simp_settings):
+
+            def simp_fn(e, p, l):
+                return simplify_mega.simplify_batch_mega(spec, e, p, l, simp_settings,
+                                                         device=dev)
+
+        else:
+
+            def simp_fn(e, p, l):
+                return simplify.simplify_batch_compact(spec, e, p, l, simp_settings,
+                                                       device=dev)
+
+    else:
+        retry_settings = dataclasses.replace(
+            settings, max_iterations=retry_factor * settings.max_iterations)
+
+        def plan_fn(e, s_, g, m):
+            return rrtc.plan_batch_compact(spec, e, s_, g, m, settings, segment_steps=64,
+                                           device=dev)
+
+        def retry_fn(e, s_, g, m):
+            return rrtc.plan_batch_compact(spec, e, s_, g, m, retry_settings,
+                                           segment_steps=64, min_batch=RETRY_B, device=dev)
+
+        solve_batch = _lockstep_solver(plan_fn, retry_fn, RETRY_B, sync, dev,
+                                       guard=(settings, retry_factor))
+
+        def simp_fn(e, p, l):
+            return simplify.simplify_batch_compact(spec, e, p, l, simp_settings, device=dev)
+
+    if warmup and use_mega:
+        # build and load every kernel outside the timed phases (see run_suite)
+        e0, s0, g0, m0 = envs.map(lambda t: t[:1]), starts[:1], goals[:1], masks[:1]
+        r0 = plan_fn(e0, s0, g0, m0, settings.max_iterations)
+        plan_fn(e0, s0, s0[:, None].expand_as(g0), m0, retry_factor * settings.max_iterations)
+        simp_fn(e0, r0.path, r0.path_length)
+    _phase("warmup")
+
+    plan_parts, simp_parts, t_plan, t_simp = _run_batches(
+        envs, starts, goals, masks, batch_size, solve_batch, simp_fn, sync, phases)
+    tmark = time.perf_counter()
+    plan_res, simp_res = _gather(plan_parts, n_real), _gather(simp_parts, n_real)
+    _phase("gather")
+    suite = SuiteResult(names, plan_res, simp_res, valid, t_plan, t_simp)
+    f_ns = np.asarray(filter_ns[:n_real], np.float64)
+    b_ns = np.asarray(build_ns[:n_real], np.float64)
+    timings = {
+        "filter_ns": f_ns,
+        "build_ns": b_ns,
+        "filter_median_ms": float(np.median(f_ns)) / 1e6,
+        "build_median_ms": float(np.median(b_ns)) / 1e6,
+        "pc_repr": pc_repr,
+        "filter_type": filter_type,
+        "phases": phases,
+    }
+    return suite, timings
+
+def _mega_solver(plan_fn, settings, factor: int, sync):
+    """solve_batch of the mega path: plan at the budget, then replan the
+    unsolved problems with the same kernel at `factor` x the budget (solved
+    rows get start == goal problems that the direct check ends at once).
+    Returns (result, retry start time)."""
+
+    def solve_batch(e, s_, g, m):
+        pr = plan_fn(e, s_, g, m, settings.max_iterations)
+        sync()
+        t_retry = time.perf_counter()
+        um = ~pr.solved
+        if bool(um.any()):
+            _check_retry_room(pr, um, m, settings, factor)
+            g2 = torch.where(um[:, None, None], g, s_[:, None, :])
+            rr = plan_fn(e, s_, g2, m, factor * settings.max_iterations)
+            pr = type(pr)(*(
+                torch.where(um.reshape(um.shape + (1,) * (o.dim() - 1)), n, o)
+                for o, n in zip(pr, rr)
+            ))
+            sync()
+        return pr, t_retry
+
+    return solve_batch
+
+
+def _check_retry_room(pr, unsolved, masks, settings, factor: int) -> None:
+    """The retry replays the same search with a larger budget, so a problem
+    that filled the node buffer would fill it again: refuse it."""
+    n_nodes = pr.size_start + pr.size_goal + (~masks).sum(1)
+    full = unsolved & (n_nodes >= settings.max_samples)
+    if bool(full.any()):
+        raise ValueError(
+            f"max_samples={settings.max_samples} cannot hold the {factor}x "
+            f"retry: {int(full.sum())} problems filled the node "
+            "buffer within the first budget; raise max_samples")
+
+
+def _lockstep_solver(plan_fn, retry_fn, retry_b: int, sync, dev, guard=None):
+    """solve_batch of the lockstep path: plan, then rerun the stragglers with
+    retry_fn in fixed-size batches of retry_b and write their results back in
+    place.  guard = (settings, factor) refuses a retry that replays the same
+    search in the same node buffer (_check_retry_room)."""
+
+    def solve_batch(e, s_, g, m):
+        pr = plan_fn(e, s_, g, m)
+        sync()
+        t_retry = time.perf_counter()
+        unsolved = ~pr.solved.cpu().numpy()
+        if unsolved.any():
+            if guard is not None:
+                _check_retry_room(pr, torch.as_tensor(unsolved, device=dev), m, *guard)
+            idx = np.flatnonzero(unsolved)
+            pr = type(pr)(*(t.clone() for t in pr))
+            for off in range(0, len(idx), retry_b):
+                part = idx[off : off + retry_b]
+                take = torch.as_tensor(np.resize(part, retry_b), device=dev)
+                rr = retry_fn(e.map(lambda t: t[take]), s_[take], g[take], m[take])
+                rows = torch.as_tensor(part, device=dev)
+                for dst, src in zip(pr, rr):
+                    dst[rows] = src[: len(part)]
+            sync()
+        return pr, t_retry
+
+    return solve_batch
+
+
+def _run_batches(envs, starts, goals, masks, batch_size, solve_batch, simp_fn, sync,
+                 timings):
+    """Plan and simplify every batch of `batch_size` problems.  Returns the
+    per-batch plan and simplify results and the plan and simplify seconds."""
     plan_parts, simp_parts = [], []
     t_plan = t_simp = 0.0
-    for i in range(0, len(problems), batch_size):
+    for i in range(0, starts.shape[0], batch_size):
         sl = slice(i, i + batch_size)
         e, s_, g, m = envs.map(lambda t: t[sl]), starts[sl], goals[sl], masks[sl]
         t0 = time.perf_counter()
@@ -728,16 +950,12 @@ def run_suite(
         t_simp += t2 - t1
         plan_parts.append(pr)
         simp_parts.append(sr)
-
-    tmark = time.perf_counter()
     if timings is not None:
         timings["simplify"] = t_simp
+    return plan_parts, simp_parts, t_plan, t_simp
 
-    def gather(parts):
-        host = [_to_numpy(p) for p in parts]
-        return type(host[0])(*(np.concatenate(xs)[:n_real] for xs in zip(*host)))
 
-    plan_res = gather(plan_parts)
-    simp_res = gather(simp_parts)
-    _phase("gather")
-    return SuiteResult(names, plan_res, simp_res, valid, t_plan, t_simp)
+def _gather(parts, n_real: int):
+    """Per-batch result tuples -> one tuple of host arrays, first n_real rows."""
+    host = [_to_numpy(p) for p in parts]
+    return type(host[0])(*(np.concatenate(xs)[:n_real] for xs in zip(*host)))

@@ -1,8 +1,9 @@
 """Environment of collision primitives as dense struct-of-arrays tensors.
 
-Port of `vamp_mvt_tpu/collision/environment.py` (primitives and
-heightfield tables; pointclouds and attachments are not ported yet).  Row
-layouts match the JAX package and the reference exactly:
+Port of `vamp_mvt_tpu/collision/environment.py`: primitive and heightfield
+tables, and the pointcloud structures (MVT, CAPT and the kernel-resident
+form; attachments are not ported yet).  Row layouts match the JAX package
+and the reference exactly:
 
   sphere:  (x, y, z, r)                                        4 floats
   capsule: (x1, y1, z1, xv, yv, zv, r, rdv), rdv = 1/|v|^2     8 floats
@@ -12,16 +13,26 @@ Z-aligned capsules/cuboids are routed to their own tables.  Tables are padded
 with inert rows whose first coordinate is 1e8; the live rows always form a
 prefix (the fused kernel scans only that prefix, counting rows with
 |x0| < 1e7), and every builder here checks that.
+
+A pointcloud rides along as `mvt` (collision/mvt.py), `capt`
+(collision/capt.py) and `pck` (collision/pc_kernel.py, the form the CUDA
+kernels read): named tuples of tensors with the same leading batch dims as
+the tables, or None.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from vamp_mvt_tpu_torch.collision.capt import CAPTData, build_capt
+from vamp_mvt_tpu_torch.collision.mvt import MVTData, build_mvt
+from vamp_mvt_tpu_torch.collision.pc_kernel import CS, PCKernelData, build_pc_kernel
 
 # Inert padding: far away, zero radius -> distances are huge positive.
 _FAR = 1.0e8
@@ -29,6 +40,16 @@ _FAR = 1.0e8
 LIVE_LIMIT = 1.0e7
 
 TABLES = ("spheres", "capsules", "z_capsules", "cuboids", "z_cuboids")
+POINTCLOUDS = ("mvt", "capt", "pck")
+
+
+def tree_map(fn, x):
+    """Apply `fn` to every array or tensor of a (nested) tuple; None stays."""
+    if x is None:
+        return None
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return fn(x)
+    return type(x)(*(tree_map(fn, v) for v in x))
 
 
 class Environment(NamedTuple):
@@ -41,10 +62,13 @@ class Environment(NamedTuple):
     z_cuboids: torch.Tensor    # (..., Nzb, 15)
     hf_meta: torch.Tensor      # (..., Nh, 10)
     hf_data: torch.Tensor      # (..., Nh, max_cells)
+    mvt: MVTData | None = None
+    capt: CAPTData | None = None
+    pck: PCKernelData | None = None
 
     def map(self, fn) -> "Environment":
         """Apply `fn` to every tensor (indexing, device moves, broadcasts)."""
-        return Environment(*(fn(t) for t in self))
+        return Environment(*(tree_map(fn, t) for t in self))
 
     def to(self, device) -> "Environment":
         return self.map(lambda t: t.to(device))
@@ -135,6 +159,9 @@ class EnvironmentBuilder:
     z_capsules: list = dataclasses.field(default_factory=list)
     cuboids: list = dataclasses.field(default_factory=list)
     z_cuboids: list = dataclasses.field(default_factory=list)
+    mvt: MVTData | None = None
+    capt: CAPTData | None = None
+    pck: PCKernelData | None = None
 
     def add_sphere(self, center, radius):
         self.spheres.append(make_sphere(center, radius))
@@ -155,6 +182,32 @@ class EnvironmentBuilder:
         else:
             self.cuboids.append(arr)
         return self
+
+    def add_mvt_pointcloud(self, points, r_min: float, r_max: float, workspace_min,
+                           workspace_max, r_point: float) -> int:
+        """Build and attach an MVT structure; returns the build time in ns
+        (reference bindings/environment.cc:164-177)."""
+        t0 = time.perf_counter_ns()
+        self.mvt = build_mvt(points, r_min, r_max, workspace_min, workspace_max, r_point)
+        return time.perf_counter_ns() - t0
+
+    def add_capt_pointcloud(self, points, r_min: float, r_max: float, r_point: float,
+                            use_native: bool = True) -> int:
+        """Build and attach a CAPT structure; returns the build time in ns
+        (reference bindings/environment.cc:152-163)."""
+        t0 = time.perf_counter_ns()
+        self.capt = build_capt(points, r_min, r_max, r_point, use_native=use_native)
+        return time.perf_counter_ns() - t0
+
+    def add_kernel_pointcloud(self, points, class_radii, workspace_min, workspace_max,
+                              r_point: float, max_radius: float,
+                              use_native: bool = True) -> int:
+        """Build and attach the kernel-resident structure
+        (collision/pc_kernel.py); returns the build time in ns."""
+        t0 = time.perf_counter_ns()
+        self.pck = build_pc_kernel(points, class_radii, workspace_min, workspace_max,
+                                   r_point, max_radius, use_native=use_native)
+        return time.perf_counter_ns() - t0
 
     def build(
         self,
@@ -188,6 +241,8 @@ class EnvironmentBuilder:
             ),
             hf_meta=torch.zeros((0, 10), dtype=torch.float32, device=device),
             hf_data=torch.zeros((0, 0), dtype=torch.float32, device=device),
+            **{name: tree_map(lambda a: torch.as_tensor(a, device=device), getattr(self, name))
+               for name in POINTCLOUDS},
         )
 
 
@@ -195,9 +250,84 @@ def empty_environment(device=None) -> Environment:
     return EnvironmentBuilder().build(device=device)
 
 
+def _pad_to(t: torch.Tensor, shape, fill) -> torch.Tensor:
+    """t padded at the end of every dim to `shape` with `fill`."""
+    if tuple(t.shape) == tuple(shape):
+        return t
+    out = torch.full(tuple(shape), fill, dtype=t.dtype, device=t.device)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
+def _pad_pointclouds(envs: list[Environment]) -> list[Environment]:
+    """Pad each problem's pointcloud structures to the batch's largest, the
+    way the JAX package pads them for a batch (mbm.py:930-950 for the
+    kernel form; build_mvt / build_capt pad_* arguments for the others):
+    pck chunks to the most chunks (far bounds, far points; meta keeps each
+    problem's live count), MVT voxels and capacity (+inf points, empty
+    boxes), CAPT leaves and capacity (+inf).  Raise where a batch cannot be
+    one array: another voxel grid (W) or another CAPT depth."""
+    out = list(envs)
+    for name in POINTCLOUDS:
+        present = [getattr(e, name) is not None for e in envs]
+        if not any(present):
+            continue
+        if not all(present):
+            raise ValueError(f"stack_environments: some problems lack env.{name}")
+        sts = [getattr(e, name) for e in envs]
+        if name == "pck":
+            if len({tuple(s.bitmap.shape) for s in sts}) > 1:
+                raise ValueError("stack_environments: pointclouds of another voxel grid (W)")
+            n = max(s.chunks.shape[0] for s in sts)
+            sts = [s._replace(chunks=_pad_chunks(s.chunks, n),
+                              points=_pad_to(s.points, (n, 3 * CS), _FAR)) for s in sts]
+        elif name == "mvt":
+            if len({tuple(s.grid.shape) for s in sts}) > 1:
+                raise ValueError("stack_environments: MVTs of another voxel grid (W)")
+            nv = max(s.voxel_points.shape[0] for s in sts)
+            c = max(s.voxel_points.shape[1] for s in sts)
+            lo, hi = np.finfo(np.float32).max, np.finfo(np.float32).min
+            sts = [s._replace(
+                voxel_points=_pad_to(s.voxel_points, (nv, c, 3), math.inf),
+                voxel_count=_pad_to(s.voxel_count, (nv,), 0),
+                voxel_aabb=torch.cat([
+                    _pad_to(s.voxel_aabb[:, :3], (nv, 3), lo),
+                    _pad_to(s.voxel_aabb[:, 3:], (nv, 3), hi)], 1)) for s in sts]
+        else:
+            if len({tuple(s.tests.shape) for s in sts}) > 1:
+                raise ValueError("stack_environments: CAPT trees of another depth")
+            nl = max(s.leaf_aabb.shape[0] for s in sts)
+            c = max(s.aff_points.shape[1] for s in sts)
+            sts = [s._replace(
+                leaf_aabb=_pad_to(s.leaf_aabb, (nl, 6), math.inf),
+                aff_points=_pad_to(s.aff_points, (nl, c, 3), math.inf),
+                aff_count=_pad_to(s.aff_count, (nl,), 0)) for s in sts]
+        out = [e._replace(**{name: st}) for e, st in zip(out, sts)]
+    return out
+
+
+def _pad_chunks(chunks: torch.Tensor, n: int) -> torch.Tensor:
+    """Chunk bounds padded to n rows: far centres, radius 0."""
+    if chunks.shape[0] == n:
+        return chunks
+    pad = torch.zeros((n - chunks.shape[0], 8), dtype=chunks.dtype, device=chunks.device)
+    pad[:, :3] = _FAR
+    return torch.cat([chunks, pad])
+
+
 def stack_environments(envs: list[Environment]) -> Environment:
-    """Stack same-capacity environments into a batched Environment."""
-    return Environment(*(torch.stack(ts) for ts in zip(*envs)))
+    """Stack environments of the same table capacities into a batched
+    Environment; pointcloud structures are padded to the batch's largest."""
+    envs = _pad_pointclouds(envs)
+
+    def stack(*xs):
+        if xs[0] is None:
+            return None
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack(xs)
+        return type(xs[0])(*(stack(*ys) for ys in zip(*xs)))
+
+    return Environment(*(stack(*fields) for fields in zip(*envs)))
 
 
 def broadcast_environment(env: Environment, batch: int) -> Environment:

@@ -1,9 +1,10 @@
 """State carried across from the JAX package: robot specs and environments.
 
-The JAX package has no weights; its state is the robot spec and the
-environment arrays.  These helpers take them as numpy arrays and Python
-scalars (what `np.asarray` gives for each JAX leaf) and return the port's
-objects, so both packages can be fed the same inputs.
+The JAX package has no weights; its state is the robot spec, the
+environment arrays and the pointcloud structures.  These helpers take them
+as numpy arrays and Python scalars (what `np.asarray` gives for each JAX
+leaf) and return the port's objects, so both packages can be fed the same
+inputs.
 """
 
 from __future__ import annotations
@@ -11,8 +12,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vamp_mvt_tpu_torch.collision.environment import TABLES, Environment, check_live_prefix
+from vamp_mvt_tpu_torch.collision.capt import CAPTData
+from vamp_mvt_tpu_torch.collision.environment import (
+    POINTCLOUDS, TABLES, Environment, check_live_prefix, tree_map)
+from vamp_mvt_tpu_torch.collision.mvt import MVTData
+from vamp_mvt_tpu_torch.collision.pc_kernel import PCKernelData
 from vamp_mvt_tpu_torch.robots.spec import Frame, RobotSpec
+
 
 def _field(obj, name):
     return obj[name] if isinstance(obj, dict) else getattr(obj, name)
@@ -55,15 +61,39 @@ def spec_from_numpy(d: dict) -> RobotSpec:
     )
 
 
-def environment_from_numpy(leaves: dict[str, np.ndarray], device) -> Environment:
+def mvt_from_numpy(m) -> MVTData:
+    """The port's MVTData from the JAX package's (its fields as numpy)."""
+    return MVTData(*(np.asarray(_field(m, f)) for f in MVTData._fields))
+
+
+def capt_from_numpy(c) -> CAPTData:
+    """The port's CAPTData from the JAX package's (its fields as numpy)."""
+    return CAPTData(*(np.asarray(_field(c, f)) for f in CAPTData._fields))
+
+
+def pck_from_numpy(k) -> PCKernelData:
+    """The port's PCKernelData from the JAX package's: bitmap, chunks, points
+    and meta (its `supers` and `radii` have no reader in the port)."""
+    return PCKernelData(*(np.asarray(_field(k, f)) for f in PCKernelData._fields))
+
+
+_POINTCLOUD_FROM = {"mvt": mvt_from_numpy, "capt": capt_from_numpy, "pck": pck_from_numpy}
+
+
+def environment_from_numpy(leaves: dict, device) -> Environment:
     """The port's Environment from the JAX package's leaves (`spheres`,
-    `capsules`, `z_capsules`, `cuboids`, `z_cuboids`, `hf_meta`, `hf_data`),
-    with any leading batch dims, on `device`."""
+    `capsules`, `z_capsules`, `cuboids`, `z_cuboids`, `hf_meta`, `hf_data`,
+    and optionally `mvt`, `capt`, `pck`), with any leading batch dims, on
+    `device`."""
     for name in TABLES:
         check_live_prefix(name, leaves[name])
-    return Environment(
-        *(
-            torch.as_tensor(np.array(leaves[name], np.float32), device=device)
-            for name in Environment._fields
-        )
-    )
+    tables = {
+        name: torch.as_tensor(np.array(leaves[name], np.float32), device=device)
+        for name in Environment._fields if name not in POINTCLOUDS
+    }
+    clouds = {
+        name: tree_map(lambda a: torch.as_tensor(np.array(a), device=device),
+                       _POINTCLOUD_FROM[name](leaves[name]))
+        for name in POINTCLOUDS if leaves.get(name) is not None
+    }
+    return Environment(**tables, **clouds)

@@ -1,32 +1,42 @@
 // Fused forward kinematics + collision check for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel vamp_mvt_tpu/ops/kernels/fkcc_pallas.py::_run
-// (its body _make_kernel -> tile_vmin, primitive and self-collision
-// branches).  For every configuration q of every problem it computes
+// (its body _make_kernel -> tile_vmin: the primitive, self-collision and
+// pointcloud branches).  For every configuration q of every problem it
+// computes
 //
 //   vmin = min( min over robot spheres x live shape rows of the signed value,
-//               min over the self-collision pair table of d^2 - (ri + rj)^2 )
+//               min over the self-collision pair table of d^2 - (ri + rj)^2,
+//               the pointcloud branch, where the problem has a pointcloud )
 //
-// and writes valid = (vmin >= 0) as int8, plus vmin itself when asked.
+// and writes valid = (vmin >= 0) as int8, plus vmin itself when asked, and
+// the pointcloud work per problem (spheres gated, chunk bounds tested,
+// points evaluated) when asked.
 //
 // Design.  One thread per configuration; the grid is (blocks of
 // configurations) x (problems).  Each block copies its problem's shape rows
 // into shared memory and counts the live prefix of every table (rows with
 // |x0| < 1e7, the _live_counts rule), then loops over that prefix only.
 // The robot arrives as small device tables built from its RobotSpec (frame
-// chain, sphere placement, pair table), so one compiled library serves every
-// robot.  FK walks the frames in order, keeping the previous frame's pose in
-// registers; only frames that are the parent of a non-adjacent frame are
-// kept in shared memory.  As soon as a sphere centre is known it is checked
-// against the environment from registers and stored in shared memory (SoA,
-// one float per thread per coordinate, conflict-free) for the pair loop.
+// chain, sphere placement, pair table, per-sphere pointcloud class), so one
+// compiled library serves every robot.  FK walks the frames in order,
+// keeping the previous frame's pose in registers; only frames that are the
+// parent of a non-adjacent frame are kept in shared memory.  As soon as a
+// sphere centre is known it is checked against the environment from
+// registers and stored in shared memory (SoA, one float per thread per
+// coordinate, conflict-free) for the pair loop and the pointcloud branch.
+// The pointcloud (about 86 KB of bitmap and 100 KB of chunks and points a
+// Panda problem) stays in global memory, read through the read-only path.
 //
 // What bounds it.  A Panda configuration reads 7 floats (28 bytes) and
 // writes 1 byte, but costs some 30k FP32 operations (59 spheres x the live
-// shapes, plus 690 pairs), so the kernel is bound by FP32 arithmetic on the
-// CUDA cores, not by memory.  The design keeps every operand of the inner
-// loops on chip: shape rows are warp-uniform shared-memory broadcasts and
-// sphere centres stay in registers or shared memory.
+// shapes, plus 690 pairs), and with a pointcloud 15 more a sphere for the
+// gate and 12 a chunk bound and 10 a point for the spheres the gate cannot
+// decide, so the kernel is bound by FP32 arithmetic on the CUDA cores, not
+// by memory.  The design keeps every operand of the inner loops on chip or
+// in L1/L2: shape rows are warp-uniform shared-memory broadcasts, sphere
+// centres stay in registers or shared memory, and a problem's chunks are
+// read by all of its blocks.
 //
 // Numerics: see fkcc_device.cuh, which holds the FK + collision code that
 // this kernel and both megakernels share.
@@ -40,7 +50,7 @@ namespace {
 __global__ void fkcc_kernel(fkcc::EnvTables et, const float* __restrict__ q,
                             long long q_sb, long long q_sd, long long q_sn, int N,
                             fkcc::Robot robot, signed char* __restrict__ out_valid,
-                            float* __restrict__ out_vmin) {
+                            float* __restrict__ out_vmin, long long* __restrict__ out_work) {
   extern __shared__ float smem[];
   const int T = blockDim.x;
   const int tid = threadIdx.x;
@@ -50,27 +60,38 @@ __global__ void fkcc_kernel(fkcc::EnvTables et, const float* __restrict__ q,
 
   const long long n = (long long)blockIdx.x * T + tid;
   if (n >= N) return;  // no barrier below this point
+  fkcc::Work w{0, 0, 0};
   const float vmin = fkcc::config_vmin(env, robot, s_pose, T, tid,
-                                       q + b * q_sb + n * q_sn, q_sd);
+                                       q + b * q_sb + n * q_sn, q_sd, w);
   const long long o = (long long)b * N + n;
   out_valid[o] = vmin >= 0.0f ? 1 : 0;
   if (out_vmin != nullptr) out_vmin[o] = vmin;
+  if (out_work != nullptr && w.gates > 0) {
+    unsigned long long* ow = reinterpret_cast<unsigned long long*>(out_work + (long long)b * 3);
+    atomicAdd(ow + 0, (unsigned long long)w.gates);
+    atomicAdd(ow + 1, (unsigned long long)w.chunks);
+    atomicAdd(ow + 2, (unsigned long long)w.points);
+  }
 }
 
 }  // namespace
 
 // Launch on `stream`; returns the CUDA error code of the launch (0 = ok).
+// out_vmin and out_work (B x 3, zeroed by the caller) may be null.
 extern "C" int fkcc_launch(
     const float* sph, const float* cap, const float* zcap, const float* cub,
     const float* zcub, int ns, int nc, int nzc, int nb, int nzb, int env_batched,
+    const int* bitmap, const float* chunks, const float* points, const float* pc_meta,
+    int rrows, int nch, int pc_batched,
     const float* q, long long q_sb, long long q_sd, long long q_sn, int B, int N,
     const int* frame_i, const float* frame_f, int F, int n_slots,
     const int* sphere_order, const float* sphere_f, int S, const int* pairs,
-    const float* pair_thr, int P, signed char* out_valid, float* out_vmin,
-    int threads, int smem_bytes, void* stream) {
-  const fkcc::EnvTables et{sph, cap, zcap, cub, zcub, ns, nc, nzc, nb, nzb, env_batched};
+    const float* pair_thr, int P, const float* sphere_pc, signed char* out_valid,
+    float* out_vmin, long long* out_work, int threads, int smem_bytes, void* stream) {
+  const fkcc::EnvTables et{sph, cap, zcap, cub, zcub, ns, nc, nzc, nb, nzb, env_batched,
+                           bitmap, chunks, points, pc_meta, rrows, nch, pc_batched};
   const fkcc::Robot robot{frame_i, frame_f, F, n_slots, sphere_order, sphere_f, S,
-                          pairs, pair_thr, P};
+                          pairs, pair_thr, P, sphere_pc};
   cudaError_t err = cudaFuncSetAttribute(
       fkcc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) {
@@ -79,6 +100,6 @@ extern "C" int fkcc_launch(
   }
   const dim3 grid((unsigned)((N + threads - 1) / threads), (unsigned)B);
   fkcc_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
-      et, q, q_sb, q_sd, q_sn, N, robot, out_valid, out_vmin);
+      et, q, q_sb, q_sd, q_sn, N, robot, out_valid, out_vmin, out_work);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // Fused forward kinematics + collision check of one configuration, as device
 // functions shared by every kernel of the port (fkcc.cu, rrtc_mega.cu,
 // simplify_mega.cu).  Counterpart of the TPU function
-// vamp_mvt_tpu/ops/kernels/fkcc_pallas.py::tile_vmin, primitive and
-// self-collision branches.
+// vamp_mvt_tpu/ops/kernels/fkcc_pallas.py::tile_vmin: its primitive,
+// self-collision and pointcloud (pc_phase 2) branches.
 //
 // A block first copies its problem's shape rows into shared memory and
 // counts the live prefix of every table (rows with |x0| < 1e7, the
@@ -12,7 +12,8 @@
 //   vmin = min( min over robot spheres x live shape rows of the signed value,
 //               min over the self-collision pair table of d^2 - (ri + rj)^2 )
 //
-// and the configuration is valid iff vmin >= 0.  The robot arrives as small
+// and, where the problem carries a pointcloud, the pointcloud branch below
+// (pc_vmin), and the configuration is valid iff vmin >= 0.  The robot arrives as small
 // device tables built from its RobotSpec (frame chain, sphere placement, pair
 // table).  FK walks the frames in order, keeping the previous frame's pose in
 // registers; only frames that parent a non-adjacent frame are kept in shared
@@ -23,6 +24,21 @@
 // cosf/sinf, with every sum taken in the index order of ops/smat.dot_terms
 // and collision/primitives.py, so its rounding follows the plain PyTorch
 // version and validity can differ only inside the contact band.
+//
+// Pointcloud (collision/pc_kernel.py), after the pair table, for each robot
+// sphere of a configuration whose vmin is still >= 0: the voxel of its centre
+// selects one word of its radius class in the certain-hit and the
+// certain-free halves of the bitmap; a certain-hit bit (where the sphere
+// table allows it, chit_ok) decides the configuration at once (vmin = -1);
+// a centre outside the grid, a set certain-free bit or a sphere without a
+// sound gate (gate_ok = 0) takes the exact scan: every live chunk whose
+// bounding sphere lies within thr + chunk radius (+ 1e-4 against rounding)
+// of the centre has its 32 points checked as d^2 - thr^2, thr = r + r_point.
+// The branch is sign-exact, not value-exact (every consumer thresholds vmin
+// at 0), and stops the moment vmin < 0.  One thread per configuration, no
+// warp collective (the megakernels call it inside divergent loops); the
+// bitmap, chunks and points stay in global memory, read through the
+// read-only path.
 
 #pragma once
 
@@ -37,6 +53,11 @@ constexpr float kLiveLimit = 1.0e7f;
 constexpr int kFrameFloats = 42;
 // frame_i row: parent, joint_type, q_index, slot, sphere_begin, sphere_end
 constexpr int kFrameInts = 6;
+// pointcloud layout (collision/pc_kernel.py): radius classes per bitmap
+// half, points per chunk; a chunk row is x[32] y[32] z[32]
+constexpr int kMaxClasses = 12;
+constexpr int kChunkPoints = 32;
+constexpr float kChunkMargin = 1.0e-4f;
 
 // The robot's device tables (ops/kernels/fkcc_cuda.py::robot_tables).
 struct Robot {
@@ -50,10 +71,13 @@ struct Robot {
   const int* pairs;
   const float* pair_thr;
   int P;
+  const float* sphere_pc;  // S x (radius, class, chit_ok, gate_ok)
 };
 
 // One problem's shape tables: global pointers of the whole batch and their
-// row counts (env_batched = 0: one environment shared by every problem).
+// row counts (env_batched = 0: one environment shared by every problem),
+// and its pointcloud tables (bitmap == nullptr: no pointcloud; pc_batched
+// = 0: one cloud shared by every problem).
 struct EnvTables {
   const float* sph;
   const float* cap;
@@ -62,9 +86,15 @@ struct EnvTables {
   const float* zcub;
   int ns, nc, nzc, nb, nzb;
   int env_batched;
+  const int* bitmap;    // (2 * kMaxClasses * rrows, 128) int32 a problem
+  const float* chunks;  // (nch, 8): bound centre xyz, radius, pad
+  const float* points;  // (nch, 3 * kChunkPoints)
+  const float* pc_meta; // (8,): ws xyz, 1 / cell, W, r_point, live chunks, pad
+  int rrows, nch, pc_batched;
 };
 
-// The block's copy of its problem's shape rows, and their live counts.
+// The block's copy of its problem's shape rows, and their live counts; its
+// pointcloud's global pointers and meta.
 struct Env {
   const float* sph;
   const float* cap;
@@ -72,6 +102,17 @@ struct Env {
   const float* cub;
   const float* zcub;
   int ls, lc, lzc, lb, lzb;
+  const int* bm;
+  const float4* ch;
+  const float* pt;
+  float wsx, wsy, wsz, inv, Wf, pr;
+  int W, nlive, plane;
+};
+
+// Pointcloud work of one thread: spheres gated, chunk bounds tested, points
+// evaluated.
+struct Work {
+  long long gates, chunks, points;
 };
 
 __device__ __forceinline__ float sq(float x) { return x * x; }
@@ -126,14 +167,81 @@ __device__ inline Env load_env(const EnvTables& e, int b, float* smem) {
   env.lzc = live_count(s_zcap, e.nzc, 8);
   env.lb = live_count(s_cub, e.nb, 15);
   env.lzb = live_count(s_zcub, e.nzb, 15);
+  env.bm = nullptr;
+  if (e.bitmap != nullptr) {
+    const long long bp = e.pc_batched ? b : 0;
+    const float* m = e.pc_meta + bp * 8;
+    env.bm = e.bitmap + bp * 2 * kMaxClasses * e.rrows * 128;
+    env.ch = reinterpret_cast<const float4*>(e.chunks + bp * e.nch * 8);
+    env.pt = e.points + bp * e.nch * 3 * kChunkPoints;
+    env.wsx = __ldg(m + 0);
+    env.wsy = __ldg(m + 1);
+    env.wsz = __ldg(m + 2);
+    env.inv = __ldg(m + 3);
+    env.Wf = __ldg(m + 4);
+    env.pr = __ldg(m + 5);
+    env.W = (int)env.Wf;
+    env.nlive = min((int)__ldg(m + 6), e.nch);
+    env.plane = e.rrows * 128;
+  }
   return env;
+}
+
+// The pointcloud branch (see the top of this file) for the sphere centres
+// in s_ctr, from a vmin >= 0; returns the new vmin.  No barrier inside.
+__device__ inline float pc_vmin(const Env& env, const Robot& r, const float* s_ctr, int T,
+                                int tid, float vmin, Work& w) {
+  for (int k = 0; k < r.S; ++k) {
+    const float cx = s_ctr[(k * 3 + 0) * T + tid];
+    const float cy = s_ctr[(k * 3 + 1) * T + tid];
+    const float cz = s_ctr[(k * 3 + 2) * T + tid];
+    const float rk = __ldg(r.sphere_pc + 4 * k);
+    const int cls = (int)__ldg(r.sphere_pc + 4 * k + 1);
+    const bool chit_ok = __ldg(r.sphere_pc + 4 * k + 2) > 0.0f;
+    const bool gate_ok = __ldg(r.sphere_pc + 4 * k + 3) > 0.0f;
+    ++w.gates;
+    const float fx = floorf((cx - env.wsx) * env.inv);
+    const float fy = floorf((cy - env.wsy) * env.inv);
+    const float fz = floorf((cz - env.wsz) * env.inv);
+    const bool ing = fx >= 0.0f && fx < env.Wf && fy >= 0.0f && fy < env.Wf &&
+                     fz >= 0.0f && fz < env.Wf;
+    bool maybe = !ing || !gate_ok;
+    if (ing) {
+      const int widx = (int)fx * env.W + (int)fy;
+      const unsigned zs = (unsigned)(int)fz;
+      const unsigned hit = (unsigned)__ldg(env.bm + (kMaxClasses + cls) * env.plane + widx);
+      if (chit_ok && ((hit >> zs) & 1u)) return fminf(vmin, -1.0f);
+      const unsigned free_word = (unsigned)__ldg(env.bm + cls * env.plane + widx);
+      maybe = maybe || ((free_word >> zs) & 1u);
+    }
+    if (!maybe) continue;
+    const float thr = rk + env.pr;
+    const float thr2 = thr * thr;
+    for (int c = 0; c < env.nlive; ++c) {
+      const float4 bnd = __ldg(env.ch + 2 * c);
+      ++w.chunks;
+      const float m = thr + bnd.w + kChunkMargin;
+      if (sq(cx - bnd.x) + sq(cy - bnd.y) + sq(cz - bnd.z) > m * m) continue;
+      const float* p = env.pt + (long long)c * 3 * kChunkPoints;
+      w.points += kChunkPoints;
+      for (int s = 0; s < kChunkPoints; ++s) {
+        const float d2 = sq(cx - __ldg(p + s)) + sq(cy - __ldg(p + kChunkPoints + s)) +
+                         sq(cz - __ldg(p + 2 * kChunkPoints + s));
+        vmin = fminf(vmin, d2 - thr2);
+      }
+      if (vmin < 0.0f) return vmin;
+    }
+  }
+  return vmin;
 }
 
 // vmin of the configuration qp[j * q_sd] (j = joint index) for thread `tid`
 // of a block of T threads; s_pose and s_ctr are the block's FK scratch
-// (scratch_floats(r, T) floats, s_pose first).  No barrier inside.
+// (scratch_floats(r, T) floats, s_pose first).  Pointcloud work goes to `w`.
+// No barrier inside.
 __device__ inline float config_vmin(const Env& env, const Robot& r, float* s_pose,
-                                    int T, int tid, const float* qp, long long q_sd) {
+                                    int T, int tid, const float* qp, long long q_sd,
+                                    Work& w) {
   float* s_ctr = s_pose + r.n_slots * 12 * T;  // S x 3 x T
   float vmin = __int_as_float(0x7f800000);  // +inf
   float R[9], t[3];
@@ -265,6 +373,7 @@ __device__ inline float config_vmin(const Env& env, const Robot& r, float* s_pos
     const float dz = s_ctr[(i * 3 + 2) * T + tid] - s_ctr[(j * 3 + 2) * T + tid];
     vmin = fminf(vmin, dx * dx + dy * dy + dz * dz - r.pair_thr[m]);
   }
+  if (env.bm != nullptr && vmin >= 0.0f) vmin = pc_vmin(env, r, s_ctr, T, tid, vmin, w);
   return vmin;
 }
 

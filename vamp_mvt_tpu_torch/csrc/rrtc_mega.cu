@@ -25,7 +25,10 @@
 //   connect step: up to C increments of the chain, inserted while valid.
 //
 // At the end the block walks both parent chains and exports only the
-// max_path path rows and the scalars (plus its work counters).
+// max_path path rows and the scalars (plus its work counters: configurations
+// checked, node-sample pairs scanned, and the pointcloud's spheres gated,
+// chunk bounds tested and points evaluated).  A pointcloud (fkcc_device.cuh)
+// stays in global memory: it adds nothing to the block's shared memory.
 //
 // Node memory.  On the TPU the (M + 32, 128) node buffer lived in VMEM.  Here
 // each problem owns M rows of (d + 4) floats in global memory (configuration,
@@ -65,7 +68,7 @@ constexpr int kChunk = 128;      // node rows staged per nearest-neighbour pass
 constexpr int kMeta = 4;         // in_start, radius, parent, norm
 constexpr int kLanesPerThread = kMaxLanes / 32;
 constexpr int kScalars = 16;
-constexpr int kWork = 2;
+constexpr int kWork = 5;
 // Radius of a node never updated: a finite stand-in for infinity, as in the
 // TPU kernel's node rows (mega_inputs writes it for the roots).
 constexpr float kBig = 1.0e30f;
@@ -196,7 +199,7 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
                                  long long* __restrict__ out_work) {
   extern __shared__ float smem[];
   __shared__ State st;
-  __shared__ unsigned long long s_pairs;
+  __shared__ unsigned long long s_work[kWork - 1];  // pairs, gates, chunks, points
   const int T = blockDim.x, tid = threadIdx.x, b = blockIdx.x;
   const int d = p.d, K = p.K, C = p.C, KW = p.KW, M = p.M, RS = d + kMeta;
   const Layout L(p, et, robot, T);
@@ -226,6 +229,7 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
 
   float* nb = nodes + (long long)b * M * RS;
   long long configs = 0, pairs = 0;
+  fkcc::Work pcw{0, 0, 0};
 
   // ------------------------------ initialisation --------------------------
   const int* c = ctl + b * 8;
@@ -253,7 +257,7 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
     st.csteps = 0;
     st.budget = c[3];
     st.c_len = 1.0f;
-    s_pairs = 0;
+    for (int i = 0; i < kWork - 1; ++i) s_work[i] = 0;
   }
   for (int j = tid; j < d; j += T) s_inc[j] = 0.0f;
   __syncthreads();
@@ -390,7 +394,7 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
         const float seg = (float)e + frac;
         for (int j = 0; j < d; ++j) s_q[j * T + tid] = s_tip[j] + s_inc[j] * seg;
       }
-      if (fkcc::config_vmin(env, robot, s_pose, T, tid, s_q + tid, T) < 0.0f) s_ebad[e] = 1;
+      if (fkcc::config_vmin(env, robot, s_pose, T, tid, s_q + tid, T, pcw) < 0.0f) s_ebad[e] = 1;
     }
     __syncthreads();
 
@@ -593,7 +597,10 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
     sc[14] = 0;
     sc[15] = 0;
   }
-  atomicAdd(&s_pairs, (unsigned long long)pairs);
+  atomicAdd(&s_work[0], (unsigned long long)pairs);
+  atomicAdd(&s_work[1], (unsigned long long)pcw.gates);
+  atomicAdd(&s_work[2], (unsigned long long)pcw.chunks);
+  atomicAdd(&s_work[3], (unsigned long long)pcw.points);
   __syncthreads();
   for (int i = tid; i < PP * d; i += T) {
     const int row = i / d, col = i % d;
@@ -603,7 +610,7 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
   if (tid == 0) {
     long long* w = out_work + (long long)b * kWork;
     w[0] = configs;
-    w[1] = (long long)s_pairs;
+    for (int i = 0; i < kWork - 1; ++i) w[1 + i] = (long long)s_work[i];
   }
 }
 
@@ -618,14 +625,17 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
 extern "C" int rrtc_mega_launch(
     const float* sph, const float* cap, const float* zcap, const float* cub,
     const float* zcub, int ns, int nc, int nzc, int nb, int nzb, int env_batched,
+    const int* bitmap, const float* chunks, const float* points, const float* pc_meta,
+    int rrows, int nch, int pc_batched,
     const int* frame_i, const float* frame_f, int F, int n_slots,
     const int* sphere_order, const float* sphere_f, int S, const int* pairs,
-    const float* pair_thr, int P, const int* ip, const float* fp, const int* ctl,
-    const float* nodes0, float* nodes, float* out_path, int* out_scal,
+    const float* pair_thr, int P, const float* sphere_pc, const int* ip, const float* fp,
+    const int* ctl, const float* nodes0, float* nodes, float* out_path, int* out_scal,
     long long* out_work, int max_smem, int* launch_info, void* stream) {
-  const fkcc::EnvTables et{sph, cap, zcap, cub, zcub, ns, nc, nzc, nb, nzb, env_batched};
+  const fkcc::EnvTables et{sph, cap, zcap, cub, zcub, ns, nc, nzc, nb, nzb, env_batched,
+                           bitmap, chunks, points, pc_meta, rrows, nch, pc_batched};
   const fkcc::Robot robot{frame_i, frame_f, F, n_slots, sphere_order, sphere_f, S,
-                          pairs, pair_thr, P};
+                          pairs, pair_thr, P, sphere_pc};
   PlanParams p;
   memcpy(&p, ip, kIntParams * 4);
   memcpy(reinterpret_cast<char*>(&p) + kIntParams * 4, fp, kFloatParams * 4);

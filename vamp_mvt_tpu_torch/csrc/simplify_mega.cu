@@ -24,8 +24,10 @@
 // all their points, T threads at a time.
 //
 // What bounds it.  FK + collision of the checked points, some 18k-30k FP32
-// operations per Panda configuration; the path (max_path x d floats) never
-// leaves shared memory.  One block per problem, whose shared memory (125,156
+// operations per Panda configuration (plus the pointcloud branch's work,
+// which it counts: spheres gated, chunk bounds tested, points evaluated);
+// the path (max_path x d floats) never leaves shared memory, a pointcloud
+// stays in global memory.  One block per problem, whose shared memory (125,156
 // bytes for Panda at T = 128, mostly FK scratch) allows one block per SM.
 //
 // Numerics.  --fmad=false and the plain version's order of every sum
@@ -38,6 +40,7 @@
 namespace {
 
 constexpr int kScalars = 2;
+constexpr int kWork = 4;  // configurations, spheres gated, chunks tested, points
 
 struct SimpParams {
   int d, P, B, max_iters, bspline_steps, num_long;
@@ -82,6 +85,7 @@ struct Block {
   int* soff;
   int* sbad;
   long long configs;
+  fkcc::Work pc;
 };
 
 // Stage segment e: start a, end bv (d floats each), point cap `cap`.
@@ -125,7 +129,7 @@ __device__ void check(Block& k, int n) {
     const int e = lo;
     const float frac = fminf((float)(pt - k.soff[e] + 1) / (8.0f * k.sn[e]), 1.0f);
     for (int j = 0; j < d; ++j) k.q[j * T + tid] = k.sa[e * d + j] + k.sv[e * d + j] * frac;
-    if (fkcc::config_vmin(k.env, k.robot, k.pose, T, tid, k.q + tid, T) < 0.0f) k.sbad[e] = 1;
+    if (fkcc::config_vmin(k.env, k.robot, k.pose, T, tid, k.q + tid, T, k.pc) < 0.0f) k.sbad[e] = 1;
   }
   k.configs += total;
   __syncthreads();
@@ -138,6 +142,7 @@ __global__ void simplify_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, Simp
                                      long long* __restrict__ out_work) {
   extern __shared__ float smem[];
   __shared__ int s_n, s_changed, s_best, s_nseg, s_flag;
+  __shared__ unsigned long long s_work[kWork - 1];
   const int T = blockDim.x, tid = threadIdx.x, b = blockIdx.x;
   const int d = p.d, P = p.P;
   const Layout L(p, et, robot, T);
@@ -153,6 +158,8 @@ __global__ void simplify_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, Simp
   k.soff = reinterpret_cast<int*>(smem + L.soff);
   k.sbad = reinterpret_cast<int*>(smem + L.sbad);
   k.configs = 0;
+  k.pc = fkcc::Work{0, 0, 0};
+  if (tid < kWork - 1) s_work[tid] = 0;
   float* path = smem + L.path;
   float* tmp = smem + L.tmp;
   float* old = smem + L.old;
@@ -345,10 +352,15 @@ __global__ void simplify_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, Simp
     const int row = min(x / d, n - 1);
     out_path[(long long)b * P * d + x] = path[row * d + x % d];
   }
+  atomicAdd(&s_work[0], (unsigned long long)k.pc.gates);
+  atomicAdd(&s_work[1], (unsigned long long)k.pc.chunks);
+  atomicAdd(&s_work[2], (unsigned long long)k.pc.points);
+  __syncthreads();
   if (tid == 0) {
     out_scal[b * kScalars + 0] = n;
     out_scal[b * kScalars + 1] = straight ? 0 : iters;
-    out_work[b] = k.configs;
+    out_work[(long long)b * kWork] = k.configs;
+    for (int i = 0; i < kWork - 1; ++i) out_work[(long long)b * kWork + 1 + i] = (long long)s_work[i];
   }
 }
 
@@ -363,14 +375,17 @@ __global__ void simplify_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, Simp
 extern "C" int simplify_mega_launch(
     const float* sph, const float* cap, const float* zcap, const float* cub,
     const float* zcub, int ns, int nc, int nzc, int nb, int nzb, int env_batched,
+    const int* bitmap, const float* chunks, const float* points, const float* pc_meta,
+    int rrows, int nch, int pc_batched,
     const int* frame_i, const float* frame_f, int F, int n_slots,
     const int* sphere_order, const float* sphere_f, int S, const int* pairs,
-    const float* pair_thr, int P, const int* ip, const float* fp, const float* paths,
-    const int* lengths, float* out_path, int* out_scal, long long* out_work,
-    int max_smem, int* launch_info, void* stream) {
-  const fkcc::EnvTables et{sph, cap, zcap, cub, zcub, ns, nc, nzc, nb, nzb, env_batched};
+    const float* pair_thr, int P, const float* sphere_pc, const int* ip, const float* fp,
+    const float* paths, const int* lengths, float* out_path, int* out_scal,
+    long long* out_work, int max_smem, int* launch_info, void* stream) {
+  const fkcc::EnvTables et{sph, cap, zcap, cub, zcub, ns, nc, nzc, nb, nzb, env_batched,
+                           bitmap, chunks, points, pc_meta, rrows, nch, pc_batched};
   const fkcc::Robot robot{frame_i, frame_f, F, n_slots, sphere_order, sphere_f, S,
-                          pairs, pair_thr, P};
+                          pairs, pair_thr, P, sphere_pc};
   SimpParams p{ip[0], ip[1], ip[2], ip[3], ip[4], ip[5], fp[0], fp[1], fp[2]};
   int T = 0, bytes = 0;
   const int cands[] = {128, 64, 32};

@@ -10,6 +10,13 @@ Self-collision is an elementwise float32 test over the robot's exact pair
 table.  No `torch.cdist` and no matrix-product form: cdist switches to a
 matmul expansion on large inputs, and that rounding flips borderline contacts.
 
+Pointclouds: an MVT or CAPT structure (the JAX package's lockstep path)
+contributes -1 where a sphere hits the cloud; the kernel-resident form
+(`env.pck`) contributes `pc_vmin_plain`, the exact minimum over every live
+point of d^2 - (r + r_point)^2.  All three decide alike except where a point
+lies exactly at d^2 == (r + r_point)^2: MVT and CAPT call that a hit, the
+kernel's rule (valid iff vmin >= 0) does not.
+
 `fkcc` dispatches through `ops/kernels/fkcc_cuda.py`: a CUDA tensor goes to
 the hand-written kernel, a CPU tensor to the plain version below.
 """
@@ -20,7 +27,10 @@ import numpy as np
 import torch
 
 from vamp_mvt_tpu_torch.collision import primitives
+from vamp_mvt_tpu_torch.collision.capt import capt_collides
 from vamp_mvt_tpu_torch.collision.environment import Environment
+from vamp_mvt_tpu_torch.collision.mvt import batch_index, mvt_collides, rows
+from vamp_mvt_tpu_torch.collision.pc_kernel import CS
 from vamp_mvt_tpu_torch.device import resolve_device
 from vamp_mvt_tpu_torch.ops.fk import sphere_positions
 from vamp_mvt_tpu_torch.robots.spec import RobotSpec
@@ -65,16 +75,74 @@ def self_vmin(spec: RobotSpec, centers: torch.Tensor) -> torch.Tensor:
     return torch.amin(d2 - thr, dim=0)
 
 
+# elements of the largest (queries, S, points) intermediate of pc_vmin_plain
+_PC_ELEMS = {"cuda": 1 << 27, "cpu": 1 << 22}
+
+
+def pc_vmin_plain(pck, centers: torch.Tensor, radii: torch.Tensor) -> torch.Tensor:
+    """centers (..., S, 3), radii (S,) -> (...) minimum over every robot
+    sphere and every live point of the cloud of d^2 - (r + r_point)^2, with
+    d^2 summed x, y, z in that order (the kernel's); +inf for an empty cloud.
+    `pck`'s leading dims broadcast against the centers' first dims.
+
+    min over points of (d^2 - t) is computed as (min over points of d^2) - t,
+    which is the same float: rounding a subtraction is monotonic."""
+    dev = centers.device
+    S = centers.shape[-2]
+    lead = tuple(pck.meta.shape[:-2])
+    qshape = tuple(centers.shape[:-2])
+    c = centers.reshape(-1, S, 3)
+    out = torch.full((c.shape[0],), float("inf"), device=dev)
+    bi = batch_index(lead, qshape, dev).reshape(-1)
+    meta = rows(pck.meta, 2)[:, 0].tolist()                   # (L, 8)
+    pts = rows(pck.points, 2)                                 # (L, NCH, 3 * CS)
+    for l, m in enumerate(meta):
+        nlive = int(m[6])
+        if nlive == 0:
+            continue
+        sel = (bi == l).nonzero()[:, 0] if len(meta) > 1 else None
+        q = c if sel is None else c[sel]
+        p = pts[l, :nlive]
+        px, py, pz = (p[:, k * CS:(k + 1) * CS].reshape(-1) for k in range(3))
+        thr = radii + torch.tensor(m[5], dtype=torch.float32, device=dev)
+        thr2 = thr * thr
+        step = max(_PC_ELEMS.get(dev.type, 1 << 22) // (S * px.shape[0]), 1)
+        parts = []
+        for i in range(0, q.shape[0], step):
+            qi = q[i : i + step]
+            d2 = qi[..., 0, None] - px
+            d2 = d2 * d2
+            t = qi[..., 1, None] - py
+            d2 += t * t
+            t = qi[..., 2, None] - pz
+            d2 += t * t
+            parts.append(torch.amin(torch.amin(d2, dim=-1) - thr2, dim=-1))
+        v = torch.cat(parts)
+        if sel is None:
+            out = v
+        else:
+            out[sel] = v
+    return out.reshape(qshape)
+
+
 def env_vmin(env: Environment, centers: torch.Tensor, radii: torch.Tensor) -> torch.Tensor:
     """centers (..., S, 3), radii (S,) -> (...) min signed value over every
-    robot sphere against every shape row.  The environment's tables carry the
-    same leading dims as the centers' batch, or broadcast against them."""
+    robot sphere against every shape row and pointcloud.  The environment's
+    tables carry the same leading dims as the centers' batch, or broadcast
+    against them."""
     check_supported(env)
     out = torch.full(centers.shape[:-2], float("inf"), device=centers.device)
     for name, fn in _PRIMITIVES:
-        rows = getattr(env, name)
-        if rows.shape[-2]:
-            out = torch.minimum(out, torch.amin(fn(rows, centers, radii), dim=(-2, -1)))
+        table = getattr(env, name)
+        if table.shape[-2]:
+            out = torch.minimum(out, torch.amin(fn(table, centers, radii), dim=(-2, -1)))
+    rr = radii.expand(centers.shape[:-1])
+    for st, query in ((env.mvt, mvt_collides), (env.capt, capt_collides)):
+        if st is not None:
+            hit = query(st, centers, rr).any(-1)
+            out = torch.where(hit, torch.clamp_max(out, -1.0), out)
+    if env.pck is not None:
+        out = torch.minimum(out, pc_vmin_plain(env.pck, centers, radii))
     return out
 
 

@@ -1,20 +1,25 @@
 """The fused FK + collision kernel for Hopper: build, binding, plain version.
 
 Port of `vamp_mvt_tpu/ops/kernels/fkcc_pallas.py` (`_run`, its entry points
-`fkcc_pallas_batched` / `fkcc_pallas_batched_lanes`) for the primitive and
-self-collision branches.  The kernel is `csrc/fkcc.cu` (its FK + collision
-code is `csrc/fkcc_device.cuh`, which the megakernels share), CUDA C++ for
-sm_90a, built by `ops/kernels/build.py` into `build/` at first use and bound
-with ctypes.
+`fkcc_pallas_batched` / `fkcc_pallas_batched_lanes`) for the primitive,
+self-collision and pointcloud branches.  The kernel is `csrc/fkcc.cu` (its
+FK + collision code is `csrc/fkcc_device.cuh`, which the megakernels share),
+CUDA C++ for sm_90a, built by `ops/kernels/build.py` into `build/` at first
+use and bound with ctypes.
 
   fkcc_batched(spec, envs, q)          q (B, N, d)  -> (B, N) bool
   fkcc_batched_lanes(spec, envs, q_d)  q_d (B, d, N) -> (B, N) bool
   fkcc_vmin(spec, envs, q)             q (B, N, d)  -> (B, N) float32 vmin
 
 `envs` tables are (B, n, f), or (1, n, f) to share one environment across
-the batch.  A CUDA tensor launches the kernel; a CPU tensor takes the plain
-version (`fkcc_batched_plain` / `fkcc_vmin_plain`).  There is no fallback:
-a failed build, load or launch raises.
+the batch; a pointcloud comes as `envs.pck` (collision/pc_kernel.py), the
+kernel's form (an MVT or CAPT structure alone is refused on the card).  With
+a pointcloud the kernel's vmin is sign-exact, not value-exact: it stops at
+the first negative value and writes -1 for a certain hit; each launch on a
+pointcloud adds its work to `PC_WORK`.  A CUDA tensor
+launches the kernel; a CPU tensor takes the plain version
+(`fkcc_batched_plain` / `fkcc_vmin_plain`).  There is no fallback: a failed
+build, load or launch raises.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import ctypes
 import numpy as np
 import torch
 
+from vamp_mvt_tpu_torch.collision import pc_kernel
 from vamp_mvt_tpu_torch.collision.environment import TABLES, Environment
 from vamp_mvt_tpu_torch.ops import fkcc as fkcc_ops
 from vamp_mvt_tpu_torch.ops import smat
@@ -36,6 +42,10 @@ THREADS = (128, 64, 32)
 
 # Kernel launches made by this process; callers reset it to 0 around a run.
 LAUNCHES = 0
+# Pointcloud work of the launches on pointcloud tables since a caller last
+# set it to None: (3,) int64 on the card (spheres gated, chunk bounds tested,
+# points evaluated).
+PC_WORK = None
 _LIB = None
 _TABLES: dict = {}
 _HOST_TABLES: dict = {}
@@ -56,7 +66,7 @@ def library() -> ctypes.CDLL:
             *ENV_ARGTYPES,                        # env tables, rows, batched
             P, L, L, L, I, I,                     # q, strides, B, N
             *ROBOT_ARGTYPES,                      # frame, sphere, pair tables
-            P, P,                                 # outputs
+            P, P, P,                              # validity, vmin, work outputs
             I, I, P,                              # threads, smem, stream
         ]
         lib.fkcc_launch.restype = ctypes.c_int
@@ -80,6 +90,8 @@ def robot_tables(spec: RobotSpec) -> dict[str, np.ndarray]:
     sphere_order (S,) int32: sphere indices grouped by frame.
     sphere_f (S, 4) float32: local centre and radius.
     pairs (P, 2) int32 and pair_thr (P,) float32 = (r_i + r_j)^2.
+    sphere_pc (S, 4) float32: radius, radius class, chit_ok, gate_ok for the
+      pointcloud branch (pc_kernel.sphere_table).
     """
     F = len(spec.frames)
     frame_i = np.zeros((F, 6), np.int32)
@@ -111,6 +123,7 @@ def robot_tables(spec: RobotSpec) -> dict[str, np.ndarray]:
         sphere_f=sphere_f,
         pairs=np.ascontiguousarray(spec.self_collision_pairs, np.int32).reshape(-1, 2),
         pair_thr=fkcc_ops.pair_thresholds(spec),
+        sphere_pc=pc_kernel.sphere_table(spec.sphere_radius),
     )
 
 
@@ -145,6 +158,11 @@ def smem_bytes(spec: RobotSpec, rows: dict[str, int], threads: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+# the kernel's pointcloud tables: name, dtype, dims (leading batch dim first)
+_PC_TABLES = (("bitmap", torch.int32, 3), ("chunks", torch.float32, 3),
+              ("points", torch.float32, 3), ("meta", torch.float32, 3))
+
+
 def _check_inputs(spec: RobotSpec, envs: Environment, q: torch.Tensor, B: int):
     fkcc_ops.check_supported(envs)
     if q.dtype != torch.float32:
@@ -157,14 +175,38 @@ def _check_inputs(spec: RobotSpec, envs: Environment, q: torch.Tensor, B: int):
             raise ValueError(f"fkcc: env.{name} must be float32 (B, n, f)")
         if t.shape[0] != envs.spheres.shape[0] or t.shape[0] not in (1, B):
             raise ValueError(f"fkcc: env.{name} batch {t.shape[0]} vs q batch {B}")
+    if envs.pck is None:
+        if envs.mvt is not None or envs.capt is not None:
+            raise ValueError(
+                "fkcc: the CUDA kernels read a pointcloud as env.pck (the kernel "
+                "form, EnvironmentBuilder.add_kernel_pointcloud), not as MVT or CAPT")
+        return
+    pb = envs.pck.meta.shape[0]
+    for name, dtype, dims in _PC_TABLES:
+        t = getattr(envs.pck, name)
+        if t.device != q.device:
+            raise ValueError(f"fkcc: env.pck.{name} on {t.device}, q on {q.device}")
+        if t.dtype != dtype or t.dim() != dims or t.shape[0] != pb or pb not in (1, B):
+            raise ValueError(f"fkcc: env.pck.{name} must be {dtype} (B, n, f) with B = 1 "
+                             f"or {B}, got {tuple(t.shape)} {t.dtype}")
+    if envs.pck.bitmap.shape[1:] != (2 * pc_kernel.MAX_CLASSES * _rrows(envs.pck), 128) \
+            or envs.pck.points.shape[1:] != (envs.pck.chunks.shape[1], 3 * pc_kernel.CS) \
+            or envs.pck.chunks.shape[2] != 8 or envs.pck.meta.shape[1:] != (1, 8):
+        raise ValueError("fkcc: env.pck does not have collision/pc_kernel.py's layout")
 
 
-# ctypes argument types of the shape tables and of the robot tables, in the
-# order every launcher of the port (fkcc, rrtc_mega, simplify_mega) takes them.
-ENV_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+def _rrows(pck) -> int:
+    return max(pck.bitmap.shape[1] // (2 * pc_kernel.MAX_CLASSES), 1)
+
+
+# ctypes argument types of the shape and pointcloud tables and of the robot
+# tables, in the order every launcher of the port (fkcc, rrtc_mega,
+# simplify_mega) takes them.
+ENV_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3)
 ROBOT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 
 def _ptr(t):
@@ -173,23 +215,40 @@ def _ptr(t):
 
 def table_args(spec: RobotSpec, envs: Environment, device: torch.device):
     """Launch arguments of the shape tables (pointers, row counts, batched
-    flag) and of the robot tables, plus the tensors they point into (keep
-    them alive until the launch returns)."""
+    flag), of the pointcloud tables (pointers, bitmap rows of a class,
+    chunks, batched flag; null pointers without a pointcloud) and of the
+    robot tables, plus the tensors they point into (keep them alive until the
+    launch returns)."""
     env_t = [getattr(envs, n).contiguous() for n in TABLES]
     tabs = _device_tables(spec, device)
     env = [_ptr(t) for t in env_t] + [t.shape[1] for t in env_t] + [
         int(envs.spheres.shape[0] > 1)]
+    if envs.pck is None:
+        pc_t = []
+        env += [None] * 4 + [0, 0, 0]
+    else:
+        pc_t = [getattr(envs.pck, n).contiguous() for n, _, _ in _PC_TABLES]
+        env += [t.data_ptr() for t in pc_t] + [
+            _rrows(envs.pck), pc_t[1].shape[1], int(pc_t[3].shape[0] > 1)]
     robot = [
         _ptr(tabs["frame_i"]), _ptr(tabs["frame_f"]), len(spec.frames),
         tabs["n_slots"], _ptr(tabs["sphere_order"]), _ptr(tabs["sphere_f"]),
         spec.n_spheres, _ptr(tabs["pairs"]), _ptr(tabs["pair_thr"]),
-        len(spec.self_collision_pairs),
+        len(spec.self_collision_pairs), _ptr(tabs["sphere_pc"]),
     ]
-    return env, robot, env_t
+    return env, robot, env_t + pc_t
+
+
+def tally_pc_work(total, work: torch.Tensor):
+    """`total` (None or a (3,) int64 tensor on the card) plus the pointcloud
+    work of one launch, `work` (B, 3): spheres gated, chunk bounds tested,
+    points evaluated.  Summed on the card: no synchronisation."""
+    w = work.sum(0)
+    return w if total is None else total + w
 
 
 def _launch(spec, envs, q, q_strides, B, N, want_vmin):
-    global LAUNCHES
+    global LAUNCHES, PC_WORK
     if not q.is_cuda:
         raise ValueError("fkcc kernel launch needs CUDA tensors")
     _check_inputs(spec, envs, q, B)
@@ -207,18 +266,22 @@ def _launch(spec, envs, q, q_strides, B, N, want_vmin):
         )
     valid = torch.empty((B, N), dtype=torch.int8, device=q.device)
     vmin = torch.empty((B, N), dtype=torch.float32, device=q.device) if want_vmin else None
+    has_pc = envs.pck is not None
+    work = torch.zeros((B, 3), dtype=torch.int64, device=q.device) if has_pc else None
     if N == 0:
         return valid, vmin
     lib = library()
     env, robot, _keep = table_args(spec, envs, q.device)
     err = lib.fkcc_launch(
         *env, q.data_ptr(), *q_strides, B, N, *robot, valid.data_ptr(), _ptr(vmin),
-        threads, smem_bytes(spec, rows, threads),
+        _ptr(work), threads, smem_bytes(spec, rows, threads),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fkcc kernel launch failed with CUDA error {err}")
     LAUNCHES += 1
+    if has_pc:
+        PC_WORK = tally_pc_work(PC_WORK, work)
     return valid, vmin
 
 
@@ -250,6 +313,8 @@ def fkcc_vmin_plain(spec: RobotSpec, envs: Environment, q: torch.Tensor) -> torc
     width = max(
         [getattr(envs, n).shape[-2] for n in TABLES]
         + [len(spec.self_collision_pairs) // max(spec.n_spheres, 1), 1]
+        + [3 * st.voxel_points.shape[-2] for st in (envs.mvt,) if st is not None]
+        + [3 * st.aff_points.shape[-2] for st in (envs.capt,) if st is not None]
     )
     chunk = max(_PLAIN_ELEMS // (B * spec.n_spheres * width), 1)
     env4 = envs.map(lambda t: t.unsqueeze(1))  # (B, 1, n, f)
@@ -288,7 +353,8 @@ def fkcc_batched_lanes(spec: RobotSpec, envs: Environment, q_d: torch.Tensor) ->
 
 
 def fkcc_vmin(spec: RobotSpec, envs: Environment, q: torch.Tensor) -> torch.Tensor:
-    """q (B, N, d) -> (B, N) float32 minimum signed value (valid iff >= 0)."""
+    """q (B, N, d) -> (B, N) float32 minimum signed value (valid iff >= 0;
+    with a pointcloud the kernel's value is sign-exact only)."""
     if q.is_cuda:
         return _kernel(spec, envs, q, True)[1]
     return fkcc_vmin_plain(spec, envs, q)
@@ -303,6 +369,20 @@ def fkcc_vmin(spec: RobotSpec, envs: Environment, q: torch.Tensor) -> torch.Tens
 OPS_PER_ROW = {"spheres": 12, "capsules": 29, "z_capsules": 19,
                "cuboids": 35, "z_cuboids": 26}
 OPS_PER_PAIR = 10
+# The pointcloud branch (fkcc_device.cuh::pc_vmin): per sphere gated (3
+# subtract, 3 multiply, 3 floor, 6 compare), per chunk bound tested (3
+# subtract, 3 multiply, 2 add, 2 add, 1 multiply, 1 compare), per point
+# evaluated (3 subtract, 3 multiply, 2 add, 1 subtract, 1 min).
+OPS_PER_GATE = 15
+OPS_PER_CHUNK = 12
+OPS_PER_POINT = 10
+
+
+def pc_ops(work) -> int:
+    """FP32 operations of the pointcloud work counters (gates, chunks,
+    points; any array whose last dim holds the three)."""
+    w = np.asarray(work, np.int64).reshape(-1, 3).sum(0)
+    return int(w[0] * OPS_PER_GATE + w[1] * OPS_PER_CHUNK + w[2] * OPS_PER_POINT)
 
 
 def ops_per_config(spec: RobotSpec, live: dict[str, np.ndarray]) -> np.ndarray:

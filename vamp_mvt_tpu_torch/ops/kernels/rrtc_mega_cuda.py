@@ -8,13 +8,14 @@ lockstep planner `planning/rrtc.py::plan_batch`.
 
   plan(spec, envs, ctl, nodes0, settings)
       ctl (B, 8) int32, nodes0 (B, 1 + G, d + 4) float32, CUDA tensors
-      -> path (B, max_path, d) float32, scal (B, 16) int32, work (B, 2) int64
+      -> path (B, max_path, d) float32, scal (B, 16) int32, work (B, 5) int64
 
 `scal` holds done, junction a, junction b, a-tree-was-start at the join,
 iterations, samples drawn, nodes, start-tree size, goal-tree size, grow steps,
 connect steps and the two chain lengths; `work` holds the configurations
-checked and the node-sample pairs scanned.  A failed
-build or launch raises.
+checked, the node-sample pairs scanned and the pointcloud's spheres gated,
+chunk bounds tested and points evaluated (zero without a pointcloud,
+`envs.pck`).  A failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -31,13 +32,19 @@ from vamp_mvt_tpu_torch.robots.spec import RobotSpec
 from vamp_mvt_tpu_torch.sampling.halton import PRIMES, _digit_counts
 
 MAX_DIM = 16       # kMaxDim of the kernel (one Halton base per dimension)
+MAX_LANES = 128    # kMaxLanes: samples a grow step (K * W)
+MAX_EDGES = 64     # kMaxEdges: edges a step (K + C)
 SCALARS = 16
-WORK = 2
+WORK = 5
 # the kernel's static shared memory (state) comes on top of the dynamic part
 _STATIC_SMEM = 1024
 
 # Kernel launches made by this process; callers reset it to 0 around a run.
 LAUNCHES = 0
+# Pointcloud work of the launches on pointcloud tables since a caller last
+# set it to None: (3,) int64 on the card (spheres gated, chunk bounds tested,
+# points evaluated).
+PC_WORK = None
 # The last launch's threads a block, dynamic shared memory (bytes) and the
 # blocks the card keeps resident on one SM.
 LAST_LAUNCH: dict = {}
@@ -113,7 +120,7 @@ def _check(spec, envs: Environment, ctl, nodes0, s):
 def plan(spec: RobotSpec, envs: Environment, ctl: torch.Tensor, nodes0: torch.Tensor,
          settings):
     """Launch the planner megakernel, one block per problem (see module doc)."""
-    global LAUNCHES
+    global LAUNCHES, PC_WORK
     _check(spec, envs, ctl, nodes0, settings)
     B, G1, _ = nodes0.shape
     d, M, P = spec.dimension, settings.max_samples, settings.max_path
@@ -139,6 +146,8 @@ def plan(spec: RobotSpec, envs: Environment, ctl: torch.Tensor, nodes0: torch.Te
     if err != 0:
         raise RuntimeError(f"rrtc_mega kernel launch failed with CUDA error {err}")
     LAUNCHES += 1
+    if envs.pck is not None:
+        PC_WORK = fkcc_cuda.tally_pc_work(PC_WORK, work[:, 2:5])
     LAST_LAUNCH.update(threads=info[0], smem_bytes=info[1], blocks_per_sm=info[2])
     return path, scal, work
 

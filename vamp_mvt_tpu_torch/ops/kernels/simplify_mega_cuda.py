@@ -9,7 +9,8 @@ built by `ops/kernels/build.py`; its host side and plain version are in
       paths (B, P, d) float32, lengths (B,) int32, CUDA tensors
       -> path (B, P, d) float32 padded with its last vertex,
          scal (B, 2) int32 (length, driver iterations),
-         work (B,) int64 (configurations checked)
+         work (B, 4) int64 (configurations checked, and the pointcloud's
+         spheres gated, chunk bounds tested and points evaluated)
 
 A failed build or launch raises.
 """
@@ -27,9 +28,14 @@ from vamp_mvt_tpu_torch.planning import validate as validate_mod
 from vamp_mvt_tpu_torch.robots.spec import RobotSpec
 
 _STATIC_SMEM = 1024
+WORK = 4
 
 # Kernel launches made by this process; callers reset it to 0 around a run.
 LAUNCHES = 0
+# Pointcloud work of the launches on pointcloud tables since a caller last
+# set it to None: (3,) int64 on the card (spheres gated, chunk bounds tested,
+# points evaluated).
+PC_WORK = None
 # The last launch's threads a block, dynamic shared memory (bytes) and the
 # blocks the card keeps resident on one SM.
 LAST_LAUNCH: dict = {}
@@ -65,7 +71,7 @@ def params(spec: RobotSpec, s, P: int, B: int) -> tuple[np.ndarray, np.ndarray]:
 def simplify(spec: RobotSpec, envs: Environment, paths: torch.Tensor,
              lengths: torch.Tensor, settings):
     """Launch the simplify megakernel, one block per path (see module doc)."""
-    global LAUNCHES
+    global LAUNCHES, PC_WORK
     if not (paths.is_cuda and lengths.is_cuda):
         raise ValueError("simplify_mega kernel launch needs CUDA tensors")
     if paths.dtype != torch.float32 or lengths.dtype != torch.int32:
@@ -82,7 +88,7 @@ def simplify(spec: RobotSpec, envs: Environment, paths: torch.Tensor,
     dev = paths.device
     out = torch.empty_like(paths)
     scal = torch.empty((B, 2), dtype=torch.int32, device=dev)
-    work = torch.empty((B,), dtype=torch.int64, device=dev)
+    work = torch.empty((B, WORK), dtype=torch.int64, device=dev)
     if B == 0:
         return out, scal, work
     ip, fp = params(spec, settings, P, B)
@@ -100,5 +106,7 @@ def simplify(spec: RobotSpec, envs: Environment, paths: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"simplify_mega kernel launch failed with CUDA error {err}")
     LAUNCHES += 1
+    if envs.pck is not None:
+        PC_WORK = fkcc_cuda.tally_pc_work(PC_WORK, work[:, 1:4])
     LAST_LAUNCH.update(threads=info[0], smem_bytes=info[1], blocks_per_sm=info[2])
     return out, scal, work

@@ -33,44 +33,24 @@ from vamp_mvt_tpu_torch.robots.spec import RobotSpec
 _BIG = 1e30
 
 
-def _pad_div128(n: int) -> int:
-    """Smallest divisor of 128 that is >= n (points-per-edge padding)."""
-    for p in (8, 16, 32, 64, 128):
-        if p >= n:
-            return p
-    raise ValueError(f"edge needs {n} > 128 interpolation points")
-
-
 def _kernel_config(spec: RobotSpec, s: RRTCSettings, G: int) -> dict:
-    """The TPU kernel's configuration, with its limits: K * W <= 128 samples
-    a step and K + C <= 64 edges.  The CUDA kernel keeps those limits; the
-    tile figures (P, R, EPT, NT, CH, C0, PP) describe the TPU layout."""
+    """The planner kernel's figures for these settings, refusing what
+    csrc/rrtc_mega.cu cannot run: K * W <= 128 samples a step (kMaxLanes),
+    K + C <= 64 edges (kMaxEdges) and d <= 16 (kMaxDim).  Whether a block's
+    shared memory fits is the launch's own check (rrtc_mega_launch returns
+    -1 when no block of 128, 64 or 32 threads fits)."""
     d = spec.dimension
-    dp = max(8, 8 * ((d + 7) // 8))
     K, C, W = s.samples_per_step, s.connect_segments, s.sample_window
     KW = K * W
-    if KW > 128:
+    if KW > rrtc_mega_cuda.MAX_LANES:
         raise ValueError("samples_per_step * sample_window must be <= 128")
     E = K + C
-    Erow0 = 32 if E <= 32 else 64
-    if E > 64:
+    if E > rrtc_mega_cuda.MAX_EDGES:
         raise ValueError("K + C must be <= 64")
-    N = validate_mod.n_points_bound(spec, s.range)
-    P = _pad_div128(N)
-    R = min(128 // P, Erow0 // 8)
-    EPT = 8 * R
-    C0 = ((K + EPT - 1) // EPT) * EPT
-    rows = C0 + C
-    if rows > 64:
-        raise ValueError("aligned K + C must be <= 64 edge rows")
-    Erow = 32 if rows <= 32 else 64
-    NT = (rows + EPT - 1) // EPT
-    M = s.max_samples
-    CH = min(M, 128)
-    assert M % CH == 0 and M % 8 == 0
-    PP = max(8 * ((s.max_path + 7) // 8), 8)
-    return dict(d=d, dp=dp, K=K, C=C, W=W, KW=KW, E=E, Erow=Erow, N=N, P=P,
-                R=R, EPT=EPT, NT=NT, M=M, G=G, CH=CH, C0=C0, PP=PP)
+    if d > rrtc_mega_cuda.MAX_DIM:
+        raise ValueError(f"dimension {d} above {rrtc_mega_cuda.MAX_DIM}")
+    return dict(d=d, K=K, C=C, W=W, KW=KW, E=E,
+                N=validate_mod.n_points_bound(spec, s.range), M=s.max_samples, G=G)
 
 
 def _check_settings(s: RRTCSettings) -> None:

@@ -54,3 +54,11 @@ class RobotSpec:
     @property
     def n_spheres(self) -> int:
         return int(self.sphere_local.shape[0])
+
+    @property
+    def min_radius(self) -> float:
+        return float(self.sphere_radius.min())
+
+    @property
+    def max_radius(self) -> float:
+        return float(self.sphere_radius.max())
