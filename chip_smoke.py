@@ -65,10 +65,39 @@ or an exception exits non-zero):
                  identical, times, work counters and the bound
   probe_gather   the six gather probes (csrc/probe_gather.cu, off the main
                  path) against numpy, with ns per gather
+  attach_kernel  700 seeded sphere cages, each with a seeded payload (1-4
+                 spheres along the EE axis, one payload in ten above every
+                 radius class) x the kernel phase's 1024 configurations: the
+                 fkcc kernel against its plain version (no validity mismatch
+                 outside the contact band, both outcomes, some configurations
+                 that only the payload makes invalid), times and the bound
+  hf_kernel      700 seeded Panda terrain scenes (250 x 250 cells of 1 cm, a
+                 few MBM-shaped primitives each) and the sphere robot over
+                 700 seeded 200 x 200 mazes of 4 cm, its limits past their
+                 footprint: the same checks, outside the contact band and the
+                 cell band (a centre within CELL_BAND of a cell edge)
+  api            this slice's entry path, vamp_mvt_tpu_torch's user API, on the
+                 card and with device="cpu": examples/attachments.py's payload
+                 in the sphere cage (validate, rrtc, simplify, validate_motion
+                 of every segment, debug, fk, eefk) and sphere.rrtc over a
+                 maze; all solved, every path revalidated by the plain
+                 version, card against CPU reported; the fkcc kernel against
+                 its plain version on the API's own tables (one problem, a
+                 shared payload and heightfield) at API_CHECK seeded
+                 configurations and the paths' vertices
+  mega_attach / mega_hf
+                 both megakernels against their plain versions on the first
+                 BRANCH_CHECK payload cages and terrain scenes (start and goal
+                 the first two configurations the fkcc kernel found valid),
+                 at least MIN_SHARE identical, each planner divergence rerun
+                 with the kernel's index-order dot products; then
+                 plan_batch_mega + simplify_batch_mega on all of them at
+                 run_suite's mega settings, every solved path revalidated by
+                 the plain version
 
-then the kernels line (the pointcloud branch of each kernel as its own row,
-with the launches of suite_pointcloud) and, last, {"ok": true, "device":
-{...}}.  The script imports nothing of JAX or of the JAX package.  Without a
+then the kernels line (the pointcloud, attachment and heightfield branches of
+each kernel as rows of their own, with the launches of the path that runs
+them) and, last, {"ok": true, "device": {...}}.  The script imports nothing of JAX or of the JAX package.  Without a
 GPU it exits 1.
 """
 
@@ -99,6 +128,11 @@ PC_CHECK = 64   # pointcloud scenes the kernels are compared on
 PC_SAMPLES = 10000  # surface samples per object (run_suite_pointcloud's default)
 PC_RETRY_SAMPLES = 16384  # run_suite's node rows, if the 4096 of the pointcloud suite fill
 PROBE_TILES = 4096  # (8, 128) index tiles a gather probe reads
+BRANCH_PROBLEMS = 700  # payload cages, terrain scenes and mazes
+BRANCH_CHECK = 64      # of them, the megakernels are compared on
+ATTACH_ROWS = 4        # payload rows a problem: 1-4 live, the rest radius 0
+CELL_BAND = 1e-4       # a centre this close to a heightfield cell edge
+API_CHECK = 4096       # seeded configurations the API's tables are checked on
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -287,6 +321,543 @@ def time_cuda(fn, warmup: int, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+# ---------------------------------------------------------------------------
+# Scenes of the attachment and heightfield phases
+# ---------------------------------------------------------------------------
+
+
+def payloads(n: int, seed: int, spec, device):
+    """n seeded payloads (an Attachment of tensors, leading dim n): 1-4
+    spheres 0.05-0.25 m along the EE axis under a seeded rotation about that
+    axis and a seeded shift of up to 1 cm; radii 0.02 m up to the robot's
+    largest class radius (below their class radius), and in one payload of
+    ten above every class radius up to 0.15 m.  Each payload has ATTACH_ROWS
+    rows: the rows past its spheres repeat its first at radius 0, which can
+    lower no signed value."""
+    import numpy as np
+    import torch
+
+    from vamp_mvt_tpu_torch.collision import environment as envmod
+    from vamp_mvt_tpu_torch.collision import pc_kernel
+
+    top = float(pc_kernel.radius_classes(spec.sphere_radius)[-1])
+    rng = np.random.default_rng(seed)
+    sph = np.zeros((n, ATTACH_ROWS, 4), np.float32)
+    rot = np.zeros((n, 3, 3), np.float32)
+    pos = rng.uniform(-0.01, 0.01, (n, 3)).astype(np.float32)
+    live = rng.integers(1, ATTACH_ROWS + 1, n)
+    for i in range(n):
+        a = live[i]
+        sph[i, :a, 2] = rng.uniform(0.05, 0.25, a)
+        sph[i, :a, 3] = rng.uniform(top + 0.005, 0.15, a) if i % 10 == 0 else \
+            rng.uniform(0.02, top, a)
+        sph[i, a:, :3] = sph[i, 0, :3]
+        th = rng.uniform(-np.pi, np.pi)
+        rot[i] = [[np.cos(th), -np.sin(th), 0.0], [np.sin(th), np.cos(th), 0.0], [0, 0, 1]]
+    return envmod.Attachment(*(torch.as_tensor(a, device=device) for a in (rot, pos, sph)))
+
+
+def terrain_tables(n: int, seed: int, device):
+    """n seeded terrains of 250 x 250 cells of 1 cm around the Panda: hills
+    0.2-0.6 m high (a seeded 11 x 11 grid, bilinear), below the base (-0.1 m)
+    within 0.25 m of it; the grid sits a third of a cell off the origin, so
+    that no base sphere lies on a cell edge.  (hf_meta (n, 1, 10), hf_data
+    (n, 1, 62500))."""
+    import numpy as np
+    import torch
+
+    from vamp_mvt_tpu_torch.collision import environment as envmod
+
+    rng = np.random.default_rng(seed)
+    coarse = torch.as_tensor(rng.uniform(0.2, 0.6, (n, 1, 11, 11)).astype(np.float32),
+                             device=device)
+    h = torch.nn.functional.interpolate(coarse, size=(250, 250), mode="bilinear",
+                                        align_corners=True)[:, 0]
+    xy = (torch.arange(250, device=device) - 125 + 0.5) * 0.01
+    h[:, torch.hypot(xy[None, :], xy[:, None]) < 0.25] = -0.1
+    meta, _ = envmod.make_heightfield((0.0033, 0.0033, 0.0), (0.01, 0.01, 1.0),
+                                      np.zeros((250, 250), np.float32))
+    return (torch.as_tensor(meta, device=device).expand(n, 1, 10).contiguous(),
+            h.reshape(n, 1, -1).contiguous())
+
+
+def maze(rng):
+    """A seeded 200 x 200 maze (walls 1, floor 0): a depth-first maze of 9 x 9
+    cells in blocks of 10 pixels, inside an open margin of 5 pixels."""
+    import numpy as np
+
+    n = 9
+    blocks = np.ones((2 * n + 1, 2 * n + 1), np.float32)
+    seen = np.zeros((n, n), bool)
+    stack = [(0, 0)]
+    seen[0, 0] = True
+    blocks[1, 1] = 0.0
+    while stack:
+        i, j = stack[-1]
+        nxt = [(i + di, j + dj) for di, dj in ((1, 0), (-1, 0), (0, 1), (0, -1))
+               if 0 <= i + di < n and 0 <= j + dj < n and not seen[i + di, j + dj]]
+        if not nxt:
+            stack.pop()
+            continue
+        a, b = nxt[rng.integers(len(nxt))]
+        seen[a, b] = True
+        blocks[2 * a + 1, 2 * b + 1] = 0.0
+        blocks[i + a + 1, j + b + 1] = 0.0
+        stack.append((a, b))
+    out = np.zeros((200, 200), np.float32)
+    out[5:195, 5:195] = np.kron(blocks, np.ones((10, 10), np.float32))
+    return out
+
+
+MAZE_META = ((0.0, 0.0, 0.5), (0.04, 0.04, 0.5))  # examples/flying_sphere.py's center, z scale
+
+
+def live_payload(envs):
+    """(B,) the payload spheres of each problem that have a radius (the
+    radius-0 rows that pad a payload to ATTACH_ROWS check nothing), or 0."""
+    if envs.attachment is None:
+        return 0
+    return (envs.attachment.spheres[..., 3] > 0).sum(-1).cpu().numpy()
+
+
+def hf_reads(spec, envs, q):
+    """For q (B, N, d) over heightfield tables: the distinct (problem, field,
+    cell) heights the fkcc kernel reads (one a staged sphere, payload
+    included, field and configuration), and (B, N) bool, a centre within
+    CELL_BAND of a cell edge."""
+    import torch
+
+    from vamp_mvt_tpu_torch.collision import primitives
+    from vamp_mvt_tpu_torch.ops import fkcc
+
+    meta = envs.hf_meta[:, None]
+    centers = fkcc.staged_centers(spec, envs.map(lambda t: t[:, None]), q)
+    Nh, C = envs.hf_meta.shape[1], envs.hf_data.shape[2]
+    cells = primitives.heightfield_cells(meta, C, centers).long()       # (B, N, S + A, Nh)
+    row = torch.arange(envs.hf_meta.shape[0], device=q.device)[:, None, None, None]
+    key = (row * Nh + torch.arange(Nh, device=q.device)) * C + cells
+    return (int(torch.unique(key).numel()),
+            primitives.heightfield_cell_band(meta, centers, CELL_BAND))
+
+
+def heights_at_most(spec, envs, checks, n_att) -> int:
+    """Bytes of heights a megakernel reads for `checks` (B,) configurations
+    of each problem: one a staged sphere, field and configuration, and no
+    more than the problem's table."""
+    import numpy as np
+
+    Nh, C = envs.hf_meta.shape[1], envs.hf_data.shape[2]
+    per = np.minimum(np.asarray(checks, np.int64) * (spec.n_spheres + n_att) * Nh, Nh * C)
+    return 4 * int(np.sum(per))
+
+
+def branch_kernel(spec, envs, q):
+    """The fkcc kernel against its plain version on `envs` (payload and/or
+    heightfield tables): validity outside the contact band and the cell
+    band, both outcomes, times and the bound (the live payload spheres'
+    operations; the heights read, not the whole table); and the kernel's
+    validity."""
+    import numpy as np
+    import torch
+
+    from vamp_mvt_tpu_torch.collision.environment import LIVE_LIMIT, TABLES
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
+
+    B, N = q.shape[:2]
+    n_hf = envs.hf_meta.shape[1]
+    q_d = q.transpose(1, 2).contiguous()
+    vk = fkcc_cuda.fkcc_vmin(spec, envs, q)
+    ok = fkcc_cuda.fkcc_batched_lanes(spec, envs, q_d)
+    vp = fkcc_cuda.fkcc_vmin_plain(spec, envs, q)
+    torch.cuda.synchronize()
+    check(torch.equal(ok, vk >= 0), "kernel validity agrees with its own vmin")
+    contact = vp.abs() <= CONTACT_BAND
+    heights, cells = hf_reads(spec, envs, q) if n_hf else (0, torch.zeros_like(contact))
+    mism = (vk >= 0) != (vp >= 0)
+    outside = mism & ~contact & ~cells
+    live = {n: (getattr(envs, n)[..., 0].abs() < LIVE_LIMIT).sum(-1).cpu().numpy() for n in TABLES}
+    k_ms = time_cuda(lambda: fkcc_cuda.fkcc_batched_lanes(spec, envs, q_d), 3, 20)
+    p_ms = time_cuda(lambda: fkcc_cuda.fkcc_batched_plain(spec, envs, q), 1, 3)
+    tabs = fkcc_cuda.robot_tables(spec)
+    extra = [] if envs.attachment is None else list(envs.attachment)
+    b = bound(fkcc_cuda.op_count(spec, live, N, live_payload(envs), n_hf),
+              nbytes(q, envs.hf_meta, *extra, *(getattr(envs, n) for n in TABLES)) + 4 * heights
+              + sum(v.nbytes for v in tabs.values() if isinstance(v, np.ndarray)) + B * N)
+    return {"problems": B, "configs_per_problem": N, "valid_share": float((vk >= 0).float().mean()),
+            "mismatches": int(mism.sum()), "inside_contact_band": int(contact.sum()),
+            "inside_cell_band": int(cells.sum()), "mismatches_outside_bands": int(outside.sum()),
+            "heights_read": heights,
+            "max_abs_err": float((vk - vp).abs()[~contact & ~cells].max()),
+            "kernel_ms": k_ms, "plain_ms": p_ms, **b, "library_ms": None}, ok
+
+
+def first_two_valid(q, ok):
+    """The problems with two configurations of q (B, N, d) that `ok` (B, N)
+    calls valid, and the first two as start and goal: (rows, starts (R, d),
+    goals (R, 1, d), masks (R, 1))."""
+    import numpy as np
+    import torch
+
+    ok_np = ok.cpu().numpy()
+    rows = [i for i in range(len(ok_np)) if ok_np[i].sum() >= 2]
+    first2 = [np.flatnonzero(ok_np[i])[:2] for i in rows]
+    st = torch.stack([q[i, j[0]] for i, j in zip(rows, first2)])
+    gl = torch.stack([q[i, j[1]] for i, j in zip(rows, first2)])[:, None]
+    return rows, st, gl, torch.ones((len(rows), 1), dtype=torch.bool, device=q.device)
+
+
+class IndexOrderTorch:
+    """`torch` for planning/rrtc.py, with `matmul` summed in index order
+    without FMA, as the planner kernel sums its nearest-neighbour dot
+    products (rrtc_mega.cu::dot); every other name is torch's."""
+
+    def __getattr__(self, name):
+        import torch
+
+        return getattr(torch, name)
+
+    @staticmethod
+    def matmul(a, b):
+        acc = a[..., :, 0, None] * b[..., None, 0, :]
+        for k in range(1, a.shape[-1]):
+            acc = acc + a[..., :, k, None] * b[..., None, k, :]
+        return acc
+
+
+def index_order_replay(spec, envs, st, gl, mk, settings, kp, rows) -> dict:
+    """{problem: bool} for problems where the planner kernel and the plain
+    planner differ: whether the plain planner, rerun on them with
+    IndexOrderTorch's dot products, equals the kernel.  True shows a near
+    tie in a nearest-neighbour scan that cuBLAS's summation order resolved
+    the other way."""
+    import torch
+
+    from vamp_mvt_tpu_torch.planning import rrtc
+
+    if not rows:
+        return {}
+    idx = torch.as_tensor(rows, device=st.device)
+    real = rrtc.torch
+    rrtc.torch = IndexOrderTorch()
+    try:
+        pp = rrtc.plan_batch_compact(spec, envs.map(lambda t: t[idx]), st[idx], gl[idx],
+                                     mk[idx], settings, device=st.device)
+    finally:
+        rrtc.torch = real
+    same = same_plan(type(kp)(*(t[idx] for t in kp)), pp)
+    return {r: bool(s) for r, s in zip(rows, same.tolist())}
+
+
+def mega_compare(spec, envs, st, gl, mk, settings, ss) -> dict:
+    """Both megakernels against their plain versions at the budget: shares
+    of identical results (and, for the planner's divergent problems, the
+    index-order replay), times, work counters and bounds."""
+    import numpy as np
+    import torch
+
+    from vamp_mvt_tpu_torch.collision.environment import LIVE_LIMIT, TABLES
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda, rrtc_mega_cuda, simplify_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega, simplify_mega
+
+    dev = st.device
+    B, d = st.shape
+    live = {n: (getattr(envs, n)[..., 0].abs() < LIVE_LIMIT).sum(-1).cpu().numpy() for n in TABLES}
+    n_att = live_payload(envs)
+    per_cfg = fkcc_cuda.ops_per_config(spec, live, n_att, envs.hf_meta.shape[1])
+    tables = [envs.hf_meta, *(getattr(envs, n) for n in TABLES)]
+    tables += [] if envs.attachment is None else list(envs.attachment)
+    kp = rrtc_mega.plan_batch_mega(spec, envs, st, gl, mk, settings, device=dev)
+    t0 = time.perf_counter()
+    pp = rrtc.plan_batch_compact(spec, envs, st, gl, mk, settings, device=dev)
+    torch.cuda.synchronize()
+    r_plain = (time.perf_counter() - t0) * 1e3
+    same = same_plan(kp, pp)
+    diverged = torch.nonzero(~same).flatten().tolist()
+    replay = index_order_replay(spec, envs, st, gl, mk, settings, kp, diverged[:4])
+    ctl, nodes0, _, _ = rrtc_mega.mega_inputs(spec, envs, st, gl, mk, settings)
+    _, r_scal, r_work = rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, settings)
+    r_work = r_work.cpu().numpy().astype(np.int64)
+    r_ms = time_cuda(lambda: rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, settings), 1, 3)
+    r_bound = bound(int(np.sum(r_work[:, 0] * per_cfg))
+                    + int(r_work[:, 1].sum()) * rrtc_mega_cuda.ops_per_pair(d),
+                    nbytes(ctl, nodes0, *tables) + int(r_scal[:, 6].sum()) * (d + 4) * 4
+                    + heights_at_most(spec, envs, r_work[:, 0], n_att)
+                    + B * (settings.max_path * d + rrtc_mega_cuda.SCALARS
+                           + 2 * rrtc_mega_cuda.WORK) * 4)
+    k_ = torch.arange(kp.path.shape[1], device=dev)
+    r_err = float(torch.where((k_[None] < pp.path_length[:, None])[..., None],
+                              (kp.path - pp.path).abs(), 0).max())
+    sp_in, sl_in = pp.path.contiguous(), pp.path_length.to(torch.int32)
+    ks = simplify_mega.simplify_batch_mega(spec, envs, pp.path, pp.path_length, ss, device=dev)
+    t0 = time.perf_counter()
+    ps = simplify_mega.simplify_batch_plain(spec, envs, pp.path, pp.path_length, ss)
+    torch.cuda.synchronize()
+    s_plain = (time.perf_counter() - t0) * 1e3
+    s_len = ks.path_length == ps.path_length
+    s_cost = (ks.cost - ps.cost).abs() <= SIMPLIFY_RTOL * ps.cost.abs()
+    s_work = simplify_mega_cuda.simplify(spec, envs, sp_in, sl_in, ss)[2].cpu().numpy()
+    s_ms = time_cuda(lambda: simplify_mega_cuda.simplify(spec, envs, sp_in, sl_in, ss), 1, 3)
+    s_bound = bound(int(np.sum(s_work[:, 0].astype(np.int64) * per_cfg)),
+                    2 * nbytes(sp_in) + nbytes(sl_in, *tables) + B * (2 * 4 + 32)
+                    + heights_at_most(spec, envs, s_work[:, 0], n_att))
+    s_err = float(torch.where(s_len[:, None, None], (ks.path - ps.path).abs(), 0).max())
+    return {
+        "rrtc_mega": {"problems": B, "identical_share": float(same.float().mean()),
+                      "solved": {"kernel": int(kp.solved.sum()), "plain": int(pp.solved.sum())},
+                      "diverged": diverged, "index_order_plain_equals_kernel": replay,
+                      "ms": r_ms, "plain_ms": r_plain, "max_abs_err": r_err,
+                      "work": {"configs": int(r_work[:, 0].sum()), "pairs": int(r_work[:, 1].sum())},
+                      **r_bound, "library_ms": None},
+        "simplify_mega": {"problems": B, "equal_length_share": float(s_len.float().mean()),
+                          "cost_rtol_share": float(s_cost.float().mean()),
+                          "ms": s_ms, "plain_ms": s_plain, "max_abs_err": s_err,
+                          "configs": int(s_work[:, 0].sum()), **s_bound, "library_ms": None},
+    }
+
+
+def mega_path(spec, envs, st, gl, mk, settings, ss) -> dict:
+    """plan_batch_mega + simplify_batch_mega on the whole batch (the counts
+    of both megakernels reset just before, read just after), every solved
+    path revalidated by the plain version from its first vertex on."""
+    import torch
+
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda, rrtc_mega_cuda, simplify_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc_mega, simplify_mega
+
+    dev = st.device
+    valid = fkcc_cuda.fkcc_batched(spec, envs, torch.cat([st[:, None], gl], 1)).all(1)
+    for lib in (rrtc_mega_cuda, simplify_mega_cuda):
+        lib.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = rrtc_mega.plan_batch_mega(spec, envs, st, gl, mk, settings, device=dev)
+    simp = simplify_mega.simplify_batch_mega(spec, envs, res.path, res.path_length, ss,
+                                             device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rrtc_mega": rrtc_mega_cuda.LAUNCHES, "simplify_mega": simplify_mega_cuda.LAUNCHES}
+    solved = res.solved & valid
+    ok = paths_revalidate_plain(spec, envs, simp.path, simp.path_length) & \
+        fkcc_cuda.fkcc_batched_plain(spec, envs, simp.path[:, :1])[:, 0]
+    check(all(v == 1 for v in launches.values()), "the mega path launched both megakernels")
+    check(int(solved.sum()) > 0, "the mega path solves some problems")
+    check(bool(ok[solved].all()), "every solved path revalidates (plain)")
+    return {"problems": st.shape[0], "valid": int(valid.sum()), "solved": int(solved.sum()),
+            "wall_s": wall, "median_simplified_cost": median(simp.cost[solved]),
+            "launches": launches, "solved_paths_revalidated_plain": int((ok & solved).sum())}
+
+
+def api_phase(dev) -> tuple[dict, dict]:
+    """This slice's entry path, vamp_mvt_tpu_torch's user API, on the card
+    and with device="cpu": examples/attachments.py's payload in the sphere
+    cage (validate, rrtc, simplify, validate_motion on every simplified
+    segment, debug, fk, eefk), and sphere.rrtc over a seeded maze; then
+    the fkcc kernel against its plain version on the API's own tables.
+    Returns the phase line and the fkcc launches of each part on the card."""
+    import numpy as np
+    import torch
+
+    import vamp_mvt_tpu_torch as vmt
+    from vamp_mvt_tpu_torch.bench import profile_suite
+    from vamp_mvt_tpu_torch.collision import environment as envmod
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
+
+    cage, A, B = profile_suite.api_cage()
+    terrain = vmt.Environment()
+    terrain.add_heightfield(*envmod.make_heightfield(*MAZE_META, maze(np.random.default_rng(41))))
+    S, G = [-4.0, -4.0, 1.0], [4.0, 4.0, 1.0]
+    out, launches, results = {}, {}, {}
+
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else "cpu"
+        rec = out[where] = {}
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            rec[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+            return r
+
+        fkcc_cuda.LAUNCHES = 0
+        valid = timed("validate", lambda: vmt.panda.validate(A, cage, device=d))
+        res = timed("rrtc", lambda: vmt.panda.rrtc(A, B, cage, device=d))
+        simple = timed("simplify", lambda: vmt.panda.simplify(res.path, res.path_length, cage,
+                                                              device=d))
+        path = simple.path.cpu().numpy()
+        motions = timed("validate_motion", lambda: [
+            vmt.panda.validate_motion(path[i], path[i + 1], cage, device=d)
+            for i in range(int(simple.path_length) - 1)])
+        dbg = timed("debug", lambda: vmt.panda.debug(A, cage, device=d))
+        fk = timed("fk", lambda: vmt.panda.fk(A, device=d))
+        ee = timed("eefk", lambda: vmt.panda.eefk(A, device=d))
+        launches[where] = {"panda": fkcc_cuda.LAUNCHES}
+        fkcc_cuda.LAUNCHES = 0
+        s_ok = timed("sphere_validate", lambda: [vmt.sphere.validate(x, terrain, device=d)
+                                                 for x in (S, G)])
+        sres = timed("sphere_rrtc", lambda: vmt.sphere.rrtc(S, G, terrain, device=d))
+        launches[where]["sphere"] = fkcc_cuda.LAUNCHES
+        results[where] = (valid, res, simple, motions, dbg, fk, ee, s_ok, sres)
+        check(valid and all(s_ok), f"the API's starts and goals are valid ({where})")
+        check(bool(res.solved) and bool(sres.solved), f"the API solves both problems ({where})")
+        check(all(motions), f"every simplified segment validates ({where})")
+
+    # every returned path revalidated by the plain version on the card
+    envs = {"panda": cage.build(dev).map(lambda t: t[None]),
+            "sphere": terrain.build(dev).map(lambda t: t[None])}
+    reval = {}
+    for where, (_, res, simple, _, _, _, _, _, sres) in results.items():
+        for name, spec, r in (("panda_rrtc", vmt.panda.spec, res),
+                              ("panda_simplify", vmt.panda.spec, simple),
+                              ("sphere_rrtc", vmt.sphere.spec, sres)):
+            ok = paths_revalidate_plain(spec, envs[name.split("_")[0]],
+                                        r.path[None].to(dev), r.path_length[None].to(dev))
+            reval[f"{where}_{name}"] = bool(ok[0])
+    check(all(reval.values()), "every path of the API revalidates (plain)")
+    cu, cp = results["cuda"], results["cpu"]
+
+    # the fkcc kernel against its plain version on the API's own tables (one
+    # problem; a shared payload, a shared heightfield of 40,000 cells), at
+    # seeded configurations over each module's limits and the vertices of
+    # the card's paths
+    rng = np.random.default_rng(43)
+    held = {}
+    for name, spec, paths in (("panda", vmt.panda.spec, (cu[1], cu[2])),
+                              ("sphere", vmt.sphere.spec, (cu[8],))):
+        qs = torch.as_tensor(rng.uniform(spec.limits_low, spec.limits_high,
+                                         (API_CHECK, spec.dimension)), dtype=torch.float32)
+        q = torch.cat([qs.to(dev)] + [r.path[: int(r.path_length)].to(dev) for r in paths])
+        held[name] = branch_kernel(spec, envs[name], q[None])[0]
+        check(held[name]["mismatches_outside_bands"] == 0,
+              f"the kernel agrees with plain on the API's {name} tables outside the bands")
+
+    def same(a, b):
+        return (int(a.path_length) == int(b.path_length)
+                and abs(float(a.cost) - float(b.cost)) <= 1e-5 * abs(float(b.cost)))
+
+    identical = {"panda_rrtc": same(cu[1], cp[1]) and int(cu[1].iterations) == int(cp[1].iterations),
+                 "panda_simplify": same(cu[2], cp[2]),
+                 "sphere_rrtc": same(cu[8], cp[8]) and int(cu[8].iterations) == int(cp[8].iterations),
+                 "debug": cu[4] == cp[4],
+                 "fk_max_abs_diff": float(np.abs(cu[5] - cp[5]).max()),
+                 "eefk_max_abs_diff": float(max(np.abs(a - b).max() for a, b in zip(cu[6], cp[6])))}
+    check(launches["cuda"]["panda"] > 0 and launches["cuda"]["sphere"] > 0,
+          "the API launched the fkcc kernel on the card")
+    line = {"phase": "api", "times_ms": out, "fkcc_launches": launches["cuda"],
+            "solved": {w: {"panda": bool(r[1].solved), "sphere": bool(r[8].solved)}
+                       for w, r in results.items()},
+            "iterations": {w: {"panda": int(r[1].iterations), "sphere": int(r[8].iterations)}
+                           for w, r in results.items()},
+            "cost": {w: {"panda_rrtc": float(r[1].cost), "panda_simplified": float(r[2].cost),
+                         "sphere_rrtc": float(r[8].cost)} for w, r in results.items()},
+            "revalidated_plain": reval, "identical_card_cpu": identical,
+            "kernel_vs_plain": held}
+    return line, launches["cuda"]
+
+
+def row(name, ms, plain, b, err, launches):
+    """One entry of the kernels line."""
+    return {"name": name, "route": "cuda", "source": f"vamp_mvt_tpu_torch/csrc/{name}.cu",
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
+            "checked_against_plain": True}
+
+
+def branch_phases(dev, spec, q, ss) -> list[dict]:
+    """The attachment and heightfield phases (attach_kernel, hf_kernel, api,
+    mega_attach, mega_hf); returns their rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    from vamp_mvt_tpu_torch.bench import mbm
+    from vamp_mvt_tpu_torch.collision import environment as envmod
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
+    from vamp_mvt_tpu_torch.robots import registry
+
+    B = BRANCH_PROBLEMS
+    n = BRANCH_CHECK
+
+    # attach_kernel: 700 sphere cages, each with a seeded payload
+    cages = mbm.cage_suite(B, seed=5)["problems"]["cage"]
+    c_envs = mbm.build_batch(cages, device=dev)[0]
+    a_envs = c_envs._replace(attachment=payloads(B, 6, spec, dev))
+    ak, a_ok = branch_kernel(spec, a_envs, q)
+    only = fkcc_cuda.fkcc_batched(spec, c_envs, q) & ~a_ok
+    ak["payload_only_invalid_share"] = float(only.float().mean())
+    ak["live_payload_spheres_mean"] = float(live_payload(a_envs).mean())
+    emit({"phase": "attach_kernel", **ak})
+    check(ak["mismatches_outside_bands"] == 0, "payload kernel and plain agree outside the band")
+    check(0.0 < ak["valid_share"] < 1.0, "both outcomes occur with payloads")
+    check(ak["payload_only_invalid_share"] > 0.0, "some configurations only the payload invalidates")
+
+    # hf_kernel: 700 Panda terrain scenes with a few MBM-shaped primitives
+    # each; then the sphere robot over 700 seeded mazes, past their footprint
+    scenes = mbm_shaped_problems(B, seed=7)
+    for p in scenes:
+        p.update(sphere=p["sphere"][:1], cylinder=p["cylinder"][:2], box=p["box"][:2])
+    hm, hd = terrain_tables(B, 8, dev)
+    t_envs = mbm.build_batch(scenes, device=dev)[0]._replace(hf_meta=hm, hf_data=hd)
+    hk, t_ok = branch_kernel(spec, t_envs, q)
+    mspec = registry.sphere_spec(lows=(-5, -5, 0), highs=(5, 5, 5), radius=0.2)
+    rng = np.random.default_rng(9)
+    grids = np.stack([maze(rng) for _ in range(B)])
+    meta = envmod.make_heightfield(*MAZE_META, grids[0])[0]
+    m_envs = envmod.broadcast_environment(envmod.empty_environment(dev), B)._replace(
+        hf_meta=torch.as_tensor(meta, device=dev).expand(B, 1, 10).contiguous(),
+        hf_data=torch.as_tensor(grids.reshape(B, 1, -1), device=dev))
+    mq = torch.as_tensor(rng.uniform(mspec.limits_low, mspec.limits_high, (B, q.shape[1], 3))
+                         .astype(np.float32), device=dev)
+    mz = branch_kernel(mspec, m_envs, mq)[0]
+    mz["past_footprint_share"] = float((mq[..., :2].abs() > 4.0).any(-1).float().mean())
+    emit({"phase": "hf_kernel", "panda_terrain": hk, "sphere_maze": mz})
+    for name, r in (("terrain", hk), ("maze", mz)):
+        check(r["mismatches_outside_bands"] == 0,
+              f"heightfield kernel and plain agree outside the bands ({name})")
+        check(0.0 < r["valid_share"] < 1.0, f"both outcomes occur ({name})")
+
+    # api: this slice's entry path
+    line, api_launches = api_phase(dev)
+    emit(line)
+
+    # mega_attach / mega_hf: both megakernels against their plain versions
+    # on the first payload cages and terrain scenes, then the mega path on
+    # all of them; start and goal the first two configurations the fkcc
+    # kernel found valid in each (with its payload)
+    mega_s = mbm.default_settings("panda", "mega")
+    mega = {}
+    for phase, envs, ok in (("mega_attach", a_envs, a_ok), ("mega_hf", t_envs, t_ok)):
+        rows, st, gl, mk = first_two_valid(q, ok)
+        check(len(rows) >= n, f"two valid configurations in enough problems ({phase})")
+        envs = envs.map(lambda t: t[rows])
+        m = mega_compare(spec, envs.map(lambda t: t[:n]), st[:n], gl[:n], mk[:n], mega_s, ss)
+        m["mega_path"] = mega_path(spec, envs, st, gl, mk, mega_s, ss)
+        emit({"phase": phase, "problems_with_two_valid": len(rows), **m})
+        mega[phase] = m
+    ma, mh = mega["mega_attach"], mega["mega_hf"]
+    for name, m in (("payload cages", ma), ("terrain scenes", mh)):
+        check(m["rrtc_mega"]["identical_share"] >= MIN_SHARE,
+              f"rrtc_mega equals plain on the {name}")
+        check(m["simplify_mega"]["equal_length_share"] >= MIN_SHARE
+              and m["simplify_mega"]["cost_rtol_share"] >= MIN_SHARE,
+              f"simplify_mega equals plain on the {name}")
+
+    att_src = "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:215-246"
+    hf_src = "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:459-505"
+    branch = {"branch_source": "vamp_mvt_tpu_torch/csrc/fkcc_device.cuh"}
+    out = [
+        row("fkcc", ak["kernel_ms"], ak["plain_ms"], ak, ak["max_abs_err"], api_launches["panda"])
+        | branch | {"name": "fkcc_attach", "replaces": att_src},
+        row("fkcc", hk["kernel_ms"], hk["plain_ms"], hk, hk["max_abs_err"], api_launches["sphere"])
+        | branch | {"name": "fkcc_hf", "replaces": hf_src},
+    ]
+    for tag, m, src in (("attach", ma, att_src), ("hf", mh, hf_src)):
+        for k in ("rrtc_mega", "simplify_mega"):
+            r = m[k]
+            out.append(row(k, r["ms"], r["plain_ms"], r, r["max_abs_err"],
+                           m["mega_path"]["launches"][k])
+                       | branch | {"name": f"{k}_{tag}", "replaces": src})
+    return out
 
 
 def main() -> int:
@@ -789,11 +1360,8 @@ def main() -> int:
                      "bound_by": probes["timing"]["bound_by"], "library_ms": None}})
     check(all(v["equal"] for v in probes.values()), "every gather probe equals numpy")
 
-    def row(name, ms, plain, b, err, launches):
-        return {"name": name, "route": "cuda", "source": f"vamp_mvt_tpu_torch/csrc/{name}.cu",
-                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
-                "checked_against_plain": True}
+    # --- attachments and heightfields (this slice) ------------------------
+    branch_rows = branch_phases(dev, spec, q, ss)
 
     emit({"kernels": [
         row("fkcc", kernel_ms, plain_ms, kernel, max_abs_err, mega_launches["fkcc"])
@@ -820,6 +1388,7 @@ def main() -> int:
             pc_launches["simplify_mega"])
         | {"name": "simplify_mega_pc", "replaces": "vamp_mvt_tpu/planning/simplify_mega.py:377",
            "replaces_function": "vamp_mvt_tpu/planning/simplify_mega.py::_run on pck"},
+        *branch_rows,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

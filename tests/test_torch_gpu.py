@@ -437,3 +437,193 @@ def test_probe_gather_kernels_match_plain(cuda):
         torch.cuda.synchronize()
         assert gather.LAUNCHES == before + 1
         assert torch.equal(got, gather.plain(name, table, idx, idx2)), name
+
+
+# ---------------------------------------------------------------------------
+# The attachment and heightfield branches in all three kernels
+# ---------------------------------------------------------------------------
+
+CELL_BAND = 1e-4
+
+
+def _terrain_env(shape, seed, device, scale=0.4):
+    """One seeded heightfield of `shape` cells of `scale` m, centred at 0."""
+    grid = np.random.default_rng(seed).uniform(0.2, 1.8, shape).astype(np.float32)
+    meta, data = envmod.make_heightfield((0.0, 0.0, 0.0), (scale, scale, 1.0), grid)
+    return envmod.EnvironmentBuilder().add_heightfield(meta, data).build(device=device)
+
+
+def _cell_band(spec, envs, q):
+    """(B, N) bool: a sphere centre at q (B, N, d), payload included, within
+    CELL_BAND of a cell edge of its problem's fields."""
+    from vamp_mvt_tpu_torch.collision import primitives
+    from vamp_mvt_tpu_torch.ops import fkcc
+
+    centers = fkcc.staged_centers(spec, envs.map(lambda t: t[:, None]), q)
+    return primitives.heightfield_cell_band(envs.hf_meta[:, None], centers, CELL_BAND)
+
+
+def _branch_check(spec, envs, q, band=None):
+    """The fkcc kernel against its plain version: validity equal outside the
+    contact band (and `band`); the vmin within 1e-4 (no pointcloud: the
+    branches are value-exact).  Returns the kernel's validity."""
+    before = fkcc_cuda.LAUNCHES
+    vk = fkcc_cuda.fkcc_vmin(spec, envs, q)
+    ok = fkcc_cuda.fkcc_batched(spec, envs, q)
+    vp = fkcc_cuda.fkcc_vmin_plain(spec, envs, q)
+    torch.cuda.synchronize()
+    assert fkcc_cuda.LAUNCHES == before + 2
+    assert torch.equal(ok, vk >= 0)
+    skip = vp.abs() <= BAND if band is None else (vp.abs() <= BAND) | band
+    mism = (vk >= 0) != (vp >= 0)
+    print(f"{spec.name}: {int(mism.sum())} validity mismatches of {vk.numel()}, "
+          f"{int(skip.sum())} in the bands, max |vmin diff| "
+          f"{float((vk - vp).abs()[~skip].max()):.3g}")
+    assert not (mism & ~skip).any()
+    assert float((vk - vp).abs()[~skip].max()) < 1e-4
+    return ok
+
+
+def _panda_attach_envs(device):
+    """Two Panda scenes with a sphere and a cuboid, each with its own payload
+    (tests/test_kernel_branches.py's and a larger one)."""
+    envs = []
+    for spheres, pos in (([[0.0, 0.0, 0.09, 0.06], [0.05, 0.0, 0.14, 0.04]], [0.0, 0.0, 0.02]),
+                         ([[0.0, 0.0, 0.2, 0.1], [0.0, 0.05, 0.1, 0.03]], [0.01, 0.0, 0.0])):
+        b = envmod.EnvironmentBuilder()
+        b.add_sphere([0.5, 0.0, 0.6], 0.18)
+        b.add_cuboid(envmod.make_cuboid([0.0, 0.55, 0.4], [0.3, 0.2, 0.1], [0.2, 0.15, 0.1]))
+        b.attach(envmod.make_attachment(spheres, tf_pos=pos))
+        envs.append(b.build(device="cpu"))
+    return envmod.stack_environments(envs).to(device)
+
+
+@pytest.mark.gpu
+def test_attachment_kernel_matches_plain(cuda):
+    spec = registry.load("panda")
+    envs = _panda_attach_envs(cuda)
+    q = torch.as_tensor(np.random.default_rng(9).uniform(
+        spec.limits_low, spec.limits_high, (2, 4096, 7)).astype(np.float32), device=cuda)
+    ok = _branch_check(spec, envs, q)
+    bare = _branch_check(spec, envs._replace(attachment=None), q)
+    assert 0.0 < float(ok.float().mean()) < 1.0
+    assert bool((bare & ~ok).any(1).all()), "each payload invalidates some configurations"
+    # one payload shared by the batch (leaves of batch 1)
+    one = envs._replace(attachment=envs.attachment._replace(
+        **{f: getattr(envs.attachment, f)[:1] for f in envs.attachment._fields}))
+    shared = fkcc_cuda.fkcc_batched(spec, one, q)
+    assert torch.equal(shared[0], ok[0])
+    # the sphere robot carrying a payload
+    spec = registry.sphere_spec(lows=PC_WMIN, highs=PC_WMAX, radius=0.2)
+    b = envmod.EnvironmentBuilder()
+    for z in np.linspace(0.4, 5.6, 9):
+        for y in np.linspace(-2.6, 2.6, 9):
+            b.add_sphere([0.0, y, z], 0.3)
+    b.attach(envmod.make_attachment([[0.0, 0.4, 0.0, 0.15]]))
+    envs = envmod.broadcast_environment(b.build(device=cuda), 1)
+    q = torch.as_tensor(np.random.default_rng(10).uniform(
+        PC_WMIN, PC_WMAX, (1, 4096, 3)).astype(np.float32), device=cuda)
+    assert 0.0 < float(_branch_check(spec, envs, q).float().mean()) < 1.0
+
+
+@pytest.mark.gpu
+def test_heightfield_kernel_matches_plain(cuda):
+    # the sphere robot past the footprint of a 10 x 13 grid (C = 130): the
+    # flat index clips to C - 1 (the XLA rule)
+    spec = registry.sphere_spec(lows=PC_WMIN, highs=PC_WMAX, radius=0.25)
+    envs = envmod.stack_environments([_terrain_env((10, 13), 21, "cpu"),
+                                      _terrain_env((10, 13), 22, "cpu")]).to(cuda)
+    q = torch.as_tensor(np.random.default_rng(23).uniform(
+        [-5, -5, 0], [5, 5, 2.5], (2, 4096, 3)).astype(np.float32), device=cuda)
+    ok = _branch_check(spec, envs, q, _cell_band(spec, envs, q))
+    assert 0.0 < float(ok.float().mean()) < 1.0
+    # Panda over a terrain of 250 x 250 cells of 1 cm, with a payload: every
+    # sphere, payload included, against the heights (below the base within
+    # 0.25 m of it, 0.2-0.6 m elsewhere; the grid off the origin by a third
+    # of a cell, so that the base's spheres lie on no cell edge)
+    spec = registry.load("panda")
+    rng = np.random.default_rng(24)
+    xy = (np.arange(250) - 125 + 0.5) * 0.01
+    grid = rng.uniform(0.2, 0.6, (250, 250)).astype(np.float32)
+    grid[np.hypot(*np.meshgrid(xy, xy)) < 0.25] = -0.1
+    meta, data = envmod.make_heightfield((0.0033, 0.0033, 0.0), (0.01, 0.01, 1.0), grid)
+    b = envmod.EnvironmentBuilder().add_heightfield(meta, data)
+    b.attach(envmod.make_attachment([[0.0, 0.0, 0.12, 0.06]]))
+    envs = envmod.broadcast_environment(b.build(device=cuda), 1)
+    q = torch.as_tensor(rng.uniform(spec.limits_low, spec.limits_high, (1, 4096, 7))
+                        .astype(np.float32), device=cuda)
+    ok = _branch_check(spec, envs, q, _cell_band(spec, envs, q))
+    assert 0.0 < float(ok.float().mean()) < 1.0
+
+
+@pytest.mark.gpu
+def test_oversized_payload_takes_exact_scan(cuda):
+    """tests/test_kernel_branches.py's radius-class cases on the card: a
+    payload below its class radius must not take the certain-hit bits, and
+    one above every class radius (gate_ok = 0) must take the exact scan."""
+    pc = np.asarray([[0.125, 0.125, 3.125]], np.float32)
+    spec = registry.sphere_spec(lows=PC_WMIN, highs=PC_WMAX, radius=0.25)
+    for local, r, x, want in (([0.6, 0.0, 0.0], 0.02, 0.06, True),
+                              ([0.9, 0.0, 0.0], 0.4, 0.38, False)):
+        att = envmod.tree_map(lambda a: torch.as_tensor(a, device=cuda),
+                              envmod.make_attachment([[*local, r]]))
+        envs = envmod.broadcast_environment(
+            _pck_env(spec, pc, 0.25, cuda)._replace(attachment=att), 1)
+        q = torch.tensor([[[0.125 + x - local[0], 0.125, 3.125]]], device=cuda)
+        fkcc_cuda.PC_WORK = None
+        ok = fkcc_cuda.fkcc_batched(spec, envs, q)
+        work = fkcc_cuda.PC_WORK.tolist()
+        plain = fkcc_cuda.fkcc_batched_plain(spec, envs, q)
+        assert bool(ok[0, 0]) == bool(plain[0, 0]) == want
+        if not want:
+            assert work[2] > 0, "the oversized payload scanned the cloud's points"
+
+
+def _branch_problems(device, B=2):
+    """tests/test_kernel_branches.py's planning problems on a heightfield and
+    with a payload, B copies each."""
+    spec_h = registry.sphere_spec(lows=PC_WMIN, highs=PC_WMAX, radius=0.25)
+    grid = np.random.default_rng(11).uniform(0.2, 2.2, (16, 16)).astype(np.float32)
+    meta, data = envmod.make_heightfield((0.0, 0.0, 0.0), (0.4, 0.4, 1.0), grid)
+    env_h = envmod.EnvironmentBuilder().add_heightfield(meta, data).build(device=device)
+    spec_a = registry.sphere_spec(lows=PC_WMIN, highs=PC_WMAX, radius=0.2)
+    b = envmod.EnvironmentBuilder()
+    for z in np.linspace(0.4, 5.6, 9):
+        for y in np.linspace(-2.6, 2.6, 9):
+            if abs(y) < 1.2 and abs(z - 3.0) < 1.2:
+                continue
+            b.add_sphere([0.0, y, z], 0.3)
+    b.attach(envmod.make_attachment([[0.0, 0.4, 0.0, 0.15]]))
+    env_a = b.build(device=device)
+    masks = torch.ones((B, 1), dtype=torch.bool, device=device)
+    out = {}
+    for name, spec, env, s, g, rng_ in (
+            ("heightfield", spec_h, env_h, [-2.5, -2.5, 3.2], [2.5, 2.5, 3.2], 1.2),
+            ("attachment", spec_a, env_a, [-2.0, 0.0, 3.0], [2.0, 0.0, 3.0], 1.0)):
+        out[name] = (spec, envmod.broadcast_environment(env, B),
+                     torch.tensor([s] * B, device=device), torch.tensor([[g]] * B, device=device),
+                     masks, _wall_settings(4, 2, 2, range=rng_, max_iterations=384,
+                                           max_samples=512))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["heightfield", "attachment"])
+def test_megakernels_branches_match_plain(cuda, which):
+    from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega, simplify, simplify_mega
+
+    spec, envs, starts, goals, masks, s = _branch_problems(cuda)[which]
+    offs = torch.arange(2, device=cuda, dtype=torch.int32) * 100
+    got = rrtc_mega.plan_batch_mega(spec, envs, starts, goals, masks, s, offs, device=cuda)
+    ref = rrtc.plan_batch(spec, envs, starts, goals, masks, s, offs)
+    torch.cuda.synchronize()
+    assert bool(ref.solved.any())
+    for f in ("solved", "iterations", "size_start", "size_goal", "path_length"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(ref, f).cpu()), f
+    torch.testing.assert_close(got.cost, ref.cost, rtol=1e-6, atol=0)
+    ss = simplify.SimplifySettings()
+    ks = simplify_mega.simplify_batch_mega(spec, envs, ref.path, ref.path_length, ss,
+                                           device=cuda)
+    ps = simplify_mega.simplify_batch_plain(spec, envs, ref.path, ref.path_length, ss)
+    assert torch.equal(ks.path_length.cpu(), ps.path_length.cpu())
+    torch.testing.assert_close(ks.cost, ps.cost, rtol=1e-5, atol=0)

@@ -49,7 +49,7 @@ def test_port_imports_without_jax():
     assert {f"vamp_mvt_tpu_torch.{m}" for m in (
         "native", "collision.mvt", "collision.capt", "collision.pc_kernel",
         "pointcloud.sampling", "pointcloud.filters", "pointcloud.pipeline",
-        "probes.gather")} <= names
+        "probes.gather", "api")} <= names
 
 
 def test_port_sources_name_no_jax():

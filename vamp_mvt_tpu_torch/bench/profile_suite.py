@@ -1,10 +1,12 @@
-"""Where the suite runner's time goes on the GPU.
+"""Where the suite runner's, or the user API's, time goes on the GPU.
 
     python -m vamp_mvt_tpu_torch.bench.profile_suite [--problems 700] [--planner mega]
+    python -m vamp_mvt_tpu_torch.bench.profile_suite --entry api
 
 Runs `run_suite("panda", planner=...)` ("mega" or "xla") on the seeded
-sphere-cage suite once to warm up, then once under `torch.profiler`, and
-prints one JSON line: the wall time under the profiler, the device's busy
+sphere-cage suite (or, with `--entry api`, one `panda.rrtc` call of the user
+API on examples/attachments.py's payload in the cage) once to warm up, then
+once under `torch.profiler`, and prints one JSON line: the wall time under the profiler, the device's busy
 time (the summed duration of every CUDA kernel and copy), its idle share,
 each of the port's kernels' device time and launches, and the kernels that
 took the most device time.  The profiler adds
@@ -15,6 +17,7 @@ unprofiled run's; the device times are not affected.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import time
 from collections import defaultdict
@@ -26,8 +29,21 @@ from torch.profiler import ProfilerActivity, profile
 from vamp_mvt_tpu_torch.bench import mbm
 
 
+def api_cage():
+    """examples/attachments.py's scenario through the user API: the sphere
+    cage with the payload [[0, 0, 0.12, 0.06]], VAMP's start A and goal B."""
+    import vamp_mvt_tpu_torch as vmt
+
+    env = vmt.Environment()
+    for c in mbm.CAGE_CENTERS:
+        env.add_sphere(vmt.Sphere(c, mbm.CAGE_RADIUS))
+    env.attach(vmt.Attachment(spheres=[[0.0, 0.0, 0.12, 0.06]]))
+    return env, mbm.PANDA_START, mbm.PANDA_GOAL
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--entry", choices=("suite", "api"), default="suite")
     ap.add_argument("--problems", type=int, default=700)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--planner", choices=("mega", "xla"), default="mega")
@@ -35,13 +51,22 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_suite needs a CUDA device")
 
-    data = mbm.cage_suite(args.problems, seed=args.seed)
-    run = dict(data=data, batch_size=args.problems, planner=args.planner)
-    mbm.run_suite("panda", **run)  # warm-up
+    if args.entry == "api":
+        import vamp_mvt_tpu_torch as vmt
+
+        env, start, goal = api_cage()
+        run = functools.partial(vmt.panda.rrtc, start, goal, env)
+        problems, planner = 1, "lockstep"
+    else:
+        data = mbm.cage_suite(args.problems, seed=args.seed)
+        run = functools.partial(mbm.run_suite, "panda", data=data, batch_size=args.problems,
+                                planner=args.planner)
+        problems, planner = args.problems, args.planner
+    run()  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = mbm.run_suite("panda", **run)
+        res = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -58,9 +83,10 @@ def main() -> None:
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "problems": args.problems,
-        "planner": args.planner,
-        "solved": res.summary()["solved_problems"],
+        "entry": args.entry,
+        "problems": problems,
+        "planner": planner,
+        "solved": int(res.solved) if args.entry == "api" else res.summary()["solved_problems"],
         "wall_s_profiled": wall,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,

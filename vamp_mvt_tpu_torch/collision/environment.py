@@ -1,13 +1,16 @@
 """Environment of collision primitives as dense struct-of-arrays tensors.
 
 Port of `vamp_mvt_tpu/collision/environment.py`: primitive and heightfield
-tables, and the pointcloud structures (MVT, CAPT and the kernel-resident
-form; attachments are not ported yet).  Row layouts match the JAX package
-and the reference exactly:
+tables, the pointcloud structures (MVT, CAPT and the kernel-resident form)
+and the end-effector attachment.  Row layouts match the JAX package and the
+reference exactly:
 
   sphere:  (x, y, z, r)                                        4 floats
   capsule: (x1, y1, z1, xv, yv, zv, r, rdv), rdv = 1/|v|^2     8 floats
   cuboid:  (center(3), axis_1(3), axis_2(3), axis_3(3), half_extents(3)) 15
+  heightfield meta: (x, y, z, 1/sx, 1/sy, 1/sz, xd, yd, xd2, yd2)       10
+  heightfield data: the grid's heights row-major, zero-padded to the
+                    table's width
 
 Z-aligned capsules/cuboids are routed to their own tables.  Tables are padded
 with inert rows whose first coordinate is 1e8; the live rows always form a
@@ -17,7 +20,9 @@ prefix (the fused kernel scans only that prefix, counting rows with
 A pointcloud rides along as `mvt` (collision/mvt.py), `capt`
 (collision/capt.py) and `pck` (collision/pc_kernel.py, the form the CUDA
 kernels read): named tuples of tensors with the same leading batch dims as
-the tables, or None.
+the tables, or None.  So does `attachment`: payload spheres carried by the
+end effector (`Attachment`: tf_rot (..., 3, 3), tf_pos (..., 3), spheres
+(..., A, 4)), or None.
 """
 
 from __future__ import annotations
@@ -52,6 +57,25 @@ def tree_map(fn, x):
     return type(x)(*(tree_map(fn, v) for v in x))
 
 
+class Attachment(NamedTuple):
+    """End-effector payload: spheres in an EE-relative frame (reference
+    collision/attachments.hh:12-57).  Arrays, or tensors in an Environment
+    with its leading batch dims."""
+
+    tf_rot: object   # (..., 3, 3) attachment frame rotation (EE-relative)
+    tf_pos: object   # (..., 3)
+    spheres: object  # (..., A, 4) x, y, z, r in the attachment frame
+
+
+def make_attachment(spheres, tf_rot=None, tf_pos=None) -> Attachment:
+    """An Attachment of float32 arrays (JAX ops/fkcc.py::make_attachment)."""
+    return Attachment(
+        tf_rot=np.asarray(np.eye(3) if tf_rot is None else tf_rot, np.float32).reshape(3, 3),
+        tf_pos=np.asarray(np.zeros(3) if tf_pos is None else tf_pos, np.float32).reshape(3),
+        spheres=np.asarray(spheres, np.float32).reshape(-1, 4),
+    )
+
+
 class Environment(NamedTuple):
     """Dense SoA environment; every tensor may carry leading batch dims."""
 
@@ -65,6 +89,7 @@ class Environment(NamedTuple):
     mvt: MVTData | None = None
     capt: CAPTData | None = None
     pck: PCKernelData | None = None
+    attachment: Attachment | None = None
 
     def map(self, fn) -> "Environment":
         """Apply `fn` to every tensor (indexing, device moves, broadcasts)."""
@@ -122,6 +147,22 @@ def make_capsule_center(center, euler_xyz, radius, length) -> np.ndarray:
     return make_capsule_endpoints(c + half, c - half, radius)
 
 
+def make_heightfield(center, scale, grid: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Heightfield meta and data (reference shapes.hh:249-312,
+    factory.hh:364-385).  grid: (H, W) row-major heights; scale = (sx, sy,
+    sz) world units per cell (and per height unit for z).  The meta keeps
+    the reciprocal scales, as the reference factory does, and halves the
+    grid's width and height as integers (shapes.hh:289)."""
+    h, w = grid.shape
+    sx, sy, sz = scale
+    meta = np.array(
+        [center[0], center[1], center[2], 1.0 / sx, 1.0 / sy, 1.0 / sz,
+         float(w), float(h), float(w // 2), float(h // 2)],
+        dtype=np.float32,
+    )
+    return meta, grid.astype(np.float32).reshape(-1)
+
+
 _INERT = {
     "spheres": np.array([_FAR, _FAR, _FAR, 0.0], dtype=np.float32),
     "capsules": np.array([_FAR, _FAR, _FAR, 0.0, 0.0, 1.0, 0.0, 1.0], dtype=np.float32),
@@ -162,6 +203,8 @@ class EnvironmentBuilder:
     mvt: MVTData | None = None
     capt: CAPTData | None = None
     pck: PCKernelData | None = None
+    heightfields: list = dataclasses.field(default_factory=list)
+    attachment: Attachment | None = None
 
     def add_sphere(self, center, radius):
         self.spheres.append(make_sphere(center, radius))
@@ -181,6 +224,16 @@ class EnvironmentBuilder:
             self.z_cuboids.append(arr)
         else:
             self.cuboids.append(arr)
+        return self
+
+    def add_heightfield(self, meta: np.ndarray, data: np.ndarray):
+        self.heightfields.append((np.asarray(meta, np.float32), np.asarray(data, np.float32)))
+        return self
+
+    def attach(self, attachment: Attachment):
+        """Carry payload spheres on the end effector (reference Environment
+        attachments, collision/attachments.hh:12-57)."""
+        self.attachment = attachment
         return self
 
     def add_mvt_pointcloud(self, points, r_min: float, r_max: float, workspace_min,
@@ -216,8 +269,13 @@ class EnvironmentBuilder:
         n_z_capsules: int | None = None,
         n_cuboids: int | None = None,
         n_z_cuboids: int | None = None,
+        n_heightfields: int | None = None,
+        hf_cells: int | None = None,
         device=None,
     ) -> Environment:
+        """The padded tables on `device`.  Heightfields pad to
+        `n_heightfields` fields of `hf_cells` cells; an inert field lies far
+        below (z = -1e8) on a 1 x 1 grid, so it never collides."""
         def pad(name, rows, cap, inert):
             cap = len(rows) if cap is None else cap
             cap = max(cap, len(rows))
@@ -229,6 +287,21 @@ class EnvironmentBuilder:
             check_live_prefix(name, out)
             return torch.as_tensor(out, device=device)
 
+        nh = len(self.heightfields) if n_heightfields is None else n_heightfields
+        cells = hf_cells
+        if cells is None:
+            cells = max((d.size for _, d in self.heightfields), default=0)
+        if nh < len(self.heightfields) or any(d.size > cells for _, d in self.heightfields):
+            raise ValueError("build: n_heightfields / hf_cells below what was added")
+        hf_meta = np.zeros((nh, 10), dtype=np.float32)
+        hf_meta[:, 2] = -_FAR
+        hf_meta[:, 6] = 1.0
+        hf_meta[:, 7] = 1.0
+        hf_data = np.zeros((nh, max(cells, 1) if nh else 0), dtype=np.float32)
+        for i, (m, d) in enumerate(self.heightfields):
+            hf_meta[i] = m
+            hf_data[i, : d.size] = d
+
         return Environment(
             spheres=pad("spheres", self.spheres, n_spheres, _INERT["spheres"]),
             capsules=pad("capsules", self.capsules, n_capsules, _INERT["capsules"]),
@@ -239,10 +312,10 @@ class EnvironmentBuilder:
             z_cuboids=pad(
                 "z_cuboids", self.z_cuboids, n_z_cuboids, _INERT["cuboids"]
             ),
-            hf_meta=torch.zeros((0, 10), dtype=torch.float32, device=device),
-            hf_data=torch.zeros((0, 0), dtype=torch.float32, device=device),
+            hf_meta=torch.as_tensor(hf_meta, device=device),
+            hf_data=torch.as_tensor(hf_data, device=device),
             **{name: tree_map(lambda a: torch.as_tensor(a, device=device), getattr(self, name))
-               for name in POINTCLOUDS},
+               for name in POINTCLOUDS + ("attachment",)},
         )
 
 
@@ -315,9 +388,23 @@ def _pad_chunks(chunks: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([chunks, pad])
 
 
+def _check_attachments(envs: list[Environment]) -> None:
+    """Raise unless every problem of a batch carries an attachment of the
+    same number of spheres, or none does."""
+    atts = [e.attachment for e in envs]
+    if all(a is None for a in atts):
+        return
+    if any(a is None for a in atts):
+        raise ValueError("stack_environments: some problems lack an attachment")
+    if len({tuple(a.spheres.shape) for a in atts}) > 1:
+        raise ValueError("stack_environments: attachments of another sphere count (A)")
+
+
 def stack_environments(envs: list[Environment]) -> Environment:
     """Stack environments of the same table capacities into a batched
-    Environment; pointcloud structures are padded to the batch's largest."""
+    Environment; pointcloud structures are padded to the batch's largest.
+    Attachments must have the same sphere count across the batch."""
+    _check_attachments(envs)
     envs = _pad_pointclouds(envs)
 
     def stack(*xs):

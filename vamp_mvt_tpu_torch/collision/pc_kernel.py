@@ -26,6 +26,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from vamp_mvt_tpu_torch import native
 
@@ -80,6 +81,21 @@ def sphere_table(sphere_radii: np.ndarray) -> np.ndarray:
         tab[k] = (r, c, 1.0 if r >= float(cls_radii[c]) - 1e-6 else 0.0,
                   1.0 if r <= float(cls_radii[-1]) + 1e-7 else 0.0)
     return tab
+
+
+def attachment_table(radii, robot_radii: np.ndarray):
+    """(..., A) payload radii (a float32 tensor) -> (..., A, 4) float32 rows
+    of the same form as `sphere_table`, for the pointcloud branch's spheres
+    S..S+A-1: the robot's radius classes, the class index argmax(cr >= r -
+    1e-7), chit_ok = r >= cr[class] - 1e-6 and gate_ok = r <= cr[-1] + 1e-7,
+    all in float32 as fkcc_pallas.py:692-706 computes them.  A payload above
+    every class radius takes class 0 with gate_ok = 0: it always takes the
+    exact scan."""
+    cr = torch.as_tensor(radius_classes(robot_radii), device=radii.device)
+    cls = torch.argmax((cr >= radii[..., None] - 1e-7).to(torch.int32), dim=-1)
+    chit = (radii >= cr[cls] - 1e-6).to(torch.float32)
+    gate = (radii <= cr[-1] + 1e-7).to(torch.float32)
+    return torch.stack([radii, cls.to(torch.float32), chit, gate], dim=-1)
 
 
 def _voxel_distances(points, wmin, cell, W, win, use_native):

@@ -12,6 +12,8 @@ kernel round alike.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -83,3 +85,58 @@ def sphere_z_cuboid(cuboids: torch.Tensor, p: torch.Tensor, r: torch.Tensor) -> 
     a2 = torch.clamp_min(torch.abs(c[..., 6] * xs + c[..., 7] * ys) - c[..., 13], 0.0)
     a3 = torch.clamp_min(torch.abs(zs) - c[..., 14], 0.0)
     return a1 * a1 + a2 * a2 + a3 * a3 - _sq(r[..., :, None])
+
+
+def sphere_heightfield(hf_meta: torch.Tensor, hf_data: torch.Tensor, p: torch.Tensor,
+                       r: torch.Tensor) -> torch.Tensor:
+    """(..., Nh, 10) + (..., Nh, C) x (..., S, 3) -> (..., S, Nh).
+    Reference sphere_heightfield.hh:8-30: map world xy to a grid cell, gather
+    its height, compare the sphere's bottom against it.
+
+    The flat cell index clips to C - 1, C = hf_data.shape[-1] (the table's
+    padded width), as the JAX package's XLA path does: a sphere past the
+    footprint's far row reads the table's last cell.  The JAX Pallas kernel
+    clips to its own 128-wide padded rows instead and reads a zero there;
+    the port follows the XLA rule in its plain version and in its kernel."""
+    m = hf_meta[..., None, :, :]  # (..., 1, Nh, 10)
+    zh = _gather_heights(hf_data, heightfield_cells(hf_meta, hf_data.shape[-1], p))
+    zhs = m[..., 5] * zh + m[..., 2]
+    return p[..., :, None, 2] - r[..., :, None] - zhs
+
+
+def heightfield_cells(hf_meta: torch.Tensor, C: int, p: torch.Tensor) -> torch.Tensor:
+    """(..., Nh, 10) x (..., S, 3) -> (..., S, Nh) int32: the flat cell index
+    under each sphere centre in each field of C cells (sphere_heightfield's
+    index rule)."""
+    m = hf_meta[..., None, :, :]  # (..., 1, Nh, 10)
+    xo = m[..., 0] - p[..., :, None, 0]
+    yo = m[..., 1] - p[..., :, None, 1]
+    cx = torch.floor(torch.minimum(torch.clamp_min(m[..., 3] * xo + m[..., 8], 0.0), m[..., 6]))
+    cy = torch.floor(torch.minimum(torch.clamp_min(m[..., 4] * yo + m[..., 9], 0.0), m[..., 7]))
+    idx = (cy * m[..., 6] + cx).to(torch.int32)
+    return torch.clamp(idx, 0, C - 1)
+
+
+def heightfield_cell_band(hf_meta: torch.Tensor, p: torch.Tensor, band: float) -> torch.Tensor:
+    """(..., Nh, 10) x (..., S, 3) -> (...) bool: some sphere centre lies
+    within `band` of a cell edge of some field, in float64.  There `floor`
+    of a value one ulp from an integer picks either cell, so a kernel and
+    the plain version may read neighbouring heights."""
+    m = hf_meta.double()[..., None, :, :]
+    c = p.double()[..., :, None, :]
+    u = m[..., 3] * (m[..., 0] - c[..., 0]) + m[..., 8]
+    v = m[..., 4] * (m[..., 1] - c[..., 1]) + m[..., 9]
+    near = ((u - u.round()).abs() < band) | ((v - v.round()).abs() < band)
+    return near.flatten(-2).any(-1)
+
+
+def _gather_heights(hf_data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """hf_data (L..., Nh, C), idx (..., S, Nh) int -> (..., S, Nh): the height
+    of cell idx of field n of the table row that serves each query, the
+    table's leading dims aligned with (broadcast against) the query's."""
+    nh, C = hf_data.shape[-2], hf_data.shape[-1]
+    lead = tuple(hf_data.shape[:-2])
+    row = torch.arange(math.prod(lead), device=idx.device).reshape(
+        lead + (1,) * (idx.dim() - len(lead)))
+    flat = (row * nh + torch.arange(nh, device=idx.device)) * C + idx.long()
+    return hf_data.reshape(-1)[flat]

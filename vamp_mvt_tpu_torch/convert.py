@@ -14,7 +14,7 @@ import torch
 
 from vamp_mvt_tpu_torch.collision.capt import CAPTData
 from vamp_mvt_tpu_torch.collision.environment import (
-    POINTCLOUDS, TABLES, Environment, check_live_prefix, tree_map)
+    TABLES, Attachment, Environment, check_live_prefix, tree_map)
 from vamp_mvt_tpu_torch.collision.mvt import MVTData
 from vamp_mvt_tpu_torch.collision.pc_kernel import PCKernelData
 from vamp_mvt_tpu_torch.robots.spec import Frame, RobotSpec
@@ -77,23 +77,30 @@ def pck_from_numpy(k) -> PCKernelData:
     return PCKernelData(*(np.asarray(_field(k, f)) for f in PCKernelData._fields))
 
 
-_POINTCLOUD_FROM = {"mvt": mvt_from_numpy, "capt": capt_from_numpy, "pck": pck_from_numpy}
+def attachment_from_numpy(a) -> Attachment:
+    """The port's Attachment from the JAX package's (`tf_rot`, `tf_pos`,
+    `spheres` as numpy)."""
+    return Attachment(*(np.asarray(_field(a, f), np.float32) for f in Attachment._fields))
+
+
+_STRUCT_FROM = {"mvt": mvt_from_numpy, "capt": capt_from_numpy, "pck": pck_from_numpy,
+                "attachment": attachment_from_numpy}
 
 
 def environment_from_numpy(leaves: dict, device) -> Environment:
     """The port's Environment from the JAX package's leaves (`spheres`,
     `capsules`, `z_capsules`, `cuboids`, `z_cuboids`, `hf_meta`, `hf_data`,
-    and optionally `mvt`, `capt`, `pck`), with any leading batch dims, on
-    `device`."""
+    and optionally `mvt`, `capt`, `pck`, `attachment`), with any leading
+    batch dims, on `device`."""
     for name in TABLES:
         check_live_prefix(name, leaves[name])
     tables = {
         name: torch.as_tensor(np.array(leaves[name], np.float32), device=device)
-        for name in Environment._fields if name not in POINTCLOUDS
+        for name in Environment._fields if name not in _STRUCT_FROM
     }
-    clouds = {
+    structs = {
         name: tree_map(lambda a: torch.as_tensor(np.array(a), device=device),
-                       _POINTCLOUD_FROM[name](leaves[name]))
-        for name in POINTCLOUDS if leaves.get(name) is not None
+                       _STRUCT_FROM[name](leaves[name]))
+        for name in _STRUCT_FROM if leaves.get(name) is not None
     }
-    return Environment(**tables, **clouds)
+    return Environment(**tables, **structs)

@@ -2,18 +2,21 @@
 // functions shared by every kernel of the port (fkcc.cu, rrtc_mega.cu,
 // simplify_mega.cu).  Counterpart of the TPU function
 // vamp_mvt_tpu/ops/kernels/fkcc_pallas.py::tile_vmin: its primitive,
-// self-collision and pointcloud (pc_phase 2) branches.
+// self-collision, end-effector attachment, pointcloud (pc_phase 2) and
+// heightfield branches.
 //
-// A block first copies its problem's shape rows into shared memory and
-// counts the live prefix of every table (rows with |x0| < 1e7, the
-// _live_counts rule): load_env().  Then each thread evaluates one
-// configuration at a time with config_vmin(), which returns
+// A block first copies its problem's shape rows, heightfield meta rows and
+// payload rows into shared memory and counts the live prefix of every shape
+// table (rows with |x0| < 1e7, the _live_counts rule): load_env().  Then each
+// thread evaluates one configuration at a time with config_vmin(), which
+// returns
 //
 //   vmin = min( min over robot spheres x live shape rows of the signed value,
-//               min over the self-collision pair table of d^2 - (ri + rj)^2 )
+//               min over the self-collision pair table of d^2 - (ri + rj)^2,
+//               the attachment, heightfield and pointcloud branches below,
+//               where the problem has them )
 //
-// and, where the problem carries a pointcloud, the pointcloud branch below
-// (pc_vmin), and the configuration is valid iff vmin >= 0.  The robot arrives as small
+// and the configuration is valid iff vmin >= 0.  The robot arrives as small
 // device tables built from its RobotSpec (frame chain, sphere placement, pair
 // table).  FK walks the frames in order, keeping the previous frame's pose in
 // registers; only frames that parent a non-adjacent frame are kept in shared
@@ -25,20 +28,38 @@
 // and collision/primitives.py, so its rounding follows the plain PyTorch
 // version and validity can differ only inside the contact band.
 //
-// Pointcloud (collision/pc_kernel.py), after the pair table, for each robot
+// Attachment (ops/fkcc.py::attachment_vmin), when the problem carries A
+// payload spheres: as FK reaches the robot's EE frame, each payload row (its
+// centre in the EE frame, tf_rot @ xyz + tf_pos, composed on the host) is
+// posed as R_ee @ c + t_ee, checked against the live shape rows like a
+// robot sphere, and stored in s_ctr after the S robot spheres; after the
+// pair table each payload sphere is checked against the robot's
+// attachment-check spheres.  The heightfield and pointcloud branches then
+// run over all S + A spheres.
+//
+// Heightfield (collision/primitives.py::sphere_heightfield), for every
+// sphere and field: the cell under the centre, floor(clip(xs * (x0 - x) +
+// xd2, 0, xd)) and likewise in y, gives the flat index cy * xd + cx, clipped
+// to [0, C - 1] with C the table's padded width (the JAX package's XLA rule,
+// not its Pallas kernel's 128-wide rows), and vmin takes z - r - (zs * h +
+// z0).  The heights stay in global memory, one read through the read-only
+// path per sphere and field.
+//
+// Pointcloud (collision/pc_kernel.py), after the heightfields, for each
 // sphere of a configuration whose vmin is still >= 0: the voxel of its centre
 // selects one word of its radius class in the certain-hit and the
 // certain-free halves of the bitmap; a certain-hit bit (where the sphere
 // table allows it, chit_ok) decides the configuration at once (vmin = -1);
 // a centre outside the grid, a set certain-free bit or a sphere without a
-// sound gate (gate_ok = 0) takes the exact scan: every live chunk whose
-// bounding sphere lies within thr + chunk radius (+ 1e-4 against rounding)
-// of the centre has its 32 points checked as d^2 - thr^2, thr = r + r_point.
-// The branch is sign-exact, not value-exact (every consumer thresholds vmin
-// at 0), and stops the moment vmin < 0.  One thread per configuration, no
-// warp collective (the megakernels call it inside divergent loops); the
-// bitmap, chunks and points stay in global memory, read through the
-// read-only path.
+// sound gate (gate_ok = 0, an oversized payload) takes the exact scan: every
+// live chunk whose bounding sphere lies within thr + chunk radius (+ 1e-4
+// against rounding) of the centre has its 32 points checked as d^2 - thr^2,
+// thr = r + r_point.  A payload sphere's table row comes with the problem
+// (pc_kernel.attachment_table).  The branch is sign-exact, not value-exact
+// (every consumer thresholds vmin at 0), and stops the moment vmin < 0.
+// One thread per configuration, no warp collective (the megakernels call it
+// inside divergent loops); the bitmap, chunks and points stay in global
+// memory, read through the read-only path.
 
 #pragma once
 
@@ -72,12 +93,17 @@ struct Robot {
   const float* pair_thr;
   int P;
   const float* sphere_pc;  // S x (radius, class, chit_ok, gate_ok)
+  int ee_frame;            // the frame that carries an attachment
+  const int* att_check;    // robot spheres a payload is checked against
+  int n_att_check;
 };
 
 // One problem's shape tables: global pointers of the whole batch and their
 // row counts (env_batched = 0: one environment shared by every problem),
-// and its pointcloud tables (bitmap == nullptr: no pointcloud; pc_batched
-// = 0: one cloud shared by every problem).
+// its pointcloud tables (bitmap == nullptr: no pointcloud; pc_batched
+// = 0: one cloud shared by every problem), its payload spheres (A = 0: no
+// attachment) and its heightfields (nh = 0: none), each with its own
+// batched flag.
 struct EnvTables {
   const float* sph;
   const float* cap;
@@ -91,10 +117,17 @@ struct EnvTables {
   const float* points;  // (nch, 3 * kChunkPoints)
   const float* pc_meta; // (8,): ws xyz, 1 / cell, W, r_point, live chunks, pad
   int rrows, nch, pc_batched;
+  const float* att;     // (A, 4) a problem: payload centre in the EE frame, radius
+  const float* att_pc;  // (A, 4) a problem: radius, class, chit_ok, gate_ok
+  int A, att_batched;
+  const float* hf_meta; // (nh, 10) a problem: x, y, z, 1/sx, 1/sy, 1/sz, xd, yd, xd2, yd2
+  const float* hf_data; // (nh, hf_cells) a problem: heights, row-major
+  int nh, hf_cells, hf_batched;
 };
 
 // The block's copy of its problem's shape rows, and their live counts; its
-// pointcloud's global pointers and meta.
+// pointcloud's global pointers and meta; its payload rows and heightfield
+// meta rows (shared memory) and heights (global).
 struct Env {
   const float* sph;
   const float* cap;
@@ -107,6 +140,12 @@ struct Env {
   const float* pt;
   float wsx, wsy, wsz, inv, Wf, pr;
   int W, nlive, plane;
+  const float* att;
+  const float* att_pc;
+  int A;
+  const float* hfm;
+  const float* hfd;
+  int nh, C;
 };
 
 // Pointcloud work of one thread: spheres gated, chunk bounds tested, points
@@ -117,14 +156,16 @@ struct Work {
 
 __device__ __forceinline__ float sq(float x) { return x * x; }
 
-// Floats of shared memory the shape rows take.
+// Floats of shared memory the shape rows, heightfield meta rows and payload
+// rows take.
 __host__ __device__ inline int env_floats(const EnvTables& e) {
-  return e.ns * 4 + (e.nc + e.nzc) * 8 + (e.nb + e.nzb) * 15;
+  return e.ns * 4 + (e.nc + e.nzc) * 8 + (e.nb + e.nzb) * 15 + e.nh * 10 + e.A * 8;
 }
 
-// Floats of shared memory the FK scratch of T threads takes.
-__host__ __device__ inline int scratch_floats(const Robot& r, int T) {
-  return (r.n_slots * 12 + r.S * 3) * T;
+// Floats of shared memory the FK scratch of T threads takes: the slot
+// poses and the centres of the robot's and the payload's spheres.
+__host__ __device__ inline int scratch_floats(const Robot& r, const EnvTables& e, int T) {
+  return (r.n_slots * 12 + (r.S + e.A) * 3) * T;
 }
 
 __device__ __forceinline__ void load_rows(float* dst, const float* src, int count) {
@@ -151,6 +192,14 @@ __device__ inline Env load_env(const EnvTables& e, int b, float* smem) {
   float* s_zcap = s_cap + e.nc * 8;
   float* s_cub = s_zcap + e.nzc * 8;
   float* s_zcub = s_cub + e.nb * 15;
+  float* s_hfm = s_zcub + e.nzb * 15;
+  float* s_att = s_hfm + e.nh * 10;
+  float* s_attpc = s_att + e.A * 4;
+  const long long bh = e.hf_batched ? b : 0;
+  const long long ba = e.att_batched ? b : 0;
+  load_rows(s_hfm, e.hf_meta + bh * e.nh * 10, e.nh * 10);
+  load_rows(s_att, e.att + ba * e.A * 4, e.A * 4);
+  load_rows(s_attpc, e.att_pc + ba * e.A * 4, e.A * 4);
   load_rows(s_sph, e.sph + be * e.ns * 4, e.ns * 4);
   load_rows(s_cap, e.cap + be * e.nc * 8, e.nc * 8);
   load_rows(s_zcap, e.zcap + be * e.nzc * 8, e.nzc * 8);
@@ -167,6 +216,13 @@ __device__ inline Env load_env(const EnvTables& e, int b, float* smem) {
   env.lzc = live_count(s_zcap, e.nzc, 8);
   env.lb = live_count(s_cub, e.nb, 15);
   env.lzb = live_count(s_zcub, e.nzb, 15);
+  env.att = s_att;
+  env.att_pc = s_attpc;
+  env.A = e.A;
+  env.hfm = s_hfm;
+  env.hfd = e.hf_data + bh * e.nh * e.hf_cells;
+  env.nh = e.nh;
+  env.C = e.hf_cells;
   env.bm = nullptr;
   if (e.bitmap != nullptr) {
     const long long bp = e.pc_batched ? b : 0;
@@ -187,18 +243,20 @@ __device__ inline Env load_env(const EnvTables& e, int b, float* smem) {
   return env;
 }
 
-// The pointcloud branch (see the top of this file) for the sphere centres
-// in s_ctr, from a vmin >= 0; returns the new vmin.  No barrier inside.
+// The pointcloud branch (see the top of this file) for the S + A sphere
+// centres in s_ctr, from a vmin >= 0; returns the new vmin.  No barrier
+// inside.
 __device__ inline float pc_vmin(const Env& env, const Robot& r, const float* s_ctr, int T,
                                 int tid, float vmin, Work& w) {
-  for (int k = 0; k < r.S; ++k) {
+  for (int k = 0; k < r.S + env.A; ++k) {
     const float cx = s_ctr[(k * 3 + 0) * T + tid];
     const float cy = s_ctr[(k * 3 + 1) * T + tid];
     const float cz = s_ctr[(k * 3 + 2) * T + tid];
-    const float rk = __ldg(r.sphere_pc + 4 * k);
-    const int cls = (int)__ldg(r.sphere_pc + 4 * k + 1);
-    const bool chit_ok = __ldg(r.sphere_pc + 4 * k + 2) > 0.0f;
-    const bool gate_ok = __ldg(r.sphere_pc + 4 * k + 3) > 0.0f;
+    const float* sp = k < r.S ? r.sphere_pc + 4 * k : env.att_pc + 4 * (k - r.S);
+    const float rk = sp[0];
+    const int cls = (int)sp[1];
+    const bool chit_ok = sp[2] > 0.0f;
+    const bool gate_ok = sp[3] > 0.0f;
     ++w.gates;
     const float fx = floorf((cx - env.wsx) * env.inv);
     const float fy = floorf((cy - env.wsy) * env.inv);
@@ -235,14 +293,82 @@ __device__ inline float pc_vmin(const Env& env, const Robot& r, const float* s_c
   return vmin;
 }
 
+// vmin over the live shape rows of one sphere (centre px, py, pz, radius
+// rad), from `vmin`.
+__device__ __forceinline__ float prim_vmin(const Env& env, float px, float py, float pz,
+                                           float rad, float vmin) {
+  for (int m = 0; m < env.ls; ++m) {
+    const float* o = env.sph + m * 4;
+    const float d2 = sq(px - o[0]) + sq(py - o[1]) + sq(pz - o[2]);
+    const float rs = rad + o[3];
+    vmin = fminf(vmin, d2 - rs * rs);
+  }
+  for (int m = 0; m < env.lc; ++m) {
+    const float* o = env.cap + m * 8;
+    const float dot = (px - o[0]) * o[3] + (py - o[1]) * o[4] + (pz - o[2]) * o[5];
+    const float u = fminf(fmaxf(dot * o[7], 0.0f), 1.0f);
+    const float d2 = sq(px - (o[0] + o[3] * u)) + sq(py - (o[1] + o[4] * u)) +
+                     sq(pz - (o[2] + o[5] * u));
+    const float rs = rad + o[6];
+    vmin = fminf(vmin, d2 - rs * rs);
+  }
+  for (int m = 0; m < env.lzc; ++m) {
+    const float* o = env.zcap + m * 8;
+    const float u = fminf(fmaxf((pz - o[2]) * o[5] * o[7], 0.0f), 1.0f);
+    const float d2 = sq(px - o[0]) + sq(py - o[1]) + sq(pz - (o[2] + o[5] * u));
+    const float rs = rad + o[6];
+    vmin = fminf(vmin, d2 - rs * rs);
+  }
+  for (int m = 0; m < env.lb; ++m) {
+    const float* o = env.cub + m * 15;
+    const float xs = px - o[0], ys = py - o[1], zs = pz - o[2];
+    const float a1 = fmaxf(fabsf(o[3] * xs + o[4] * ys + o[5] * zs) - o[12], 0.0f);
+    const float a2 = fmaxf(fabsf(o[6] * xs + o[7] * ys + o[8] * zs) - o[13], 0.0f);
+    const float a3 = fmaxf(fabsf(o[9] * xs + o[10] * ys + o[11] * zs) - o[14], 0.0f);
+    vmin = fminf(vmin, a1 * a1 + a2 * a2 + a3 * a3 - rad * rad);
+  }
+  for (int m = 0; m < env.lzb; ++m) {
+    const float* o = env.zcub + m * 15;
+    const float xs = px - o[0], ys = py - o[1], zs = pz - o[2];
+    const float a1 = fmaxf(fabsf(o[3] * xs + o[4] * ys) - o[12], 0.0f);
+    const float a2 = fmaxf(fabsf(o[6] * xs + o[7] * ys) - o[13], 0.0f);
+    const float a3 = fmaxf(fabsf(zs) - o[14], 0.0f);
+    vmin = fminf(vmin, a1 * a1 + a2 * a2 + a3 * a3 - rad * rad);
+  }
+  return vmin;
+}
+
+// The heightfield branch (see the top of this file) for the S + A sphere
+// centres in s_ctr; returns the new vmin.  No barrier inside.
+__device__ inline float hf_vmin(const Env& env, const Robot& r, const float* s_ctr, int T,
+                                int tid, float vmin) {
+  for (int k = 0; k < r.S + env.A; ++k) {
+    const float cx = s_ctr[(k * 3 + 0) * T + tid];
+    const float cy = s_ctr[(k * 3 + 1) * T + tid];
+    const float cz = s_ctr[(k * 3 + 2) * T + tid];
+    const float rk = k < r.S ? r.sphere_f[k * 4 + 3] : env.att[(k - r.S) * 4 + 3];
+    for (int n = 0; n < env.nh; ++n) {
+      const float* m = env.hfm + n * 10;
+      const float xo = m[0] - cx;
+      const float yo = m[1] - cy;
+      const float ccx = floorf(fminf(fmaxf(m[3] * xo + m[8], 0.0f), m[6]));
+      const float ccy = floorf(fminf(fmaxf(m[4] * yo + m[9], 0.0f), m[7]));
+      const int idx = min(max((int)(ccy * m[6] + ccx), 0), env.C - 1);
+      const float zh = __ldg(env.hfd + (long long)n * env.C + idx);
+      vmin = fminf(vmin, cz - rk - (m[5] * zh + m[2]));
+    }
+  }
+  return vmin;
+}
+
 // vmin of the configuration qp[j * q_sd] (j = joint index) for thread `tid`
 // of a block of T threads; s_pose and s_ctr are the block's FK scratch
-// (scratch_floats(r, T) floats, s_pose first).  Pointcloud work goes to `w`.
+// (scratch_floats(r, e, T) floats, s_pose first).  Pointcloud work goes to `w`.
 // No barrier inside.
 __device__ inline float config_vmin(const Env& env, const Robot& r, float* s_pose,
                                     int T, int tid, const float* qp, long long q_sd,
                                     Work& w) {
-  float* s_ctr = s_pose + r.n_slots * 12 * T;  // S x 3 x T
+  float* s_ctr = s_pose + r.n_slots * 12 * T;  // (S + A) x 3 x T
   float vmin = __int_as_float(0x7f800000);  // +inf
   float R[9], t[3];
   for (int f = 0; f < r.F; ++f) {
@@ -323,44 +449,26 @@ __device__ inline float config_vmin(const Env& env, const Robot& r, float* s_pos
       s_ctr[(k * 3 + 0) * T + tid] = px;
       s_ctr[(k * 3 + 1) * T + tid] = py;
       s_ctr[(k * 3 + 2) * T + tid] = pz;
+      vmin = prim_vmin(env, px, py, pz, rad, vmin);
+    }
 
-      for (int m = 0; m < env.ls; ++m) {
-        const float* o = env.sph + m * 4;
-        const float d2 = sq(px - o[0]) + sq(py - o[1]) + sq(pz - o[2]);
-        const float rs = rad + o[3];
-        vmin = fminf(vmin, d2 - rs * rs);
-      }
-      for (int m = 0; m < env.lc; ++m) {
-        const float* o = env.cap + m * 8;
-        const float dot = (px - o[0]) * o[3] + (py - o[1]) * o[4] + (pz - o[2]) * o[5];
-        const float u = fminf(fmaxf(dot * o[7], 0.0f), 1.0f);
-        const float d2 = sq(px - (o[0] + o[3] * u)) + sq(py - (o[1] + o[4] * u)) +
-                         sq(pz - (o[2] + o[5] * u));
-        const float rs = rad + o[6];
-        vmin = fminf(vmin, d2 - rs * rs);
-      }
-      for (int m = 0; m < env.lzc; ++m) {
-        const float* o = env.zcap + m * 8;
-        const float u = fminf(fmaxf((pz - o[2]) * o[5] * o[7], 0.0f), 1.0f);
-        const float d2 = sq(px - o[0]) + sq(py - o[1]) + sq(pz - (o[2] + o[5] * u));
-        const float rs = rad + o[6];
-        vmin = fminf(vmin, d2 - rs * rs);
-      }
-      for (int m = 0; m < env.lb; ++m) {
-        const float* o = env.cub + m * 15;
-        const float xs = px - o[0], ys = py - o[1], zs = pz - o[2];
-        const float a1 = fmaxf(fabsf(o[3] * xs + o[4] * ys + o[5] * zs) - o[12], 0.0f);
-        const float a2 = fmaxf(fabsf(o[6] * xs + o[7] * ys + o[8] * zs) - o[13], 0.0f);
-        const float a3 = fmaxf(fabsf(o[9] * xs + o[10] * ys + o[11] * zs) - o[14], 0.0f);
-        vmin = fminf(vmin, a1 * a1 + a2 * a2 + a3 * a3 - rad * rad);
-      }
-      for (int m = 0; m < env.lzb; ++m) {
-        const float* o = env.zcub + m * 15;
-        const float xs = px - o[0], ys = py - o[1], zs = pz - o[2];
-        const float a1 = fmaxf(fabsf(o[3] * xs + o[4] * ys) - o[12], 0.0f);
-        const float a2 = fmaxf(fabsf(o[6] * xs + o[7] * ys) - o[13], 0.0f);
-        const float a3 = fmaxf(fabsf(zs) - o[14], 0.0f);
-        vmin = fminf(vmin, a1 * a1 + a2 * a2 + a3 * a3 - rad * rad);
+    // Payload spheres carried by the EE frame: pose, environment checks,
+    // store after the robot's spheres.
+    if (f == r.ee_frame) {
+      for (int a = 0; a < env.A; ++a) {
+        const float* la = env.att + a * 4;
+        float p[3];
+        for (int i = 0; i < 3; ++i) {
+          float acc = R[i * 3 + 0] * la[0];
+          acc = acc + R[i * 3 + 1] * la[1];
+          acc = acc + R[i * 3 + 2] * la[2];
+          p[i] = acc + t[i];
+        }
+        const int k = r.S + a;
+        s_ctr[(k * 3 + 0) * T + tid] = p[0];
+        s_ctr[(k * 3 + 1) * T + tid] = p[1];
+        s_ctr[(k * 3 + 2) * T + tid] = p[2];
+        vmin = prim_vmin(env, p[0], p[1], p[2], la[3], vmin);
       }
     }
   }
@@ -373,6 +481,24 @@ __device__ inline float config_vmin(const Env& env, const Robot& r, float* s_pos
     const float dz = s_ctr[(i * 3 + 2) * T + tid] - s_ctr[(j * 3 + 2) * T + tid];
     vmin = fminf(vmin, dx * dx + dy * dy + dz * dz - r.pair_thr[m]);
   }
+
+  // Payload spheres against the robot's attachment-check spheres.
+  for (int a = 0; a < env.A; ++a) {
+    const int ka = r.S + a;
+    const float ax = s_ctr[(ka * 3 + 0) * T + tid];
+    const float ay = s_ctr[(ka * 3 + 1) * T + tid];
+    const float az = s_ctr[(ka * 3 + 2) * T + tid];
+    const float ra = env.att[a * 4 + 3];
+    for (int m = 0; m < r.n_att_check; ++m) {
+      const int k = r.att_check[m];
+      const float dx = ax - s_ctr[(k * 3 + 0) * T + tid];
+      const float dy = ay - s_ctr[(k * 3 + 1) * T + tid];
+      const float dz = az - s_ctr[(k * 3 + 2) * T + tid];
+      const float rs = ra + r.sphere_f[k * 4 + 3];
+      vmin = fminf(vmin, dx * dx + dy * dy + dz * dz - rs * rs);
+    }
+  }
+  if (env.nh > 0) vmin = hf_vmin(env, r, s_ctr, T, tid, vmin);
   if (env.bm != nullptr && vmin >= 0.0f) vmin = pc_vmin(env, r, s_ctr, T, tid, vmin, w);
   return vmin;
 }

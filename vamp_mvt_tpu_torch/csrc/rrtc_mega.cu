@@ -28,7 +28,9 @@
 // max_path path rows and the scalars (plus its work counters: configurations
 // checked, node-sample pairs scanned, and the pointcloud's spheres gated,
 // chunk bounds tested and points evaluated).  A pointcloud (fkcc_device.cuh)
-// stays in global memory: it adds nothing to the block's shared memory.
+// and a heightfield's heights stay in global memory; a heightfield's meta
+// rows (10 floats a field) and an attachment's payload rows go to shared
+// memory, and each payload sphere adds 3 floats a thread to the FK scratch.
 //
 // Node memory.  On the TPU the (M + 32, 128) node buffer lived in VMEM.  Here
 // each problem owns M rows of (d + 4) floats in global memory (configuration,
@@ -102,7 +104,7 @@ struct Layout {
     const int d = p.d, E = kMaxEdges;
     int o = 0;
     env = o; o += fkcc::env_floats(et);
-    pose = o; o += fkcc::scratch_floats(r, T);
+    pose = o; o += fkcc::scratch_floats(r, et, T);
     q = o; o += d * T;
     samp = o; o += kMaxLanes * d;
     s2 = o; o += kMaxLanes;
@@ -626,16 +628,21 @@ extern "C" int rrtc_mega_launch(
     const float* sph, const float* cap, const float* zcap, const float* cub,
     const float* zcub, int ns, int nc, int nzc, int nb, int nzb, int env_batched,
     const int* bitmap, const float* chunks, const float* points, const float* pc_meta,
-    int rrows, int nch, int pc_batched,
+    int rrows, int nch, int pc_batched, const float* att, const float* att_pc, int A,
+    int att_batched, const float* hf_meta, const float* hf_data, int nh, int hf_cells,
+    int hf_batched,
     const int* frame_i, const float* frame_f, int F, int n_slots,
     const int* sphere_order, const float* sphere_f, int S, const int* pairs,
-    const float* pair_thr, int P, const float* sphere_pc, const int* ip, const float* fp,
+    const float* pair_thr, int P, const float* sphere_pc, int ee_frame, const int* att_check,
+    int n_att_check, const int* ip, const float* fp,
     const int* ctl, const float* nodes0, float* nodes, float* out_path, int* out_scal,
     long long* out_work, int max_smem, int* launch_info, void* stream) {
   const fkcc::EnvTables et{sph, cap, zcap, cub, zcub, ns, nc, nzc, nb, nzb, env_batched,
-                           bitmap, chunks, points, pc_meta, rrows, nch, pc_batched};
+                           bitmap, chunks, points, pc_meta, rrows, nch, pc_batched,
+                           att, att_pc, A, att_batched, hf_meta, hf_data, nh, hf_cells,
+                           hf_batched};
   const fkcc::Robot robot{frame_i, frame_f, F, n_slots, sphere_order, sphere_f, S,
-                          pairs, pair_thr, P, sphere_pc};
+                          pairs, pair_thr, P, sphere_pc, ee_frame, att_check, n_att_check};
   PlanParams p;
   memcpy(&p, ip, kIntParams * 4);
   memcpy(reinterpret_cast<char*>(&p) + kIntParams * 4, fp, kFloatParams * 4);

@@ -27,7 +27,8 @@
 // operations per Panda configuration (plus the pointcloud branch's work,
 // which it counts: spheres gated, chunk bounds tested, points evaluated);
 // the path (max_path x d floats) never leaves shared memory, a pointcloud
-// stays in global memory.  One block per problem, whose shared memory (125,156
+// and a heightfield's heights stay in global memory (an attachment adds 3
+// floats a thread and payload sphere to the FK scratch).  One block per problem, whose shared memory (125,156
 // bytes for Panda at T = 128, mostly FK scratch) allows one block per SM.
 //
 // Numerics.  --fmad=false and the plain version's order of every sum
@@ -56,7 +57,7 @@ struct Layout {
     const int d = p.d, S = 2 * p.P;
     int o = 0;
     env = o; o += fkcc::env_floats(et);
-    pose = o; o += fkcc::scratch_floats(r, T);
+    pose = o; o += fkcc::scratch_floats(r, et, T);
     q = o; o += d * T;
     path = o; o += p.P * d;
     tmp = o; o += p.P * d;
@@ -376,16 +377,21 @@ extern "C" int simplify_mega_launch(
     const float* sph, const float* cap, const float* zcap, const float* cub,
     const float* zcub, int ns, int nc, int nzc, int nb, int nzb, int env_batched,
     const int* bitmap, const float* chunks, const float* points, const float* pc_meta,
-    int rrows, int nch, int pc_batched,
+    int rrows, int nch, int pc_batched, const float* att, const float* att_pc, int A,
+    int att_batched, const float* hf_meta, const float* hf_data, int nh, int hf_cells,
+    int hf_batched,
     const int* frame_i, const float* frame_f, int F, int n_slots,
     const int* sphere_order, const float* sphere_f, int S, const int* pairs,
-    const float* pair_thr, int P, const float* sphere_pc, const int* ip, const float* fp,
+    const float* pair_thr, int P, const float* sphere_pc, int ee_frame, const int* att_check,
+    int n_att_check, const int* ip, const float* fp,
     const float* paths, const int* lengths, float* out_path, int* out_scal,
     long long* out_work, int max_smem, int* launch_info, void* stream) {
   const fkcc::EnvTables et{sph, cap, zcap, cub, zcub, ns, nc, nzc, nb, nzb, env_batched,
-                           bitmap, chunks, points, pc_meta, rrows, nch, pc_batched};
+                           bitmap, chunks, points, pc_meta, rrows, nch, pc_batched,
+                           att, att_pc, A, att_batched, hf_meta, hf_data, nh, hf_cells,
+                           hf_batched};
   const fkcc::Robot robot{frame_i, frame_f, F, n_slots, sphere_order, sphere_f, S,
-                          pairs, pair_thr, P, sphere_pc};
+                          pairs, pair_thr, P, sphere_pc, ee_frame, att_check, n_att_check};
   SimpParams p{ip[0], ip[1], ip[2], ip[3], ip[4], ip[5], fp[0], fp[1], fp[2]};
   int T = 0, bytes = 0;
   const int cands[] = {128, 64, 32};

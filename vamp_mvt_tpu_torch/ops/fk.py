@@ -47,9 +47,10 @@ def _broadcast(e, q: torch.Tensor):
     return torch.broadcast_to(e, shape).to(torch.float32)
 
 
-def sphere_positions(spec: RobotSpec, q: torch.Tensor) -> torch.Tensor:
-    """Sphere centers for every collision sphere: (..., d) -> (..., S, 3)."""
-    poses = link_poses(spec, q)
+def sphere_positions(spec: RobotSpec, q: torch.Tensor, poses=None) -> torch.Tensor:
+    """Sphere centers for every collision sphere: (..., d) -> (..., S, 3).
+    `poses`: link_poses(spec, q), where the caller has them already."""
+    poses = link_poses(spec, q) if poses is None else poses
     cols = []
     for k in range(spec.n_spheres):
         R, t = poses[int(spec.sphere_frame[k])]
@@ -58,9 +59,9 @@ def sphere_positions(spec: RobotSpec, q: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=-2)
 
 
-def eefk(spec: RobotSpec, q: torch.Tensor):
+def eefk(spec: RobotSpec, q: torch.Tensor, poses=None):
     """End-effector pose: (..., d) -> (R (..., 3, 3), t (..., 3))."""
-    R, t = link_poses(spec, q)[spec.ee_frame]
+    R, t = (link_poses(spec, q) if poses is None else poses)[spec.ee_frame]
     Rt = torch.stack(
         [torch.stack([_broadcast(R[i][j], q) for j in range(3)], dim=-1) for i in range(3)],
         dim=-2,

@@ -10,6 +10,12 @@ Self-collision is an elementwise float32 test over the robot's exact pair
 table.  No `torch.cdist` and no matrix-product form: cdist switches to a
 matmul expansion on large inputs, and that rounding flips borderline contacts.
 
+Heightfields contribute z - r - (sz * h + z0) of the cell under each sphere
+(`primitives.sphere_heightfield`, with the JAX package's XLA index rule).
+An end-effector attachment (`env.attachment`) poses its payload spheres
+from the EE frame and checks them against every environment table and
+against the robot's attachment-check spheres (`attachment_vmin`).
+
 Pointclouds: an MVT or CAPT structure (the JAX package's lockstep path)
 contributes -1 where a sphere hits the cloud; the kernel-resident form
 (`env.pck`) contributes `pc_vmin_plain`, the exact minimum over every live
@@ -28,11 +34,12 @@ import torch
 
 from vamp_mvt_tpu_torch.collision import primitives
 from vamp_mvt_tpu_torch.collision.capt import capt_collides
-from vamp_mvt_tpu_torch.collision.environment import Environment
+from vamp_mvt_tpu_torch.collision.environment import (  # noqa: F401
+    Attachment, Environment, make_attachment)
 from vamp_mvt_tpu_torch.collision.mvt import batch_index, mvt_collides, rows
 from vamp_mvt_tpu_torch.collision.pc_kernel import CS
 from vamp_mvt_tpu_torch.device import resolve_device
-from vamp_mvt_tpu_torch.ops.fk import sphere_positions
+from vamp_mvt_tpu_torch.ops.fk import eefk, link_poses, sphere_positions
 from vamp_mvt_tpu_torch.robots.spec import RobotSpec
 
 _PRIMITIVES = (
@@ -42,13 +49,6 @@ _PRIMITIVES = (
     ("cuboids", primitives.sphere_cuboid),
     ("z_cuboids", primitives.sphere_z_cuboid),
 )
-
-
-def check_supported(env: Environment) -> None:
-    if env.hf_meta.shape[-2]:
-        raise NotImplementedError(
-            "heightfields are not ported yet (ROADMAP queue 1, item 12)"
-        )
 
 
 def pair_thresholds(spec: RobotSpec) -> np.ndarray:
@@ -80,8 +80,9 @@ _PC_ELEMS = {"cuda": 1 << 27, "cpu": 1 << 22}
 
 
 def pc_vmin_plain(pck, centers: torch.Tensor, radii: torch.Tensor) -> torch.Tensor:
-    """centers (..., S, 3), radii (S,) -> (...) minimum over every robot
-    sphere and every live point of the cloud of d^2 - (r + r_point)^2, with
+    """centers (..., S, 3), radii (S,) or broadcastable to (..., S) -> (...)
+    minimum over every sphere and every live point of the cloud of
+    d^2 - (r + r_point)^2, with
     d^2 summed x, y, z in that order (the kernel's); +inf for an empty cloud.
     `pck`'s leading dims broadcast against the centers' first dims.
 
@@ -92,6 +93,7 @@ def pc_vmin_plain(pck, centers: torch.Tensor, radii: torch.Tensor) -> torch.Tens
     lead = tuple(pck.meta.shape[:-2])
     qshape = tuple(centers.shape[:-2])
     c = centers.reshape(-1, S, 3)
+    rad = radii.expand(centers.shape[:-1]).reshape(-1, S)
     out = torch.full((c.shape[0],), float("inf"), device=dev)
     bi = batch_index(lead, qshape, dev).reshape(-1)
     meta = rows(pck.meta, 2)[:, 0].tolist()                   # (L, 8)
@@ -102,10 +104,11 @@ def pc_vmin_plain(pck, centers: torch.Tensor, radii: torch.Tensor) -> torch.Tens
             continue
         sel = (bi == l).nonzero()[:, 0] if len(meta) > 1 else None
         q = c if sel is None else c[sel]
+        thr = (rad if sel is None else rad[sel]) + torch.tensor(m[5], dtype=torch.float32,
+                                                                device=dev)
+        thr2 = thr * thr
         p = pts[l, :nlive]
         px, py, pz = (p[:, k * CS:(k + 1) * CS].reshape(-1) for k in range(3))
-        thr = radii + torch.tensor(m[5], dtype=torch.float32, device=dev)
-        thr2 = thr * thr
         step = max(_PC_ELEMS.get(dev.type, 1 << 22) // (S * px.shape[0]), 1)
         parts = []
         for i in range(0, q.shape[0], step):
@@ -116,7 +119,7 @@ def pc_vmin_plain(pck, centers: torch.Tensor, radii: torch.Tensor) -> torch.Tens
             d2 += t * t
             t = qi[..., 2, None] - pz
             d2 += t * t
-            parts.append(torch.amin(torch.amin(d2, dim=-1) - thr2, dim=-1))
+            parts.append(torch.amin(torch.amin(d2, dim=-1) - thr2[i : i + step], dim=-1))
         v = torch.cat(parts)
         if sel is None:
             out = v
@@ -126,16 +129,18 @@ def pc_vmin_plain(pck, centers: torch.Tensor, radii: torch.Tensor) -> torch.Tens
 
 
 def env_vmin(env: Environment, centers: torch.Tensor, radii: torch.Tensor) -> torch.Tensor:
-    """centers (..., S, 3), radii (S,) -> (...) min signed value over every
-    robot sphere against every shape row and pointcloud.  The environment's
-    tables carry the same leading dims as the centers' batch, or broadcast
-    against them."""
-    check_supported(env)
+    """centers (..., S, 3), radii (S,) or broadcastable to (..., S) -> (...)
+    min signed value over every sphere against every shape row, heightfield
+    and pointcloud.  The environment's tables carry the same leading dims as
+    the centers' batch, or broadcast against them."""
     out = torch.full(centers.shape[:-2], float("inf"), device=centers.device)
     for name, fn in _PRIMITIVES:
         table = getattr(env, name)
         if table.shape[-2]:
             out = torch.minimum(out, torch.amin(fn(table, centers, radii), dim=(-2, -1)))
+    if env.hf_meta.shape[-2]:
+        hf = primitives.sphere_heightfield(env.hf_meta, env.hf_data, centers, radii)
+        out = torch.minimum(out, torch.amin(hf, dim=(-2, -1)))
     rr = radii.expand(centers.shape[:-1])
     for st, query in ((env.mvt, mvt_collides), (env.capt, capt_collides)):
         if st is not None:
@@ -156,14 +161,73 @@ def env_collision(env: Environment, centers: torch.Tensor, radii: torch.Tensor) 
     return env_vmin(env, centers, radii) < 0.0
 
 
+def attachment_rows(att: Attachment) -> torch.Tensor:
+    """(..., A, 4): each payload sphere's centre in the EE frame, tf_rot @ xyz
+    + tf_pos summed in index order, and its radius.  The CUDA kernels take
+    these rows (ops/kernels/fkcc_cuda.py), as the Pallas kernel takes the
+    same composition (fkcc_pallas.py:655-669)."""
+    rot, pos, sp = att.tf_rot, att.tf_pos, att.spheres
+    xyz = [((rot[..., i, None, 0] * sp[..., 0] + rot[..., i, None, 1] * sp[..., 1])
+            + rot[..., i, None, 2] * sp[..., 2]) + pos[..., i, None] for i in range(3)]
+    return torch.stack(xyz + [sp[..., 3]], dim=-1)
+
+
+def payload_centers(spec: RobotSpec, att: Attachment, q: torch.Tensor, poses=None):
+    """The payload spheres of `att` posed from the EE frame at q: world
+    centres (..., A, 3), summed in index order, and radii (L..., A).  The
+    attachment carries the tables' leading dims."""
+    lx, ly, lz, ar = attachment_rows(att).unbind(-1)  # (L..., A)
+    R, t = eefk(spec, q, poses)                       # (..., 3, 3), (..., 3)
+    posed = torch.stack(
+        [((R[..., i, 0, None] * lx + R[..., i, 1, None] * ly) + R[..., i, 2, None] * lz)
+         + t[..., i, None] for i in range(3)], dim=-1)
+    return posed, ar
+
+
+def staged_centers(spec: RobotSpec, env: Environment, q: torch.Tensor) -> torch.Tensor:
+    """(..., S + A, 3): the robot's sphere centres at q, then its payload's:
+    the sphere set the heightfield and pointcloud branches check."""
+    poses = link_poses(spec, q)
+    centers = sphere_positions(spec, q, poses)
+    if env.attachment is None:
+        return centers
+    posed = payload_centers(spec, env.attachment, q, poses)[0]
+    return torch.cat([centers, posed.expand(centers.shape[:-2] + posed.shape[-2:])], dim=-2)
+
+
+def attachment_vmin(spec: RobotSpec, env: Environment, q: torch.Tensor,
+                    centers: torch.Tensor, poses=None) -> torch.Tensor:
+    """(...) min signed value of the payload spheres of `env.attachment`
+    (reference fkcc_attach, panda.hh:15309-15345; JAX ops/fkcc.py::
+    attachment_collision): posed from the EE frame at q, against every
+    environment table and against the robot's attachment-check spheres
+    (`centers` (..., S, 3) at q).  The attachment carries the tables'
+    leading dims."""
+    posed, ar = payload_centers(spec, env.attachment, q, poses)
+    out = env_vmin(env, posed, ar)
+    idx = torch.as_tensor(spec.attachment_check_spheres, dtype=torch.long, device=q.device)
+    if idx.numel():
+        rob = centers[..., idx, :]                    # (..., Sc, 3)
+        rob_r = torch.as_tensor(spec.sphere_radius, device=q.device)[idx]
+        diff = posed[..., :, None, :] - rob[..., None, :, :]
+        d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]) + diff[..., 2] * diff[..., 2]
+        rs = ar[..., :, None] + rob_r
+        out = torch.minimum(out, torch.amin(d2 - rs * rs, dim=(-2, -1)))
+    return out
+
+
 def fkcc_vmin(spec: RobotSpec, env: Environment, q: torch.Tensor) -> torch.Tensor:
     """(..., d) -> (...) minimum signed value; valid iff >= 0.
 
     Environment tables need one more (broadcast) dim than the result's batch:
     for q (B, N, d) pass tables shaped (B, 1, n, f)."""
-    centers = sphere_positions(spec, q)
+    poses = link_poses(spec, q)
+    centers = sphere_positions(spec, q, poses)
     radii = torch.as_tensor(spec.sphere_radius, device=q.device)
-    return torch.minimum(env_vmin(env, centers, radii), self_vmin(spec, centers))
+    out = torch.minimum(env_vmin(env, centers, radii), self_vmin(spec, centers))
+    if env.attachment is not None:
+        out = torch.minimum(out, attachment_vmin(spec, env, q, centers, poses))
+    return out
 
 
 def fkcc(spec: RobotSpec, env: Environment, q: torch.Tensor, device=None) -> torch.Tensor:

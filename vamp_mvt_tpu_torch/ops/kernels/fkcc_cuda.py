@@ -2,7 +2,7 @@
 
 Port of `vamp_mvt_tpu/ops/kernels/fkcc_pallas.py` (`_run`, its entry points
 `fkcc_pallas_batched` / `fkcc_pallas_batched_lanes`) for the primitive,
-self-collision and pointcloud branches.  The kernel is `csrc/fkcc.cu` (its
+self-collision, attachment, pointcloud and heightfield branches.  The kernel is `csrc/fkcc.cu` (its
 FK + collision code is `csrc/fkcc_device.cuh`, which the megakernels share),
 CUDA C++ for sm_90a, built by `ops/kernels/build.py` into `build/` at first
 use and bound with ctypes.
@@ -12,7 +12,9 @@ use and bound with ctypes.
   fkcc_vmin(spec, envs, q)             q (B, N, d)  -> (B, N) float32 vmin
 
 `envs` tables are (B, n, f), or (1, n, f) to share one environment across
-the batch; a pointcloud comes as `envs.pck` (collision/pc_kernel.py), the
+the batch (the heightfield tables `hf_meta` (B, Nh, 10) and `hf_data`
+(B, Nh, C) too); an attachment's leaves are (B, ...) or (1, ...) on their
+own; a pointcloud comes as `envs.pck` (collision/pc_kernel.py), the
 kernel's form (an MVT or CAPT structure alone is refused on the card).  With
 a pointcloud the kernel's vmin is sign-exact, not value-exact: it stops at
 the first negative value and writes -1 for a certain hit; each launch on a
@@ -36,9 +38,10 @@ from vamp_mvt_tpu_torch.ops import smat
 from vamp_mvt_tpu_torch.ops.kernels import build
 from vamp_mvt_tpu_torch.robots.spec import PRISMATIC, REVOLUTE, RobotSpec
 
-# Shared memory one block may use on an H100 (227 KB).
+# Shared memory one block may use on an H100 (227 KB).  Each launcher sizes
+# its blocks itself (fkcc_device.cuh::env_floats, scratch_floats): the
+# largest of 128, 64, 32 threads that fits.
 MAX_SMEM = 232448
-THREADS = (128, 64, 32)
 
 # Kernel launches made by this process; callers reset it to 0 around a run.
 LAUNCHES = 0
@@ -67,7 +70,7 @@ def library() -> ctypes.CDLL:
             P, L, L, L, I, I,                     # q, strides, B, N
             *ROBOT_ARGTYPES,                      # frame, sphere, pair tables
             P, P, P,                              # validity, vmin, work outputs
-            I, I, P,                              # threads, smem, stream
+            I, P,                                 # max shared memory, stream
         ]
         lib.fkcc_launch.restype = ctypes.c_int
         _LIB = lib
@@ -92,6 +95,8 @@ def robot_tables(spec: RobotSpec) -> dict[str, np.ndarray]:
     pairs (P, 2) int32 and pair_thr (P,) float32 = (r_i + r_j)^2.
     sphere_pc (S, 4) float32: radius, radius class, chit_ok, gate_ok for the
       pointcloud branch (pc_kernel.sphere_table).
+    ee_frame: the frame whose pose carries an attachment's payload spheres.
+    att_check (Sc,) int32: the robot spheres a payload is checked against.
     """
     F = len(spec.frames)
     frame_i = np.zeros((F, 6), np.int32)
@@ -124,6 +129,8 @@ def robot_tables(spec: RobotSpec) -> dict[str, np.ndarray]:
         pairs=np.ascontiguousarray(spec.self_collision_pairs, np.int32).reshape(-1, 2),
         pair_thr=fkcc_ops.pair_thresholds(spec),
         sphere_pc=pc_kernel.sphere_table(spec.sphere_radius),
+        ee_frame=int(spec.ee_frame),
+        att_check=np.ascontiguousarray(spec.attachment_check_spheres, np.int32).reshape(-1),
     )
 
 
@@ -144,15 +151,6 @@ def _device_tables(spec: RobotSpec, device: torch.device) -> dict:
     return _TABLES[key][1]
 
 
-def smem_bytes(spec: RobotSpec, rows: dict[str, int], threads: int) -> int:
-    """Dynamic shared memory of one block: the problem's shape rows, the
-    stored frame poses and every sphere centre of every thread."""
-    n_slots = _host_tables(spec)["n_slots"]
-    env = (rows["spheres"] * 4 + (rows["capsules"] + rows["z_capsules"]) * 8
-           + (rows["cuboids"] + rows["z_cuboids"]) * 15)
-    return 4 * (env + (n_slots * 12 + spec.n_spheres * 3) * threads)
-
-
 # ---------------------------------------------------------------------------
 # Launch
 # ---------------------------------------------------------------------------
@@ -164,10 +162,9 @@ _PC_TABLES = (("bitmap", torch.int32, 3), ("chunks", torch.float32, 3),
 
 
 def _check_inputs(spec: RobotSpec, envs: Environment, q: torch.Tensor, B: int):
-    fkcc_ops.check_supported(envs)
     if q.dtype != torch.float32:
         raise TypeError(f"fkcc: q must be float32, got {q.dtype}")
-    for name in TABLES:
+    for name in TABLES + ("hf_meta", "hf_data"):
         t = getattr(envs, name)
         if t.device != q.device:
             raise ValueError(f"fkcc: env.{name} on {t.device}, q on {q.device}")
@@ -175,6 +172,23 @@ def _check_inputs(spec: RobotSpec, envs: Environment, q: torch.Tensor, B: int):
             raise ValueError(f"fkcc: env.{name} must be float32 (B, n, f)")
         if t.shape[0] != envs.spheres.shape[0] or t.shape[0] not in (1, B):
             raise ValueError(f"fkcc: env.{name} batch {t.shape[0]} vs q batch {B}")
+    nh = envs.hf_meta.shape[1]
+    if envs.hf_meta.shape[2] != 10 or envs.hf_data.shape[1] != nh \
+            or (nh and envs.hf_data.shape[2] == 0):
+        raise ValueError("fkcc: env.hf_meta must be (B, Nh, 10) and env.hf_data (B, Nh, C > 0)")
+    att = envs.attachment
+    if att is not None:
+        if not 0 <= spec.ee_frame < len(spec.frames):
+            raise ValueError(f"fkcc: {spec.name} names no end-effector frame to attach to")
+        ab, A = att.spheres.shape[0], att.spheres.shape[-2]
+        for name, tail in (("tf_rot", (3, 3)), ("tf_pos", (3,)), ("spheres", (A, 4))):
+            t = getattr(att, name)
+            if t.device != q.device:
+                raise ValueError(f"fkcc: env.attachment.{name} on {t.device}, q on {q.device}")
+            if t.dtype != torch.float32 or tuple(t.shape) != (ab,) + tail or ab not in (1, B):
+                raise ValueError(
+                    f"fkcc: env.attachment.{name} must be float32 with a leading batch of 1 "
+                    f"or {B} (spheres (B, A, 4)), got {tuple(t.shape)} {t.dtype}")
     if envs.pck is None:
         if envs.mvt is not None or envs.capt is not None:
             raise ValueError(
@@ -199,14 +213,17 @@ def _rrows(pck) -> int:
     return max(pck.bitmap.shape[1] // (2 * pc_kernel.MAX_CLASSES), 1)
 
 
-# ctypes argument types of the shape and pointcloud tables and of the robot
-# tables, in the order every launcher of the port (fkcc, rrtc_mega,
-# simplify_mega) takes them.
+# ctypes argument types of the shape, pointcloud, attachment and heightfield
+# tables and of the robot tables, in the order every launcher of the port
+# (fkcc, rrtc_mega, simplify_mega) takes them.
 ENV_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3)
+                + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3)
 ROBOT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
 
 
 def _ptr(t):
@@ -216,7 +233,10 @@ def _ptr(t):
 def table_args(spec: RobotSpec, envs: Environment, device: torch.device):
     """Launch arguments of the shape tables (pointers, row counts, batched
     flag), of the pointcloud tables (pointers, bitmap rows of a class,
-    chunks, batched flag; null pointers without a pointcloud) and of the
+    chunks, batched flag; null pointers without a pointcloud), of the
+    attachment (its payload rows, tf_rot @ xyz + tf_pos and radius, and
+    their pointcloud sphere-table rows; count, batched flag), of the
+    heightfields (meta, data, fields, cells a field, batched flag) and of the
     robot tables, plus the tensors they point into (keep them alive until the
     launch returns)."""
     env_t = [getattr(envs, n).contiguous() for n in TABLES]
@@ -230,13 +250,24 @@ def table_args(spec: RobotSpec, envs: Environment, device: torch.device):
         pc_t = [getattr(envs.pck, n).contiguous() for n, _, _ in _PC_TABLES]
         env += [t.data_ptr() for t in pc_t] + [
             _rrows(envs.pck), pc_t[1].shape[1], int(pc_t[3].shape[0] > 1)]
+    if envs.attachment is None:
+        att_t = []
+        env += [None, None, 0, 0]
+    else:
+        rows = fkcc_ops.attachment_rows(envs.attachment).contiguous()    # (B, A, 4)
+        att_t = [rows, pc_kernel.attachment_table(rows[..., 3], spec.sphere_radius).contiguous()]
+        env += [_ptr(t) for t in att_t] + [rows.shape[1], int(rows.shape[0] > 1)]
+    hf_t = [envs.hf_meta.contiguous(), envs.hf_data.contiguous()]
+    env += [_ptr(t) for t in hf_t] + [hf_t[0].shape[1], hf_t[1].shape[2],
+                                      int(hf_t[0].shape[0] > 1)]
     robot = [
         _ptr(tabs["frame_i"]), _ptr(tabs["frame_f"]), len(spec.frames),
         tabs["n_slots"], _ptr(tabs["sphere_order"]), _ptr(tabs["sphere_f"]),
         spec.n_spheres, _ptr(tabs["pairs"]), _ptr(tabs["pair_thr"]),
         len(spec.self_collision_pairs), _ptr(tabs["sphere_pc"]),
+        tabs["ee_frame"], _ptr(tabs["att_check"]), len(tabs["att_check"]),
     ]
-    return env, robot, env_t + pc_t
+    return env, robot, env_t + pc_t + att_t + hf_t
 
 
 def tally_pc_work(total, work: torch.Tensor):
@@ -254,17 +285,7 @@ def _launch(spec, envs, q, q_strides, B, N, want_vmin):
     _check_inputs(spec, envs, q, B)
     if B > 65535:
         raise ValueError(f"fkcc: batch {B} exceeds the grid's 65535 problems")
-    rows = {n: getattr(envs, n).shape[1] for n in TABLES}
-    threads = next(
-        (T for T in THREADS if smem_bytes(spec, rows, T) <= MAX_SMEM), None
-    )
-    if threads is None:
-        raise ValueError(
-            f"fkcc: {spec.name} with rows {rows} needs "
-            f"{smem_bytes(spec, rows, THREADS[-1])} bytes of shared memory "
-            f"at {THREADS[-1]} threads, above the {MAX_SMEM} a block may use"
-        )
-    valid = torch.empty((B, N), dtype=torch.int8, device=q.device)
+    valid =torch.empty((B, N), dtype=torch.int8, device=q.device)
     vmin = torch.empty((B, N), dtype=torch.float32, device=q.device) if want_vmin else None
     has_pc = envs.pck is not None
     work = torch.zeros((B, 3), dtype=torch.int64, device=q.device) if has_pc else None
@@ -274,9 +295,11 @@ def _launch(spec, envs, q, q_strides, B, N, want_vmin):
     env, robot, _keep = table_args(spec, envs, q.device)
     err = lib.fkcc_launch(
         *env, q.data_ptr(), *q_strides, B, N, *robot, valid.data_ptr(), _ptr(vmin),
-        _ptr(work), threads, smem_bytes(spec, rows, threads),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _ptr(work), MAX_SMEM, torch.cuda.current_stream(q.device).cuda_stream,
     )
+    if err == -1:
+        raise ValueError(f"fkcc: {spec.name} with these tables does not fit a block's "
+                         f"{MAX_SMEM} bytes of shared memory")
     if err != 0:
         raise RuntimeError(f"fkcc kernel launch failed with CUDA error {err}")
     LAUNCHES += 1
@@ -311,7 +334,7 @@ def fkcc_vmin_plain(spec: RobotSpec, envs: Environment, q: torch.Tensor) -> torc
     """q (B, N, d) -> (B, N) float32 vmin, chunked over configurations."""
     B, N, _ = q.shape
     width = max(
-        [getattr(envs, n).shape[-2] for n in TABLES]
+        [getattr(envs, n).shape[-2] for n in TABLES + ("hf_meta",)]
         + [len(spec.self_collision_pairs) // max(spec.n_spheres, 1), 1]
         + [3 * st.voxel_points.shape[-2] for st in (envs.mvt,) if st is not None]
         + [3 * st.aff_points.shape[-2] for st in (envs.capt,) if st is not None]
@@ -369,6 +392,15 @@ def fkcc_vmin(spec: RobotSpec, envs: Environment, q: torch.Tensor) -> torch.Tens
 OPS_PER_ROW = {"spheres": 12, "capsules": 29, "z_capsules": 19,
                "cuboids": 35, "z_cuboids": 26}
 OPS_PER_PAIR = 10
+# The attachment branch: posing a payload sphere (9 multiply, 9 add), and
+# each payload sphere against each attachment-check sphere (3 subtract, 3
+# multiply, 2 add, the radius sum, its square, subtract, min).  The
+# heightfield branch, per sphere and field: 2 subtract, 2 multiply-add, 4
+# clamps, 2 floors, 1 multiply-add and a conversion to the cell index, 1
+# multiply-add of the height, 2 subtract, 1 min.
+OPS_PER_POSE = 18
+OPS_PER_ATT_CHECK = 12
+OPS_PER_HF = 20
 # The pointcloud branch (fkcc_device.cuh::pc_vmin): per sphere gated (3
 # subtract, 3 multiply, 3 floor, 6 compare), per chunk bound tested (3
 # subtract, 3 multiply, 2 add, 2 add, 1 multiply, 1 compare), per point
@@ -385,10 +417,13 @@ def pc_ops(work) -> int:
     return int(w[0] * OPS_PER_GATE + w[1] * OPS_PER_CHUNK + w[2] * OPS_PER_POINT)
 
 
-def ops_per_config(spec: RobotSpec, live: dict[str, np.ndarray]) -> np.ndarray:
+def ops_per_config(spec: RobotSpec, live: dict[str, np.ndarray], n_attach=0,
+                   n_heightfields: int = 0) -> np.ndarray:
     """FP32 operations of one configuration's FK + collision check
     (csrc/fkcc_device.cuh) in each problem, given each problem's live row
-    counts (arrays of shape (B,)); shared by all three kernels."""
+    counts (arrays of shape (B,)), its live payload spheres (an int, or an
+    array of shape (B,)) and its heightfields (those outside the pointcloud
+    branch); shared by all three kernels."""
     fk = 0
     for f in spec.frames:
         if f.parent >= 0:
@@ -398,12 +433,16 @@ def ops_per_config(spec: RobotSpec, live: dict[str, np.ndarray]) -> np.ndarray:
         elif f.joint_type == PRISMATIC:
             fk += 21
     fk += 18 * spec.n_spheres + OPS_PER_PAIR * len(spec.self_collision_pairs) + 1
+    fk += n_attach * (OPS_PER_POSE + OPS_PER_ATT_CHECK * len(spec.attachment_check_spheres))
+    fk += (spec.n_spheres + n_attach) * n_heightfields * OPS_PER_HF
     return fk + sum(
         OPS_PER_ROW[n] * np.asarray(live[n], np.int64) for n in TABLES
-    ) * spec.n_spheres
+    ) * (spec.n_spheres + n_attach)
 
 
-def op_count(spec: RobotSpec, live: dict[str, np.ndarray], n_configs: int) -> int:
+def op_count(spec: RobotSpec, live: dict[str, np.ndarray], n_configs: int,
+             n_attach=0, n_heightfields: int = 0) -> int:
     """FP32 operations the kernel does for `n_configs` configurations of each
-    problem, given each problem's live row counts (arrays of shape (B,))."""
-    return int(n_configs * np.sum(ops_per_config(spec, live)))
+    problem, given each problem's live row counts (arrays of shape (B,)),
+    payload spheres and heightfields."""
+    return int(n_configs * np.sum(ops_per_config(spec, live, n_attach, n_heightfields)))

@@ -16,6 +16,8 @@ from vamp_mvt_tpu_torch.robots.spec import FIXED, PRISMATIC, Frame, RobotSpec
 _SPECS_PATH = Path(__file__).parent / "_specs.json"
 _CACHE: dict[str, RobotSpec] = {}
 
+ROBOTS = ("sphere", "ur5", "panda", "fetch", "baxter")
+
 # Default RRT-Connect ranges per robot (reference src/vamp/constants.py:3-9).
 RRT_RANGES = {"sphere": 1.0, "ur5": 1.5, "panda": 1.0, "fetch": 1.0, "baxter": 0.5}
 
