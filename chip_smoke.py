@@ -7,9 +7,9 @@ Phases, each printed as one JSON line (no failure is caught: a failed check
 or an exception exits non-zero):
 
   card           nvidia-smi's name and power limit, torch and CUDA versions
-  build          the four kernels (csrc/fkcc.cu, csrc/rrtc_mega.cu,
-                 csrc/simplify_mega.cu, csrc/probe_gather.cu) built with nvcc
-                 into build/, one nvcc
+  build          the five kernels (csrc/fkcc.cu, csrc/rrtc_mega.cu,
+                 csrc/simplify_mega.cu, csrc/probe_gather.cu,
+                 csrc/probe_mosaic.cu) built with nvcc into build/, one nvcc
                  each, all at once (or loaded from there), and what ptxas
                  reported for each
   kernel         700 seeded MBM-shaped Panda scenes (every primitive table) x
@@ -64,7 +64,8 @@ or an exception exits non-zero):
                  PC_CHECK pointcloud scenes at the budget: at least MIN_SHARE
                  identical, times, work counters and the bound
   probe_gather   the six gather probes (csrc/probe_gather.cu, off the main
-                 path) against numpy, with ns per gather
+                 path) against numpy, with ns per gather and the launches of
+                 the probe entry point
   attach_kernel  700 seeded sphere cages, each with a seeded payload (1-4
                  spheres along the EE axis, one payload in ten above every
                  radius class) x the kernel phase's 1024 configurations: the
@@ -94,10 +95,32 @@ or an exception exits non-zero):
                  plan_batch_mega + simplify_batch_mega on all of them at
                  run_suite's mega settings, every solved path revalidated by
                  the plain version
+  probe_mosaic   the fifteen Mosaic probes (csrc/probe_mosaic.cu, off the main
+                 path) on PROBE_TILES tiles against their plain versions and
+                 numpy, tile 0 against the probe files' constants; times,
+                 bounds and a PyTorch call's time where one computes the
+                 probe's function
+  suite_robots   run_suite(robot, planner="mega") at its defaults on UR5,
+                 Fetch and Baxter, each over ROBOT_SCENES problems: the
+                 first ROBOT_SCENES of ROBOT_POOL MBM-shaped scenes in which
+                 the fkcc kernel finds two seeded configurations valid for
+                 the robot, those two as start and goal: every problem valid,
+                 every solved path revalidated by the plain version, both
+                 megakernels launched and against their plain versions on
+                 the first ROBOTS_CHECK problems; the launches' threads,
+                 shared memory and blocks per SM
+  api_planners   panda.prm, panda.fcit and panda.roadmap at the API's
+                 defaults on the card from VAMP's start A to goal B in the
+                 sphere cage: solved, every path segment and roadmap edge
+                 revalidated by the plain version, ms and fkcc launches a
+                 call; the fkcc kernel against its plain version on PRM's
+                 largest edge wave; the card against device="cpu" on
+                 tests/test_planners.py's sphere-robot wall cases
 
 then the kernels line (the pointcloud, attachment and heightfield branches of
-each kernel as rows of their own, with the launches of the path that runs
-them) and, last, {"ok": true, "device": {...}}.  The script imports nothing of JAX or of the JAX package.  Without a
+each kernel, the megakernels on each other robot and fkcc on the PRM path as
+rows of their own, with the launches of the path that runs them; the probes'
+rows with the launches of their entry point) and, last, {"ok": true, "device": {...}}.  The script imports nothing of JAX or of the JAX package.  Without a
 GPU it exits 1.
 """
 
@@ -133,6 +156,10 @@ BRANCH_CHECK = 64      # of them, the megakernels are compared on
 ATTACH_ROWS = 4        # payload rows a problem: 1-4 live, the rest radius 0
 CELL_BAND = 1e-4       # a centre this close to a heightfield cell edge
 API_CHECK = 4096       # seeded configurations the API's tables are checked on
+OTHER_ROBOTS = ("ur5", "fetch", "baxter")
+ROBOT_SCENES = 256     # problems of suite_robots, per robot: scenes with two valid configurations
+ROBOT_POOL = 2048      # MBM-shaped scenes drawn for them (placed for the Panda, most block Fetch)
+ROBOTS_CHECK = 64      # of their problems, the megakernels are compared on
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -146,43 +173,6 @@ def check(ok, what: str) -> None:
     """A failed check ends the run (a check, not an assert: -O keeps it)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
-
-
-def mbm_shaped_problems(n: int, seed: int) -> list[dict]:
-    """Seeded scenes with MotionBenchMaker's object counts and kinds: a few
-    spheres, cylinders (some z-aligned; the 'box' scenario turns them into
-    cuboids) and boxes (some rotated only about z) in front of the Panda."""
-    import numpy as np
-
-    from vamp_mvt_tpu_torch.bench.mbm import STANDARD_SCENARIOS
-    from vamp_mvt_tpu_torch.robots import registry
-
-    spec = registry.load("panda")
-    rng = np.random.default_rng(seed)
-    lo, hi = np.array([0.2, -0.6, 0.0]), np.array([0.9, 0.6, 1.2])
-    problems = []
-    for i in range(n):
-        p = {"problem": STANDARD_SCENARIOS[i % len(STANDARD_SCENARIOS)], "index": i,
-             "sphere": [], "cylinder": [], "box": [],
-             "start": rng.uniform(spec.limits_low, spec.limits_high).tolist(),
-             "goals": [rng.uniform(spec.limits_low, spec.limits_high).tolist()]}
-        for _ in range(rng.integers(1, 4)):
-            p["sphere"].append({"position": rng.uniform(lo, hi).tolist(),
-                                "radius": float(rng.uniform(0.03, 0.12))})
-        for j in range(rng.integers(2, 7)):
-            e = rng.uniform(-np.pi, np.pi, 3) if j % 2 else np.zeros(3)
-            p["cylinder"].append({"position": rng.uniform(lo, hi).tolist(),
-                                  "orientation_euler_xyz": e.tolist(),
-                                  "radius": float(rng.uniform(0.02, 0.06)),
-                                  "length": float(rng.uniform(0.1, 0.4))})
-        for j in range(rng.integers(4, 17)):
-            e = (rng.uniform(-np.pi, np.pi, 3) if j % 3
-                 else np.array([0.0, 0.0, rng.uniform(-np.pi, np.pi)]))
-            p["box"].append({"position": rng.uniform(lo, hi).tolist(),
-                             "orientation_euler_xyz": e.tolist(),
-                             "half_extents": rng.uniform(0.02, 0.3, 3).tolist()})
-        problems.append(p)
-    return problems
 
 
 def wall_problem(dev, B: int = 3):
@@ -493,43 +483,10 @@ def branch_kernel(spec, envs, q):
             "kernel_ms": k_ms, "plain_ms": p_ms, **b, "library_ms": None}, ok
 
 
-def first_two_valid(q, ok):
-    """The problems with two configurations of q (B, N, d) that `ok` (B, N)
-    calls valid, and the first two as start and goal: (rows, starts (R, d),
-    goals (R, 1, d), masks (R, 1))."""
-    import numpy as np
-    import torch
-
-    ok_np = ok.cpu().numpy()
-    rows = [i for i in range(len(ok_np)) if ok_np[i].sum() >= 2]
-    first2 = [np.flatnonzero(ok_np[i])[:2] for i in rows]
-    st = torch.stack([q[i, j[0]] for i, j in zip(rows, first2)])
-    gl = torch.stack([q[i, j[1]] for i, j in zip(rows, first2)])[:, None]
-    return rows, st, gl, torch.ones((len(rows), 1), dtype=torch.bool, device=q.device)
-
-
-class IndexOrderTorch:
-    """`torch` for planning/rrtc.py, with `matmul` summed in index order
-    without FMA, as the planner kernel sums its nearest-neighbour dot
-    products (rrtc_mega.cu::dot); every other name is torch's."""
-
-    def __getattr__(self, name):
-        import torch
-
-        return getattr(torch, name)
-
-    @staticmethod
-    def matmul(a, b):
-        acc = a[..., :, 0, None] * b[..., None, 0, :]
-        for k in range(1, a.shape[-1]):
-            acc = acc + a[..., :, k, None] * b[..., None, k, :]
-        return acc
-
-
 def index_order_replay(spec, envs, st, gl, mk, settings, kp, rows) -> dict:
     """{problem: bool} for problems where the planner kernel and the plain
     planner differ: whether the plain planner, rerun on them with
-    IndexOrderTorch's dot products, equals the kernel.  True shows a near
+    rrtc.IndexOrderTorch's dot products, equals the kernel.  True shows a near
     tie in a nearest-neighbour scan that cuBLAS's summation order resolved
     the other way."""
     import torch
@@ -540,7 +497,7 @@ def index_order_replay(spec, envs, st, gl, mk, settings, kp, rows) -> dict:
         return {}
     idx = torch.as_tensor(rows, device=st.device)
     real = rrtc.torch
-    rrtc.torch = IndexOrderTorch()
+    rrtc.torch = rrtc.IndexOrderTorch()
     try:
         pp = rrtc.plan_batch_compact(spec, envs.map(lambda t: t[idx]), st[idx], gl[idx],
                                      mk[idx], settings, device=st.device)
@@ -607,6 +564,8 @@ def mega_compare(spec, envs, st, gl, mk, settings, ss) -> dict:
         "rrtc_mega": {"problems": B, "identical_share": float(same.float().mean()),
                       "solved": {"kernel": int(kp.solved.sum()), "plain": int(pp.solved.sum())},
                       "diverged": diverged, "index_order_plain_equals_kernel": replay,
+                      "done_past_max_path": int(((r_scal[:, 0] > 0) & (
+                          r_scal[:, 11] + r_scal[:, 12] > settings.max_path)).sum()),
                       "ms": r_ms, "plain_ms": r_plain, "max_abs_err": r_err,
                       "work": {"configs": int(r_work[:, 0].sum()), "pairs": int(r_work[:, 1].sum())},
                       **r_bound, "library_ms": None},
@@ -771,6 +730,7 @@ def branch_phases(dev, spec, q, ss) -> list[dict]:
     import torch
 
     from vamp_mvt_tpu_torch.bench import mbm
+    from vamp_mvt_tpu_torch.bench.scenes import first_two_valid, mbm_shaped_problems
     from vamp_mvt_tpu_torch.collision import environment as envmod
     from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
     from vamp_mvt_tpu_torch.robots import registry
@@ -860,6 +820,302 @@ def branch_phases(dev, spec, q, ss) -> list[dict]:
     return out
 
 
+def probe_mosaic_phase(dev) -> dict:
+    """Every P2/P3 probe (csrc/probe_mosaic.cu) on PROBE_TILES tiles through
+    the probe entry point (`mosaic.run`, once each, launches counted),
+    against its plain version and numpy, tile 0 against the probe file's
+    constants; times, bounds and, where one PyTorch call computes the
+    probe's function, that call's time.  Returns the kernels line's row."""
+    import numpy as np
+    import torch
+
+    from vamp_mvt_tpu_torch.probes import mosaic
+
+    ins = {p: mosaic.inputs(p, PROBE_TILES, seed=4, device=dev) for p in mosaic.PROBES}
+    mosaic.LAUNCHES = 0
+    got = {p: mosaic.run(p, *ins[p]) for p in mosaic.PROBES}
+    torch.cuda.synchronize()
+    launches = mosaic.LAUNCHES
+    # one PyTorch call that computes the probe's function (its reduction,
+    # scan or copy; a constant row made before timing), timed here only:
+    # the port never calls these
+    three_i = torch.arange(512, dtype=torch.int32, device=dev) * 3
+    library = {
+        "dot_argmin": lambda a, b: torch.argmin(torch.bmm(a, b), dim=1),
+        "group32_sum": lambda x: x.view(-1, 8, 4, 32).sum(-1),
+        "reduce_while": lambda x: torch.sum(x, dim=(1, 2)),
+        "grid_carry": lambda x: torch.cumsum(x[:, :, 0], dim=1),
+        "cumsum_first": lambda x: torch.cumsum(x[:, 0], dim=1),
+        "transpose": lambda x: x[:, 0, :64, None].contiguous(),
+        "smem_int_out": lambda off: torch.add(off[:, None, None], three_i),
+    }
+    library_ms_null = {  # why no single call computes the rest
+        "while_carry": "a loop whose trip count depends on the data",
+        "dyn_sublane": "a row written at a data-dependent index, then read back",
+        "smem_writes": "512 scalar writes, two read back and added",
+        "nested_loops": "a masked row fill and a product",
+        "scratch_diag": "a diagonal scaled, truncated to int and summed",
+        "halton_digits": "eight digit steps of integer division",
+        "static_reads": "two reads scaled and truncated to int",
+        "dyn_rows_while": "a loop over rows up to a data-dependent count",
+    }
+    check(set(library) | set(library_ms_null) == set(mosaic.PROBES)
+          and not set(library) & set(library_ms_null), "every probe has a library call or a reason")
+    probes = {}
+    for p in mosaic.PROBES:
+        plain = mosaic.plain(p, *ins[p])
+        want = mosaic.reference(p, *(t.cpu().numpy() for t in ins[p]))
+        lib = library.get(p)
+        probes[p] = {
+            "equal_plain": all(torch.equal(g, w) for g, w in zip(got[p], plain)),
+            "equal_numpy": all(np.array_equal(g.cpu().numpy(), w) for g, w in zip(got[p], want)),
+            "tile0_probe_constants": mosaic.tile0_ok(p, got[p]),
+            "max_abs_err": max(float((g.double() - w.double()).abs().max())
+                               for g, w in zip(got[p], plain)),
+            "ms": time_cuda(lambda: mosaic.launch(p, *ins[p]), 3, 20),
+            "plain_ms": time_cuda(lambda: mosaic.plain(p, *ins[p]), 1, 3),
+            **bound(*mosaic.work(p, ins[p])),
+            "library_ms": None if lib is None else time_cuda(lambda: lib(*ins[p]), 3, 20)}
+    emit({"phase": "probe_mosaic", "tiles": PROBE_TILES, "launches": launches,
+          "library_ms_null": library_ms_null, "probes": probes})
+    check(launches == len(mosaic.PROBES), "the probe entry point launched every probe once")
+    for p, r in probes.items():
+        check(r["equal_plain"] and r["equal_numpy"], f"probe {p} equals plain and numpy")
+        check(r["tile0_probe_constants"], f"probe {p}'s tile 0 gives the probe file's constants")
+    by = {k: sum(r["bound_ms"] for r in probes.values() if r["bound_by"] == k)
+          for k in ("bytes", "operations")}
+    return {"name": "probe_mosaic", "route": "cuda",
+            "source": "vamp_mvt_tpu_torch/csrc/probe_mosaic.cu",
+            "replaces": "tools/probe_mosaic.py:40",
+            "replaces_all": "tools/probe_mosaic.py:40,64,90,110,141,169,190,212; "
+                            "tools/probe_mosaic2.py:37,58,91,117,134,160,184",
+            "launches": launches, "on_main_path": False,
+            "max_abs_err": max(r["max_abs_err"] for r in probes.values()),
+            "ms": sum(r["ms"] for r in probes.values()),
+            "plain_ms": sum(r["plain_ms"] for r in probes.values()),
+            "bound_ms": sum(r["bound_ms"] for r in probes.values()),
+            "bound_by": max(by, key=by.get), "library_ms": None,
+            "library_ms_by_probe": {p: r["library_ms"] for p, r in probes.items()
+                                    if r["library_ms"] is not None},
+            "library_ms_null": f"the row sums all {len(probes)} probes; {len(library_ms_null)} "
+                               "of them have no single PyTorch call (reasons in the phase line)",
+            "ms_of": "the 15 probes, one launch each, summed (each probe in the phase line)",
+            "checked_against_plain": True}
+
+
+def suite_robots_phase(dev, ss) -> list[dict]:
+    """run_suite(robot, planner="mega") at its defaults on UR5, Fetch and
+    Baxter, each over ROBOT_SCENES problems: the first ROBOT_SCENES of
+    ROBOT_POOL MBM-shaped scenes in which the fkcc kernel finds two of
+    KERNEL_CONFIGS seeded configurations valid for the robot, those two as
+    start and goal (batch_size = the problem count: no padding); every
+    solved simplified path revalidated by the plain version; both
+    megakernels against their plain versions on the first ROBOTS_CHECK of
+    those problems.  Returns the kernels line's rows."""
+    import numpy as np
+    import torch
+
+    from vamp_mvt_tpu_torch.bench import mbm, scenes as scene_mod
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda, rrtc_mega_cuda, simplify_mega_cuda
+    from vamp_mvt_tpu_torch.robots import registry
+
+    kernels = {"fkcc": fkcc_cuda, "rrtc_mega": rrtc_mega_cuda, "simplify_mega": simplify_mega_cuda}
+    scenes = scene_mod.mbm_shaped_problems(ROBOT_POOL, seed=10)
+    scene_envs = mbm.build_batch(scenes, device=dev)[0]
+    out = []
+    for i, robot in enumerate(OTHER_ROBOTS):
+        spec = registry.load(robot)
+        q = scene_mod.seeded_configs(spec, ROBOT_POOL, KERNEL_CONFIGS, 20 + i, dev)
+        ok = fkcc_cuda.fkcc_batched(spec, scene_envs, q)
+        scenes_two_valid = int((ok.sum(1) >= 2).sum())
+        rows, st, gl, mk = scene_mod.first_two_valid(q, ok, keep=ROBOT_SCENES)
+        del q, ok
+        check(len(rows) == ROBOT_SCENES, f"{ROBOT_SCENES} scenes with two valid {robot} "
+                                         f"configurations among {ROBOT_POOL}")
+        problems = [dict(scenes[r], start=s_, goals=[g_])
+                    for r, s_, g_ in zip(rows, st.tolist(), gl[:, 0].tolist())]
+        envs = scene_envs.map(lambda t: t[rows])
+        for lib in kernels.values():
+            lib.LAUNCHES = 0
+        tm = {}
+        t0 = time.perf_counter()
+        res = mbm.run_suite(robot, data={"problems": {"mbm_shaped": problems}}, planner="mega",
+                            batch_size=len(problems), timings=tm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: lib.LAUNCHES for n, lib in kernels.items()}
+        occupancy = {"rrtc_mega": dict(rrtc_mega_cuda.LAST_LAUNCH),
+                     "simplify_mega": dict(simplify_mega_cuda.LAST_LAUNCH)}
+        summ = res.summary()
+        solved = np.asarray(res.plan.solved) & res.valid
+        reval = paths_revalidate_plain(spec, envs, res.simplified.path,
+                                       res.simplified.path_length).cpu().numpy()
+        n = min(ROBOTS_CHECK, len(rows))
+        settings = mbm.default_settings(robot, "mega")
+        m = mega_compare(spec, envs.map(lambda t: t[:n]), st[:n], gl[:n], mk[:n], settings, ss)
+        emit({"phase": "suite_robots", "robot": robot, "problems": len(rows),
+              "scenes_drawn": ROBOT_POOL, "scenes_with_two_valid": scenes_two_valid,
+              "scenes_used": rows[-1] + 1, "settings": {
+                  k: getattr(settings, k) for k in ("range", "max_iterations", "max_samples",
+                                                    "samples_per_step", "sample_window",
+                                                    "connect_segments")},
+              "dimension": spec.dimension, "spheres": spec.n_spheres, "wall_s": wall,
+              "summary": summ, "timings": tm, "launches": launches, "occupancy": occupancy,
+              "solved_paths_revalidated_plain": int((reval & solved).sum()), **m})
+        print(res.percentile_table(), flush=True)
+        check(summ["valid_problems"] == len(rows), f"every {robot} problem valid")
+        check(all(v > 0 for v in launches.values()), f"the {robot} suite launched every kernel")
+        check(summ["solved_problems"] > 0, f"the {robot} suite solves some problems")
+        check(bool(reval[solved].all()), f"every solved {robot} path revalidates (plain)")
+        check(m["rrtc_mega"]["identical_share"] >= MIN_SHARE, f"rrtc_mega equals plain on {robot}")
+        check(m["simplify_mega"]["equal_length_share"] >= MIN_SHARE
+              and m["simplify_mega"]["cost_rtol_share"] >= MIN_SHARE,
+              f"simplify_mega equals plain on {robot}")
+        for k, src in (("rrtc_mega", "vamp_mvt_tpu/planning/rrtc_mega.py:943"),
+                       ("simplify_mega", "vamp_mvt_tpu/planning/simplify_mega.py:377")):
+            r = m[k]
+            out.append(row(k, r["ms"], r["plain_ms"], r, r["max_abs_err"], launches[k])
+                       | {"name": f"{k}_{robot}", "replaces": src,
+                          "threads": occupancy[k].get("threads"),
+                          "smem_bytes": occupancy[k].get("smem_bytes"),
+                          "blocks_per_sm": occupancy[k].get("blocks_per_sm")})
+    return out
+
+
+class WaveRecorder:
+    """`validate` for planning/prm.py (and fcit.py, through it): every call
+    passes through, and the validate_motion_batch call with the most
+    configurations (its segments, point count and tables) is kept."""
+
+    def __init__(self):
+        from vamp_mvt_tpu_torch.planning import validate
+
+        self._validate = validate
+        self.reset()
+
+    def reset(self):
+        self.largest, self.max_configs = None, 0
+
+    def __getattr__(self, name):
+        return getattr(self._validate, name)
+
+    def validate_motion_batch(self, spec, envs, starts, goals, num):
+        n = starts.shape[0] * starts.shape[1] * num
+        if n > self.max_configs:
+            self.largest, self.max_configs = (envs, starts, goals, num), n
+        return self._validate.validate_motion_batch(spec, envs, starts, goals, num)
+
+
+def api_planners_phase(dev) -> dict:
+    """This slice's entry path: panda.prm, panda.fcit and panda.roadmap at
+    the API's default settings on the card, from VAMP's start A to goal B
+    in the sphere cage; every path segment and roadmap edge revalidated by
+    the plain version; the fkcc kernel against its plain version on the
+    configurations of PRM's largest edge wave; card against device="cpu" on
+    tests/test_planners.py's sphere-robot wall cases.  Returns the kernels
+    line's fkcc row of the PRM path."""
+    import numpy as np
+    import torch
+
+    import vamp_mvt_tpu_torch as vmt
+    from vamp_mvt_tpu_torch.bench import mbm
+    from vamp_mvt_tpu_torch.collision import environment as envmod
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
+    from vamp_mvt_tpu_torch.planning import fcit, prm, validate
+    from vamp_mvt_tpu_torch.robots import registry
+
+    env = vmt.Environment()
+    for c in mbm.CAGE_CENTERS:
+        env.add_sphere(vmt.Sphere(c, mbm.CAGE_RADIUS))
+    A, B = mbm.PANDA_START, mbm.PANDA_GOAL
+    spec = vmt.panda.spec
+    envs1 = env.build(dev).map(lambda t: t[None])
+    rec, real = WaveRecorder(), prm.validate_mod
+    sample_size = {"prm": prm.PRMSettings().wave, "roadmap": prm.PRMSettings().wave,
+                   "fcit": 2 * fcit.FCITSettings().batch_size}
+    calls, results, prm_wave = {}, {}, None
+    prm.validate_mod = rec
+    try:
+        for name in ("prm", "fcit", "roadmap"):
+            rec.reset()
+            fkcc_cuda.LAUNCHES = 0
+            t0 = time.perf_counter()
+            results[name] = getattr(vmt.panda, name)(A, B, env)
+            torch.cuda.synchronize()
+            calls[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                           "fkcc_launches": fkcc_cuda.LAUNCHES,
+                           "max_configs_per_launch": max(rec.max_configs, sample_size[name])}
+            if name == "prm":
+                prm_wave = rec.largest
+    finally:
+        prm.validate_mod = real
+    for name in ("prm", "fcit"):
+        r = results[name]
+        ok = paths_revalidate_plain(spec, envs1, torch.as_tensor(r.path[None], device=dev),
+                                    [len(r.path)])
+        calls[name] |= {"solved": bool(r.solved), "iterations": int(r.iterations),
+                        "size": int(r.size), "cost": float(r.cost), "path_vertices": len(r.path),
+                        "revalidated_plain": bool(ok[0])}
+        check(r.solved, f"panda.{name} solves the cage")
+        check(bool(ok[0]), f"every segment of panda.{name}'s path revalidates (plain)")
+    rm = results["roadmap"]
+    edges = torch.as_tensor(rm.vertices[np.asarray(rm.edges).reshape(-1, 2)], device=dev)
+    e_ok = paths_revalidate_plain(spec, envs1, edges, [2] * len(edges))
+    calls["roadmap"] |= {"vertices": len(rm.vertices), "edges": len(rm.edges),
+                         "edges_revalidated_plain": int(e_ok.sum())}
+    check(len(rm.edges) > 0 and bool(e_ok.all()), "every roadmap edge revalidates (plain)")
+
+    # the fkcc kernel against its plain version on PRM's largest edge wave
+    w_envs, w_starts, w_goals, num = prm_wave
+    q = validate.motion_configs(spec, w_starts, w_goals, num).transpose(1, 2).contiguous()
+    held = branch_kernel(spec, w_envs, q)[0]
+    held |= {"edges": int(w_starts.shape[1]), "points_per_edge": num}
+    check(held["mismatches_outside_bands"] == 0,
+          "the kernel agrees with plain on PRM's largest edge wave outside the contact band")
+
+    # card against the CPU on tests/test_planners.py's sphere-robot wall
+    wspec = registry.sphere_spec(lows=(-3, -3, 0), highs=(3, 3, 3), radius=0.1)
+    b = envmod.EnvironmentBuilder()
+    for y in np.linspace(-3, 3, 13):
+        for z in np.linspace(0, 3, 7):
+            if not (y > 2.0 and z > 2.0):
+                b.add_sphere([0.0, y, z], 0.3)
+    star = prm.PRMStarNeighborParams(3, wspec.space_measure())
+    S, G = [-2.0, 0.0, 1.0], [[2.0, 0.0, 1.0]]
+    cases = {
+        "prm": lambda d, e: prm.solve(wspec, e, S, G, prm.PRMSettings(
+            max_samples=1024, wave=64, neighbor_params=star), device=d),
+        "fcit": lambda d, e: fcit.solve(wspec, e, S, G, fcit.FCITSettings(
+            max_samples=256, batch_size=64), device=d),
+        "roadmap": lambda d, e: prm.build_roadmap(wspec, e, S, G[0], prm.PRMSettings(
+            max_samples=256, wave=64, neighbor_params=star), device=d),
+    }
+    wall = {}
+    for name, fn in cases.items():
+        card, cpu = fn(dev, b.build(device=dev)), fn("cpu", b.build(device="cpu"))
+        if name == "roadmap":
+            same = card.edges == cpu.edges and np.array_equal(card.vertices, cpu.vertices)
+            wall[name] = {"vertices": len(card.vertices), "edges": len(card.edges),
+                          "identical": same}
+        else:
+            same = ((card.solved, card.iterations, card.size) == (cpu.solved, cpu.iterations,
+                                                                  cpu.size)
+                    and card.path.shape == cpu.path.shape
+                    and float(np.abs(card.path - cpu.path).max()) <= 1e-6)
+            wall[name] = {"solved": bool(card.solved), "iterations": int(card.iterations),
+                          "size": int(card.size), "identical": same}
+        check(same, f"{name} on the card equals the CPU on the wall problem")
+    emit({"phase": "api_planners", "calls": calls, "kernel_vs_plain_prm_wave": held,
+          "wall_card_vs_cpu": wall})
+    return (row("fkcc", held["kernel_ms"], held["plain_ms"], held, held["max_abs_err"],
+                calls["prm"]["fkcc_launches"])
+            | {"name": "fkcc_prm", "replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
+               "launches_of": "one panda.prm call",
+               "launches_fcit": calls["fcit"]["fkcc_launches"],
+               "launches_roadmap": calls["roadmap"]["fkcc_launches"],
+               "ms_of": "PRM's largest edge wave, one launch"})
+
+
 def main() -> int:
     import torch
 
@@ -870,6 +1126,7 @@ def main() -> int:
     import numpy as np
 
     from vamp_mvt_tpu_torch.bench import mbm
+    from vamp_mvt_tpu_torch.bench.scenes import mbm_shaped_problems
     from vamp_mvt_tpu_torch.collision.environment import LIVE_LIMIT, TABLES
     from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
     from vamp_mvt_tpu_torch.planning import validate
@@ -894,14 +1151,16 @@ def main() -> int:
     t0 = time.perf_counter()
     from vamp_mvt_tpu_torch.probes import gather
 
-    for lib in (fkcc_cuda, rrtc_mega_cuda, simplify_mega_cuda, gather):
+    from vamp_mvt_tpu_torch.probes import mosaic
+
+    for lib in (fkcc_cuda, rrtc_mega_cuda, simplify_mega_cuda, gather, mosaic):
         lib.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": {
         name: {"cached": info["cached"], "seconds": info["seconds"],
                "library": os.path.relpath(info["path"]), "ptxas": build.ptxas_lines(name)}
         for name, info in sorted(build.BUILD_INFO.items())}})
-    check({"fkcc", "rrtc_mega", "simplify_mega", "probe_gather"} <= set(build.BUILD_INFO),
-          "every kernel built")
+    check({"fkcc", "rrtc_mega", "simplify_mega", "probe_gather", "probe_mosaic"}
+          <= set(build.BUILD_INFO), "every kernel built")
 
     # --- kernel vs plain ---------------------------------------------------
     spec = registry.load("panda")
@@ -1335,11 +1594,14 @@ def main() -> int:
           and float(spc_cost.float().mean()) >= MIN_SHARE,
           "simplify_mega equals plain on pointclouds")
 
-    # probe_gather: the six gather probes against numpy (off the main path)
-    probes = {}
+    # probe_gather: the six gather probes against numpy (off the main path;
+    # their launches counted through the probe entry point, `gather.gather`)
+    probes, g_launches = {}, 0
     for pname in gather.PROBES:
         tab, gi, gi2 = gather.inputs(pname, PROBE_TILES, seed=3, device=dev)
+        before = gather.LAUNCHES
         got = gather.gather(pname, tab, gi, gi2).cpu().numpy()
+        g_launches += gather.LAUNCHES - before
         want = gather.reference(pname, tab.cpu().numpy(), gi.cpu().numpy(),
                                 None if gi2 is None else gi2.cpu().numpy())
         g_ms = time_cuda(lambda: gather.launch(pname, tab, gi, gi2), 3, 20)
@@ -1349,19 +1611,28 @@ def main() -> int:
         probes[pname] = {"equal": bool(np.array_equal(got, want)), "ms": g_ms,
                          "plain_ms": g_plain, "ns_per_gather": g_ms * 1e6 / per,
                          **bound(ops, g_bytes)}
-    emit({"phase": "probe_gather", "tiles": PROBE_TILES, "probes": probes,
-          "kernel": {"name": "probe_gather", "route": "cuda",
-                     "source": "vamp_mvt_tpu_torch/csrc/probe_gather.cu",
-                     "replaces": "tools/probe_gather.py:32",
-                     "launches": 0, "on_main_path": False,
-                     "max_abs_err": 0.0 if all(v["equal"] for v in probes.values()) else None,
-                     "ms": probes["timing"]["ms"], "plain_ms": probes["timing"]["plain_ms"],
-                     "bound_ms": probes["timing"]["bound_ms"],
-                     "bound_by": probes["timing"]["bound_by"], "library_ms": None}})
+    gather_row = {"name": "probe_gather", "route": "cuda",
+                  "source": "vamp_mvt_tpu_torch/csrc/probe_gather.cu",
+                  "replaces": "tools/probe_gather.py:32",
+                  "replaces_all": "tools/probe_gather.py:32,47,62,85,99,121",
+                  "launches": g_launches, "on_main_path": False,
+                  "max_abs_err": 0.0 if all(v["equal"] for v in probes.values()) else None,
+                  "ms": probes["timing"]["ms"], "plain_ms": probes["timing"]["plain_ms"],
+                  "bound_ms": probes["timing"]["bound_ms"],
+                  "bound_by": probes["timing"]["bound_by"], "library_ms": None,
+                  "ms_of": "the timing probe (each probe in the phase line)",
+                  "checked_against_plain": True}
+    emit({"phase": "probe_gather", "tiles": PROBE_TILES, "probes": probes, "kernel": gather_row})
     check(all(v["equal"] for v in probes.values()), "every gather probe equals numpy")
+    check(g_launches == len(gather.PROBES), "the probe entry point launched every gather probe")
 
     # --- attachments and heightfields (this slice) ------------------------
     branch_rows = branch_phases(dev, spec, q, ss)
+
+    # --- the Mosaic probes, the other robots, the roadmap planners (this slice)
+    mosaic_row = probe_mosaic_phase(dev)
+    robot_rows = suite_robots_phase(dev, ss)
+    prm_row = api_planners_phase(dev)
 
     emit({"kernels": [
         row("fkcc", kernel_ms, plain_ms, kernel, max_abs_err, mega_launches["fkcc"])
@@ -1389,6 +1660,10 @@ def main() -> int:
         | {"name": "simplify_mega_pc", "replaces": "vamp_mvt_tpu/planning/simplify_mega.py:377",
            "replaces_function": "vamp_mvt_tpu/planning/simplify_mega.py::_run on pck"},
         *branch_rows,
+        gather_row,
+        mosaic_row,
+        *robot_rows,
+        prm_row,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -627,3 +627,110 @@ def test_megakernels_branches_match_plain(cuda, which):
     ps = simplify_mega.simplify_batch_plain(spec, envs, ref.path, ref.path_length, ss)
     assert torch.equal(ks.path_length.cpu(), ps.path_length.cpu())
     torch.testing.assert_close(ks.cost, ps.cost, rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The megakernel-construct probes (P2, P3)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_probe_mosaic_kernels_match_plain(cuda):
+    from vamp_mvt_tpu_torch.probes import mosaic
+
+    for name in mosaic.PROBES:
+        ins = mosaic.inputs(name, tiles=64, seed=12, device=cuda)
+        before = mosaic.LAUNCHES
+        got = mosaic.run(name, *ins)
+        torch.cuda.synchronize()
+        assert mosaic.LAUNCHES == before + 1
+        want = mosaic.plain(name, *ins)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+        assert mosaic.tile0_ok(name, got), name
+
+
+# ---------------------------------------------------------------------------
+# The megakernels on the other robots, the roadmap planners on the card
+# ---------------------------------------------------------------------------
+
+
+def _robot_problems(spec, device, n=16, seed=30, keep=3):
+    """The first `keep` of `n` MBM-shaped scenes (`bench.scenes`, placed for
+    the Panda: most block every Fetch and Baxter configuration) that have
+    two valid configurations among 2048 seeded ones; start and goal the
+    first two the fkcc kernel finds."""
+    from vamp_mvt_tpu_torch.bench import mbm, scenes
+
+    envs = mbm.build_batch(scenes.mbm_shaped_problems(n, seed), device=device)[0]
+    q = scenes.seeded_configs(spec, n, 2048, seed + 1, device)
+    rows, starts, goals, masks = scenes.first_two_valid(
+        q, fkcc_cuda.fkcc_batched(spec, envs, q), keep)
+    return envs.map(lambda t: t[rows]), starts, goals, masks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("robot", ["fetch", "baxter"])
+def test_megakernels_other_robots_match_plain(cuda, robot, monkeypatch):
+    """Both megakernels against their plain versions on Fetch and Baxter at
+    run_suite's mega settings (a smaller budget), the plain planner's
+    nearest-neighbour dots summed in index order as the kernel sums them
+    (rrtc.IndexOrderTorch), so that the two agree exactly."""
+    from vamp_mvt_tpu_torch.bench import mbm
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda, simplify_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega, simplify, simplify_mega
+
+    spec = registry.load(robot)
+    envs, starts, goals, masks = _robot_problems(spec, cuda)
+    assert len(starts) >= 2
+    s = dataclasses.replace(mbm.default_settings(robot, "mega"), max_iterations=1024,
+                            max_samples=4096)
+    got = rrtc_mega.plan_batch_mega(spec, envs, starts, goals, masks, s, device=cuda)
+    torch.cuda.synchronize()
+    launch = dict(rrtc_mega_cuda.LAST_LAUNCH)
+    print(f"{robot}: rrtc_mega {launch}")
+    assert launch["threads"] in (128, 64, 32) and launch["blocks_per_sm"] >= 1
+    monkeypatch.setattr(rrtc, "torch", rrtc.IndexOrderTorch())
+    ref = rrtc.plan_batch(spec, envs, starts, goals, masks, s)
+    monkeypatch.undo()
+    for f in ("solved", "iterations", "size_start", "size_goal", "path_length"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(ref, f).cpu()), f
+    torch.testing.assert_close(got.cost, ref.cost, rtol=1e-6, atol=0)
+    assert bool(ref.solved.any())
+    ss = simplify.SimplifySettings(pair_chunk=64)
+    ks = simplify_mega.simplify_batch_mega(spec, envs, ref.path, ref.path_length, ss,
+                                           device=cuda)
+    torch.cuda.synchronize()
+    print(f"{robot}: simplify_mega {dict(simplify_mega_cuda.LAST_LAUNCH)}")
+    ps = simplify_mega.simplify_batch_plain(spec, envs, ref.path, ref.path_length, ss)
+    assert torch.equal(ks.path_length.cpu(), ps.path_length.cpu())
+    torch.testing.assert_close(ks.cost, ps.cost, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_roadmap_planners_card_match_cpu(cuda):
+    """PRM, FCIT and the roadmap on tests/test_planners.py's sphere-robot
+    wall: on the card (the fkcc kernel) and on the CPU (its plain version)
+    the same results."""
+    import vamp_mvt_tpu_torch as vmt
+
+    env = vmt.Environment()
+    for y in np.linspace(-3, 3, 13):
+        for z in np.linspace(0, 3, 7):
+            if not (y > 2.0 and z > 2.0):
+                env.add_sphere(vmt.Sphere([0.0, y, z], 0.3))
+    start, goal = [-4.0, 0.0, 1.0], [4.0, 0.0, 1.0]
+    for call in (lambda d: vmt.sphere.prm(start, goal, env, vmt.PRMSettings(max_samples=1024),
+                                          device=d),
+                 lambda d: vmt.sphere.fcit(start, goal, env, vmt.FCITSettings(
+                     max_samples=256, batch_size=64), device=d)):
+        before = fkcc_cuda.LAUNCHES
+        card = call(cuda)
+        assert fkcc_cuda.LAUNCHES > before
+        cpu = call("cpu")
+        assert card.solved and (card.solved, card.iterations, card.size) == \
+            (cpu.solved, cpu.iterations, cpu.size)
+        np.testing.assert_allclose(card.path, cpu.path, rtol=0, atol=1e-6)
+    rs = vmt.PRMSettings(max_samples=256)
+    card, cpu = (vmt.sphere.roadmap(start, goal, env, rs, device=d) for d in (cuda, "cpu"))
+    np.testing.assert_array_equal(card.vertices, cpu.vertices)
+    assert card.edges == cpu.edges

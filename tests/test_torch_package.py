@@ -49,7 +49,7 @@ def test_port_imports_without_jax():
     assert {f"vamp_mvt_tpu_torch.{m}" for m in (
         "native", "collision.mvt", "collision.capt", "collision.pc_kernel",
         "pointcloud.sampling", "pointcloud.filters", "pointcloud.pipeline",
-        "probes.gather", "api")} <= names
+        "probes.gather", "probes.mosaic", "planning.prm", "planning.fcit", "api")} <= names
 
 
 def test_port_sources_name_no_jax():
@@ -117,7 +117,7 @@ def test_build_key_covers_every_source(tmp_path):
 
     names = sorted(p.name for p in build.CSRC.iterdir())
     assert {"fkcc.cu", "fkcc_device.cuh", "rrtc_mega.cu", "simplify_mega.cu",
-            "probe_gather.cu"} <= set(names)
+            "probe_gather.cu", "probe_mosaic.cu"} <= set(names)
     for name in names:
         (tmp_path / name).write_bytes((build.CSRC / name).read_bytes())
     key = build.source_key(tmp_path)

@@ -108,6 +108,47 @@ def test_last_lane_wins_on_duplicate_scatter():
     assert buf[0, 1] == 9.0 and buf[0, 2] == 3.0 and buf[1, 3] == 4.0
 
 
+def test_index_order_torch_stands_in_for_torch(monkeypatch):
+    """rrtc.IndexOrderTorch set as the module's `torch` (as the card checks
+    set it): the plain planner runs on it and matches the JAX package on the
+    wall problem, and its matmul sums the products in index order."""
+    jspec, spec, envs_j, envs_t, starts, goals, masks = sphere_problem()
+    kw = dict(range=1.0, max_iterations=384, max_samples=512, max_path=64,
+              samples_per_step=4, connect_segments=2, sample_window=2)
+    offs = np.arange(3, dtype=np.int32) * 100
+    ref = jax.jit(lambda e, s, g, m, o: jrrtc.plan_batch(
+        jspec, e, s, g, m, jrrtc.RRTCSettings(**kw), o
+    ))(envs_j, jnp.asarray(starts), jnp.asarray(goals), jnp.asarray(masks), jnp.asarray(offs))
+    monkeypatch.setattr(rrtc, "torch", rrtc.IndexOrderTorch())
+    got = rrtc.plan_batch(spec, envs_t, torch.as_tensor(starts), torch.as_tensor(goals),
+                          torch.as_tensor(masks), rrtc.RRTCSettings(**kw), torch.as_tensor(offs))
+    monkeypatch.undo()
+    assert bool(got.solved.any())
+    assert_same_plan(ref, got, 3)
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(2, 5, 3, generator=g), torch.randn(2, 3, 4, generator=g)
+    want = (a[:, :, 0, None] * b[:, None, 0] + a[:, :, 1, None] * b[:, None, 1]) \
+        + a[:, :, 2, None] * b[:, None, 2]
+    assert torch.equal(rrtc.IndexOrderTorch.matmul(a, b), want)
+
+
+def test_chains_past_the_path_buffer_count_as_unsolved():
+    """result_from_chains when the two chains together pass max_path: the
+    problem is unsolved (the JAX package clamps the index of the last row
+    and reports a cut path that stops short of the goal); within the buffer
+    the result is as before."""
+    B, P, d = 3, 4, 2
+    path = torch.arange(B * P * d, dtype=torch.float32).reshape(B, P, d)
+    total = torch.tensor([3, 4, 6])
+    yes, zero = torch.ones(B, dtype=torch.bool), torch.zeros(B, dtype=torch.long)
+    r = rrtc.result_from_chains(path, total, yes, yes, zero, zero, zero, zero,
+                                path[:, 0], path[:, None, -1], ~yes, zero)
+    assert r.solved.tolist() == [True, True, False]
+    assert r.path_length.tolist() == [3, 4, 0]
+    assert bool(torch.isinf(r.cost[2])) and bool(torch.isfinite(r.cost[:2]).all())
+    assert torch.equal(r.path[:2, :3], path[:2, :3])
+
+
 def test_unported_sampler_raises():
     jspec, spec, _, envs_t, starts, goals, masks = sphere_problem(1)
     with pytest.raises(NotImplementedError):

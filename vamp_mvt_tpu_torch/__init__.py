@@ -16,7 +16,10 @@ from vamp_mvt_tpu_torch.api import (  # noqa: F401
     Cuboid,
     Cylinder,
     Environment,
+    FCITSettings,
     Halton,
+    PRMNeighborParams,
+    PRMSettings,
     RobotModule,
     RRTCSettings,
     SimplifySettings,

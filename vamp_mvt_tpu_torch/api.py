@@ -15,7 +15,10 @@ Every method that touches tensors takes `device=None`, which means the GPU
 (`device.resolve_device`): without one it raises unless given
 `device="cpu"`.  On the GPU every collision check runs in the CUDA kernel
 (`csrc/fkcc.cu`); `rrtc` plans with the lockstep planner (`planning/rrtc.py
-::plan`), as the JAX API does.  Results are tensors on that device.
+::plan`), as the JAX API does, and its results are tensors on that device.
+`prm`, `fcit` and `roadmap` keep their graphs on the host
+(`planning/prm.py`, `planning/fcit.py`) and return numpy results, as the JAX
+API's do.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from vamp_mvt_tpu_torch.collision import environment as envmod
 from vamp_mvt_tpu_torch.device import resolve_device
 from vamp_mvt_tpu_torch.ops import fk as fk_mod
 from vamp_mvt_tpu_torch.ops import fkcc as fkcc_mod
+from vamp_mvt_tpu_torch.planning import fcit as fcit_mod
+from vamp_mvt_tpu_torch.planning import prm as prm_mod
 from vamp_mvt_tpu_torch.planning import rrtc as rrtc_mod
 from vamp_mvt_tpu_torch.planning import simplify as simplify_mod
 from vamp_mvt_tpu_torch.planning import validate as validate_mod
@@ -34,6 +39,9 @@ from vamp_mvt_tpu_torch.robots import registry
 
 RRTCSettings = rrtc_mod.RRTCSettings
 SimplifySettings = simplify_mod.SimplifySettings
+PRMSettings = prm_mod.PRMSettings
+PRMNeighborParams = prm_mod.PRMStarNeighborParams
+FCITSettings = fcit_mod.FCITSettings
 Attachment = envmod.make_attachment
 
 
@@ -148,7 +156,7 @@ class RobotModule:
         return self.spec.n_spheres
 
     def space_measure(self):
-        return float(np.prod(self.spec.limits_high - self.spec.limits_low))
+        return self.spec.space_measure()
 
     def joint_names(self):
         return list(self.spec.joint_names)
@@ -231,6 +239,13 @@ class RobotModule:
         return pts[~(robot_hit | env_hit)].cpu().numpy()
 
     # --- planners -------------------------------------------------------
+    def _plan_args(self, start, goals, sampler):
+        goals = np.asarray(goals, np.float32)
+        if goals.ndim == 1:
+            goals = goals[None]
+        offset = sampler.offset if isinstance(sampler, Halton) else int(sampler or 0)
+        return np.asarray(start, np.float32), goals, offset
+
     def default_rrtc_settings(self, **kw):
         kw.setdefault("range", registry.RRT_RANGES.get(self.name, 1.0))
         kw.setdefault("max_iterations", 4096)
@@ -244,10 +259,7 @@ class RobotModule:
         """RRT-Connect from `start` to any of `goals` ((d,) or (G, d)) with
         the lockstep planner; an RRTCResult of tensors on the device."""
         dev = resolve_device(device)
-        goals = np.asarray(goals, np.float32)
-        if goals.ndim == 1:
-            goals = goals[None]
-        offset = sampler.offset if isinstance(sampler, Halton) else int(sampler or 0)
+        start, goals, offset = self._plan_args(start, goals, sampler)
         return rrtc_mod.plan(
             self.spec, _as_env(env, dev), self._q(start, dev), self._q(goals, dev),
             torch.ones(goals.shape[0], dtype=torch.bool, device=dev),
@@ -262,21 +274,30 @@ class RobotModule:
             torch.as_tensor(path_length, device=dev).to(torch.int32),
             settings or SimplifySettings())
 
-    def _not_ported(self, what: str, item: int):
-        raise NotImplementedError(
-            f"{self.name}.{what} is not ported yet (ROADMAP queue 1, item {item})")
-
     def prm(self, start, goals, env, settings=None, sampler=None, device=None):
-        self._not_ported("prm", 15)
+        """PRM* from `start` to any of `goals`: a PRMResult (numpy)."""
+        dev = resolve_device(device)
+        start, goals, offset = self._plan_args(start, goals, sampler)
+        return prm_mod.solve(self.spec, _as_env(env, dev), start, goals, settings, offset,
+                             device=dev)
 
     def fcit(self, start, goals, env, settings=None, sampler=None, device=None):
-        self._not_ported("fcit", 15)
+        """FCIT* from `start` to any of `goals`: a PRMResult (numpy)."""
+        dev = resolve_device(device)
+        start, goals, offset = self._plan_args(start, goals, sampler)
+        return fcit_mod.solve(self.spec, _as_env(env, dev), start, goals, settings, offset,
+                              device=dev)
 
     def roadmap(self, start, goal, env, settings=None, sampler=None, device=None):
-        self._not_ported("roadmap", 15)
+        """A PRM* roadmap from `start` and `goal` without early exit."""
+        dev = resolve_device(device)
+        start, goals, offset = self._plan_args(start, goal, sampler)
+        return prm_mod.build_roadmap(self.spec, _as_env(env, dev), start, goals[0], settings,
+                                     offset, device=dev)
 
     def aorrtc(self, start, goals, env, settings=None, sampler=None, device=None):
-        self._not_ported("aorrtc", 16)
+        raise NotImplementedError(
+            f"{self.name}.aorrtc is not ported yet (ROADMAP queue 1, item 16)")
 
 
 def png_to_heightfield(filename, center, scaling):

@@ -39,6 +39,27 @@ _INF = float("inf")
 _SYNC_EVERY = 64  # steps between host checks in plan_batch
 
 
+class IndexOrderTorch:
+    """`torch` with `matmul` summed in index order without FMA, as the
+    planner kernel sums its nearest-neighbour dot products
+    (`csrc/rrtc_mega.cu::dot`); every other name is torch's.  Set as this
+    module's `torch`, it makes the plain planner resolve near ties as the
+    kernel does, where cuBLAS's summation order may resolve them the other
+    way (a check of the kernel, never the planner's own path)."""
+
+    _torch = torch  # the module itself: this module's `torch` may be this object
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+    @staticmethod
+    def matmul(a, b):
+        acc = a[..., :, 0, None] * b[..., None, 0, :]
+        for k in range(1, a.shape[-1]):
+            acc = acc + a[..., :, k, None] * b[..., None, k, :]
+        return acc
+
+
 @dataclasses.dataclass(frozen=True)
 class RRTCSettings:
     """Reference rrtc_settings.hh:5-20 plus batching knobs; field names and
@@ -415,7 +436,7 @@ def result_from_chains(path, total, a_start_at_join, solved, iterations, size_st
     src = P - 1 - torch.remainder(k[None] - total[:, None] + P, P)
     rev = _gather_rows(path, src)
     path = torch.where(a_start_at_join[:, None, None], path, rev)
-    last = _gather_rows(path, torch.clamp_min(total - 1, 0)[:, None])
+    last = _gather_rows(path, torch.clamp(total - 1, 0, P - 1)[:, None])
     path = torch.where((k[None] < total[:, None])[..., None], path, last)
     lens = norm_last(path[:, 1:] - path[:, :-1])
     cost = torch.where(k[None, 1:] < total[:, None], lens, 0.0).sum(1)
@@ -427,6 +448,10 @@ def result_from_chains(path, total, a_start_at_join, solved, iterations, size_st
     path = torch.where(any_direct[:, None, None], direct_path, path)
     total = torch.where(any_direct, 2, total)
     cost = torch.where(any_direct, norm_last(direct_goal - starts), cost)
+    # Chains longer than the path buffer together cannot be exported.  The
+    # JAX package clamps the index of the last row and reports a cut path
+    # that stops short of the goal; here such a problem counts as unsolved.
+    solved = solved & (total <= P)
 
     i32 = torch.int32
     return RRTCResult(

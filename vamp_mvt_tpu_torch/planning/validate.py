@@ -48,6 +48,18 @@ def interpolation_fractions(spec: RobotSpec, dist: torch.Tensor, num: int) -> to
     return torch.clamp_max(k / N[..., None], 1.0)
 
 
+def motion_configs(spec: RobotSpec, starts: torch.Tensor, goals: torch.Tensor,
+                   num: int) -> torch.Tensor:
+    """The (B, d, E * num) configurations `validate_motion_batch` checks for
+    segments (B, E, d), dimension-major (the kernel's lanes layout)."""
+    B, E, d = starts.shape
+    vectors = goals - starts
+    frac = interpolation_fractions(spec, norm_last(vectors), num)       # (B, E, num)
+    return (
+        starts.transpose(1, 2)[..., None] + vectors.transpose(1, 2)[..., None] * frac[:, None]
+    ).reshape(B, d, E * num)
+
+
 def validate_motion_batch(
     spec: RobotSpec,
     envs: Environment,
@@ -57,14 +69,9 @@ def validate_motion_batch(
 ) -> torch.Tensor:
     """Validate B x E straight segments at `num` points each -> (B, E) bool.
 
-    One fused FK+CC evaluation over B x E x num configurations, built
-    dimension-major for the kernel's lanes layout."""
-    B, E, d = starts.shape
-    vectors = goals - starts
-    frac = interpolation_fractions(spec, norm_last(vectors), num)       # (B, E, num)
-    block_d = (
-        starts.transpose(1, 2)[..., None] + vectors.transpose(1, 2)[..., None] * frac[:, None]
-    ).reshape(B, d, E * num)
+    One fused FK+CC evaluation over B x E x num configurations."""
+    B, E, _ = starts.shape
+    block_d = motion_configs(spec, starts, goals, num)
     ok = fkcc_cuda.fkcc_batched_lanes(spec, envs, block_d).reshape(B, E, num)
     return torch.all(ok, dim=-1)
 

@@ -62,3 +62,6 @@ class RobotSpec:
     @property
     def max_radius(self) -> float:
         return float(self.sphere_radius.max())
+
+    def space_measure(self) -> float:
+        return float(np.prod(self.limits_high - self.limits_low))
