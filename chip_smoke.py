@@ -43,7 +43,22 @@ or an exception exits non-zero):
                  the planner megakernel against its plain version on the
                  first MBM_CHECK of those scenes (capsule and cuboid tables),
                  at the budget and as run_suite's 32x retry: at least
-                 MIN_SHARE of the results identical at each
+                 MIN_SHARE of the results identical at each, every solved
+                 path revalidated by the plain version
+  mega_interleave
+                 the planner kernel's interleaved cadence (interleave=True:
+                 the grow part every step, an active connect chain riding
+                 along) against its plain version (the lockstep planner with
+                 interleave=True): exactly on the wall problem, at least
+                 MIN_SHARE identical on the 700 cages and on the MBM_CHECK
+                 MBM-shaped scenes at the budget and the 32x retry (each
+                 divergence replayed with index-order dots), every solved
+                 path revalidated by the plain version; both cadences'
+                 kernel ms, grow and connect steps, solved counts and solves
+                 past the path buffer on the same problems; the interleaved
+                 main path run_suite(planner="mega") on the cages; the A/B
+                 suite walls of bench/interleave.py on the cages and on 700
+                 MBM-shaped problems
   pc_kernel      the 700 scenes again, start and goal drawn from the
                  configurations the fkcc kernel finds valid among their
                  cylinders and boxes (the obstacles a cloud samples); their
@@ -116,6 +131,13 @@ or an exception exits non-zero):
                  call; the fkcc kernel against its plain version on PRM's
                  largest edge wave; the card against device="cpu" on
                  tests/test_planners.py's sphere-robot wall cases
+  bench          the port's bench entry (python -m vamp_mvt_tpu_torch.bench)
+                 in this process on the 700 cages: its JSON line
+
+The suite phases report `past_max_path`: the planner kernel's solves whose
+two chains together pass max_path, counted unsolved (rrtc_mega.PAST_MAX_PATH;
+a problem the retry replays counts once in each call); suite_robots lists the
+first UNSOLVED_LISTED unsolved problems of each robot.
 
 then the kernels line (the pointcloud, attachment and heightfield branches of
 each kernel, the megakernels on each other robot and fkcc on the PRM path as
@@ -160,6 +182,7 @@ OTHER_ROBOTS = ("ur5", "fetch", "baxter")
 ROBOT_SCENES = 256     # problems of suite_robots, per robot: scenes with two valid configurations
 ROBOT_POOL = 2048      # MBM-shaped scenes drawn for them (placed for the Panda, most block Fetch)
 ROBOTS_CHECK = 64      # of their problems, the megakernels are compared on
+UNSOLVED_LISTED = 8    # of their unsolved problems, listed (scene row, start, goal)
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -500,7 +523,8 @@ def index_order_replay(spec, envs, st, gl, mk, settings, kp, rows) -> dict:
     rrtc.torch = rrtc.IndexOrderTorch()
     try:
         pp = rrtc.plan_batch_compact(spec, envs.map(lambda t: t[idx]), st[idx], gl[idx],
-                                     mk[idx], settings, device=st.device)
+                                     mk[idx], settings, device=st.device,
+                                     interleave=settings.interleave)
     finally:
         rrtc.torch = real
     same = same_plan(type(kp)(*(t[idx] for t in kp)), pp)
@@ -576,6 +600,50 @@ def mega_compare(spec, envs, st, gl, mk, settings, ss) -> dict:
     }
 
 
+def retry_compare(spec, envs, st, gl, mk, settings) -> dict:
+    """The planner kernel against its plain version (in the cadence
+    `settings.interleave` names) at the budget, then as run_suite's retry
+    (32x the budget, the solved rows' goals replaced by their starts), where
+    the shares are over the retried rows: at least MIN_SHARE identical at
+    each, every solved path revalidated by the plain version."""
+    import dataclasses
+
+    import torch
+
+    from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega
+
+    dev = st.device
+    out, g, retried = {}, gl, torch.ones(len(st), dtype=torch.bool, device=dev)
+    for budget in (settings.max_iterations, 32 * settings.max_iterations):
+        check(bool(retried.any()), f"problems to compare at budget {budget}")
+        rrtc_mega.PAST_MAX_PATH = 0
+        t0 = time.perf_counter()
+        got = rrtc_mega.plan_batch_mega(spec, envs, st, g, mk, settings, budget=budget,
+                                        device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = rrtc.plan_batch_compact(spec, envs, st, g, mk,
+                                      dataclasses.replace(settings, max_iterations=budget),
+                                      device=dev, interleave=settings.interleave)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        same = same_plan(got, ref)[retried]
+        ok = paths_revalidate_plain(spec, envs, got.path, got.path_length)
+        out[str(budget)] = {
+            "problems": int(retried.sum()), "identical": int(same.sum()),
+            "solved": {"kernel": int(got.solved[retried].sum()),
+                       "plain": int(ref.solved[retried].sum())},
+            "past_max_path": rrtc_mega.PAST_MAX_PATH,
+            "solved_paths_revalidated_plain": int((ok & got.solved)[retried].sum()),
+            "kernel_s": t1 - t0, "plain_s": t2 - t1}
+        check(float(same.float().mean()) >= MIN_SHARE,
+              f"rrtc_mega (interleave={settings.interleave}) equals plain at budget {budget}")
+        check(bool(ok[got.solved].all()), f"every solved path revalidates at budget {budget}")
+        retried = ~got.solved
+        g = torch.where(retried[:, None, None], gl, st[:, None])
+    return out
+
+
 def mega_path(spec, envs, st, gl, mk, settings, ss) -> dict:
     """plan_batch_mega + simplify_batch_mega on the whole batch (the counts
     of both megakernels reset just before, read just after), every solved
@@ -605,6 +673,178 @@ def mega_path(spec, envs, st, gl, mk, settings, ss) -> dict:
     return {"problems": st.shape[0], "valid": int(valid.sum()), "solved": int(solved.sum()),
             "wall_s": wall, "median_simplified_cost": median(simp.cost[solved]),
             "launches": launches, "solved_paths_revalidated_plain": int((ok & solved).sum())}
+
+
+def cadence_run(spec, envs, st, gl, mk, settings, budget=None) -> dict:
+    """The planner kernel in the cadence `settings.interleave` names, through
+    plan_batch_mega: its result, the solves past the path buffer
+    (rrtc_mega.PAST_MAX_PATH, set to 0 just before), then the wrapper on the
+    same inputs for the step counters (scalars 9-10), the work counters and
+    its time (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc_mega
+
+    rrtc_mega.PAST_MAX_PATH = 0
+    res = rrtc_mega.plan_batch_mega(spec, envs, st, gl, mk, settings, budget=budget,
+                                    device=st.device)
+    torch.cuda.synchronize()
+    past = rrtc_mega.PAST_MAX_PATH
+    ctl, nodes0, _, _ = rrtc_mega.mega_inputs(spec, envs, st, gl, mk, settings, budget=budget)
+    _, scal, work = rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, settings)
+    ms = time_cuda(lambda: rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, settings), 1, 3)
+    scal = scal.cpu().numpy().astype(np.int64)
+    return {"res": res, "ctl": ctl, "nodes0": nodes0, "scal": scal,
+            "work": work.cpu().numpy().astype(np.int64), "line": {
+                "ms": ms, "solved": int(res.solved.sum()), "past_max_path": past,
+                "gsteps": int(scal[:, 9].sum()), "csteps": int(scal[:, 10].sum()),
+                "gsteps_plus_csteps": int(scal[:, 9].sum() + scal[:, 10].sum()),
+                "iterations_p50": float(np.median(res.iterations.cpu().numpy())),
+                "nodes": int(scal[:, 6].sum())}}
+
+
+def mega_interleave_phase(dev, spec, cages, c_envs, c_st, c_gl, c_mk, c_ops, mega_s,
+                          mbm_problems, ss) -> dict:
+    """The interleaved cadence of the planner kernel (interleave=True: the
+    grow part every step, an active connect chain riding along): against
+    its plain version (the lockstep planner with interleave=True) exactly on
+    the wall problem, on the 700 cages (at least MIN_SHARE identical, the
+    divergent ones replayed with the kernel's index-order dots) and on the
+    MBM-shaped scenes at the budget and the 32x retry; every solved path
+    revalidated by the plain version; both cadences' kernel ms, steps,
+    solved counts and solves past the path buffer on the same problems; the
+    interleaved main path, run_suite(planner="mega") on the cages (launches
+    counted); the A/B suite walls of bench/interleave.py on the cages and on
+    700 MBM-shaped problems.  Returns the kernels line's row."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vamp_mvt_tpu_torch.bench import interleave, mbm
+    from vamp_mvt_tpu_torch.collision.environment import TABLES
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda, rrtc_mega_cuda, simplify_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega
+
+    inter_s = dataclasses.replace(mega_s, interleave=True)
+    d = spec.dimension
+
+    # the wall problem, exactly, at (K, C, W) = (1, 1, 1) and (4, 2, 2)
+    spec_w, envs_w, st_w, gl_w, mk_w = wall_problem(dev)
+    offs = torch.arange(3, device=dev, dtype=torch.int32) * 100
+    wall, err = {}, 0.0
+    for kcw in ((1, 1, 1), (4, 2, 2)):
+        s_w = rrtc.RRTCSettings(range=1.0, max_iterations=384, max_samples=512, max_path=64,
+                                samples_per_step=kcw[0], connect_segments=kcw[1],
+                                sample_window=kcw[2], interleave=True)
+        got = rrtc_mega.plan_batch_mega(spec_w, envs_w, st_w, gl_w, mk_w, s_w, offs, device=dev)
+        ref = rrtc.plan_batch_compact(spec_w, envs_w, st_w, gl_w, mk_w, s_w, offs, device=dev,
+                                      interleave=True)
+        torch.cuda.synchronize()
+        same = same_plan(got, ref)
+        k = torch.arange(64, device=dev)
+        live = (k[None] < ref.path_length[:, None])[..., None]
+        err = max(err, float(torch.where(live, (got.path - ref.path).abs(), 0).max()))
+        wall[str(kcw)] = {"identical": int(same.sum()), "solved": int(got.solved.sum()),
+                          "iterations": got.iterations.tolist()}
+        check(bool(same.all()), f"interleaved rrtc_mega equals plain on the wall problem, {kcw}")
+
+    # both cadences on the 700 cages; the interleaved kernel against its plain version
+    cad = {n: cadence_run(spec, c_envs, c_st, c_gl, c_mk, s)
+           for n, s in (("alternating", mega_s), ("interleaved", inter_s))}
+    kres = cad["interleaved"]["res"]
+    t0 = time.perf_counter()
+    pres = rrtc.plan_batch_compact(spec, c_envs, c_st, c_gl, c_mk, inter_s, device=dev,
+                                   interleave=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same = same_plan(kres, pres)
+    diverged = torch.nonzero(~same).flatten().tolist()
+    replay = index_order_replay(spec, c_envs, c_st, c_gl, c_mk, inter_s, kres, diverged[:4])
+    reval = paths_revalidate_plain(spec, c_envs, kres.path, kres.path_length)
+    check(float(same.float().mean()) >= MIN_SHARE, "interleaved rrtc_mega equals plain on the cages")
+    check(bool(reval[kres.solved].all()), "every solved interleaved cage path revalidates (plain)")
+    work = cad["interleaved"]["work"]
+    r_bound = bound(
+        int(np.sum(work[:, 0] * c_ops)) + int(work[:, 1].sum()) * rrtc_mega_cuda.ops_per_pair(d),
+        nbytes(cad["interleaved"]["ctl"], cad["interleaved"]["nodes0"],
+               *(getattr(c_envs, n) for n in TABLES))
+        + int(cad["interleaved"]["scal"][:, 6].sum()) * (d + 4) * 4
+        + len(c_st) * (mega_s.max_path * d + rrtc_mega_cuda.SCALARS + 2 * rrtc_mega_cuda.WORK) * 4)
+    cages_line = {"problems": len(c_st), **{n: c["line"] for n, c in cad.items()},
+                  "identical_share": float(same.float().mean()),
+                  "solved_plain": int(pres.solved.sum()), "diverged": diverged,
+                  "index_order_plain_equals_kernel": replay, "plain_ms": plain_ms,
+                  "solved_paths_revalidated_plain": int((reval & kres.solved).sum()),
+                  "work": {"configs": int(work[:, 0].sum()), "pairs": int(work[:, 1].sum())},
+                  **r_bound}
+
+    # the MBM-shaped scenes at the budget, then as run_suite's retry (32x,
+    # the solved rows' goals replaced by their starts; shares over the
+    # retried rows), both cadences' kernels at the budget
+    b_envs, b_st, b_gl, b_mk = mbm.build_batch(mbm_problems, device=dev)
+    mbm_line = {n: cadence_run(spec, b_envs, b_st, b_gl, b_mk, s)["line"]
+                for n, s in (("alternating", mega_s), ("interleaved", inter_s))}
+    mbm_line["by_budget"] = retry_compare(spec, b_envs, b_st, b_gl, b_mk, inter_s)
+
+    # the interleaved main path on the cages, launches counted
+    kernels = {"fkcc": fkcc_cuda, "rrtc_mega": rrtc_mega_cuda, "simplify_mega": simplify_mega_cuda}
+    for lib in kernels.values():
+        lib.LAUNCHES = 0
+    rrtc_mega.PAST_MAX_PATH = 0
+    tm = {}
+    t0 = time.perf_counter()
+    sres = mbm.run_suite("panda", data=cages, planner="mega", settings=inter_s, timings=tm)
+    torch.cuda.synchronize()
+    swall = time.perf_counter() - t0
+    launches = {n: lib.LAUNCHES for n, lib in kernels.items()}
+    past = rrtc_mega.PAST_MAX_PATH
+    ssum = sres.summary()
+    s_ok = paths_revalidate_plain(spec, c_envs, sres.simplified.path,
+                                  sres.simplified.path_length).cpu().numpy()
+    solved = np.asarray(sres.plan.solved) & sres.valid
+    check(launches["rrtc_mega"] > 0, "the interleaved main path launched the planner kernel")
+    check(bool(s_ok[solved].all()), "every solved interleaved simplified path revalidates")
+    suite_line = {"wall_s": swall, "summary": ssum, "timings": tm, "launches": launches,
+                  "past_max_path": past,
+                  "solved_paths_revalidated_plain": int((s_ok & solved).sum())}
+
+    # the A/B of bench/interleave.py (run_suite with interleave off and on)
+    ab = {src: interleave.main(["panda", "700", "--source", src])
+          for src in ("cages", "mbm_shaped")}
+    check(ab["cages"]["speedup"] is not None, "the A/B ran both cadences on the cages")
+    check("refused" not in ab["mbm_shaped"]["alternating"],
+          "the A/B ran the alternating cadence on the MBM-shaped problems")
+    emit({"phase": "mega_interleave", "settings": "run_suite's mega settings, interleave=True",
+          "wall_problem": wall, "cages": cages_line, "mbm_shaped": mbm_line,
+          "suite_mega_interleaved": suite_line, "ab": ab})
+    return row("rrtc_mega", cad["interleaved"]["line"]["ms"], plain_ms, r_bound, err,
+               launches["rrtc_mega"]) | {
+        "name": "rrtc_mega_interleave", "replaces": "vamp_mvt_tpu/planning/rrtc_mega.py:943",
+        "replaces_function": "vamp_mvt_tpu/planning/rrtc_mega.py::_run_mega, interleave=True "
+                             "(INTER, _make_mega_kernel)",
+        "max_abs_err_of": "the wall problem's paths"}
+
+
+def bench_phase() -> dict:
+    """The port's bench entry (python -m vamp_mvt_tpu_torch.bench) run in
+    this process on its default source: its JSON line, with the launches of
+    the two suite runs it makes."""
+    from vamp_mvt_tpu_torch.bench import __main__ as bench_main
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda, rrtc_mega_cuda, simplify_mega_cuda
+
+    kernels = {"fkcc": fkcc_cuda, "rrtc_mega": rrtc_mega_cuda, "simplify_mega": simplify_mega_cuda}
+    for lib in kernels.values():
+        lib.LAUNCHES = 0
+    line = bench_main.main([])
+    launches = {n: lib.LAUNCHES for n, lib in kernels.items()}
+    emit({"phase": "bench", **line, "launches": launches})
+    check(line["metric"] == "mbm_panda_problems_per_sec" and line["value"] > 0
+          and line["source"], "the bench entry prints its line")
+    check(all(v > 0 for v in launches.values()), "the bench entry launched every kernel")
+    return line
 
 
 def api_phase(dev) -> tuple[dict, dict]:
@@ -917,6 +1157,7 @@ def suite_robots_phase(dev, ss) -> list[dict]:
 
     from vamp_mvt_tpu_torch.bench import mbm, scenes as scene_mod
     from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda, rrtc_mega_cuda, simplify_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc_mega
     from vamp_mvt_tpu_torch.robots import registry
 
     kernels = {"fkcc": fkcc_cuda, "rrtc_mega": rrtc_mega_cuda, "simplify_mega": simplify_mega_cuda}
@@ -937,6 +1178,7 @@ def suite_robots_phase(dev, ss) -> list[dict]:
         envs = scene_envs.map(lambda t: t[rows])
         for lib in kernels.values():
             lib.LAUNCHES = 0
+        rrtc_mega.PAST_MAX_PATH = 0
         tm = {}
         t0 = time.perf_counter()
         res = mbm.run_suite(robot, data={"problems": {"mbm_shaped": problems}}, planner="mega",
@@ -944,12 +1186,14 @@ def suite_robots_phase(dev, ss) -> list[dict]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {n: lib.LAUNCHES for n, lib in kernels.items()}
+        past = rrtc_mega.PAST_MAX_PATH
         occupancy = {"rrtc_mega": dict(rrtc_mega_cuda.LAST_LAUNCH),
                      "simplify_mega": dict(simplify_mega_cuda.LAST_LAUNCH)}
         summ = res.summary()
         solved = np.asarray(res.plan.solved) & res.valid
         reval = paths_revalidate_plain(spec, envs, res.simplified.path,
                                        res.simplified.path_length).cpu().numpy()
+        unsolved = np.flatnonzero(~solved & res.valid)[:UNSOLVED_LISTED].tolist()
         n = min(ROBOTS_CHECK, len(rows))
         settings = mbm.default_settings(robot, "mega")
         m = mega_compare(spec, envs.map(lambda t: t[:n]), st[:n], gl[:n], mk[:n], settings, ss)
@@ -961,6 +1205,9 @@ def suite_robots_phase(dev, ss) -> list[dict]:
                                                     "connect_segments")},
               "dimension": spec.dimension, "spheres": spec.n_spheres, "wall_s": wall,
               "summary": summ, "timings": tm, "launches": launches, "occupancy": occupancy,
+              "past_max_path": past, "unsolved": {
+                  "scene_rows": [rows[i] for i in unsolved], "starts": st[unsolved].tolist(),
+                  "goals": gl[unsolved, 0].tolist()},
               "solved_paths_revalidated_plain": int((reval & solved).sum()), **m})
         print(res.percentile_table(), flush=True)
         check(summ["valid_problems"] == len(rows), f"every {robot} problem valid")
@@ -1357,18 +1604,21 @@ def main() -> int:
     kernels = {"fkcc": fkcc_cuda, "rrtc_mega": rrtc_mega_cuda, "simplify_mega": simplify_mega_cuda}
     for lib in kernels.values():
         lib.LAUNCHES = 0
+    rrtc_mega.PAST_MAX_PATH = 0
     mt = {}
     t0 = time.perf_counter()
     mres = mbm.run_suite("panda", data=cages, planner="mega", timings=mt)
     torch.cuda.synchronize()
     mwall = time.perf_counter() - t0
     mega_launches = {n: lib.LAUNCHES for n, lib in kernels.items()}
+    m_past = rrtc_mega.PAST_MAX_PATH
     msum = mres.summary()
     m_ok = int(paths_revalidate(spec, c_envs, mres.simplified.path,
                                 mres.simplified.path_length).sum())
     cost_ratio = msum["median_simplified_cost"] / plain_pipeline_cost
     emit({"phase": "suite_mega", "problems": MEGA_PROBLEMS, "wall_s": mwall, "summary": msum,
           "timings": mt, "launches": mega_launches, "simplified_paths_revalidated": m_ok,
+          "past_max_path": m_past,
           "median_simplified_cost_vs_plain": cost_ratio})
     print(mres.percentile_table(), flush=True)
     check(all(v > 0 for v in mega_launches.values()), "the main path launched every kernel")
@@ -1391,6 +1641,7 @@ def main() -> int:
         p["start"], p["goals"] = q_np[i, idx[0]].tolist(), [q_np[i, idx[1]].tolist()]
     for lib in kernels.values():
         lib.LAUNCHES = 0
+    rrtc_mega.PAST_MAX_PATH = 0
     st_ = {}
     t0 = time.perf_counter()
     sres = mbm.run_suite("panda", data={"problems": {"mbm_shaped": problems}}, planner="mega",
@@ -1404,6 +1655,7 @@ def main() -> int:
                             sres.simplified.path_length).cpu().numpy()
     emit({"phase": "suite_mega_mbm_shaped", "problems": len(problems), "wall_s": swall,
           "summary": ssum, "timings": st_, "launches": s_launches,
+          "past_max_path": rrtc_mega.PAST_MAX_PATH,
           "solved_paths_revalidated": int((s_ok & solved).sum())})
     check(bool(s_ok[solved].all()), "every solved MBM-shaped path revalidates")
 
@@ -1412,30 +1664,13 @@ def main() -> int:
     # then as run_suite's retry (32x the budget, the solved rows' goals
     # replaced by their starts), where the share is over the retried rows
     b_envs, b_st, b_gl, b_mk = mbm.build_batch(problems[:MBM_CHECK], device=dev)
-    mbm_check, g, retried = {}, b_gl, torch.ones(len(b_st), dtype=torch.bool, device=dev)
-    for budget in (mega_s.max_iterations, 32 * mega_s.max_iterations):
-        check(bool(retried.any()), f"MBM-shaped problems to compare at budget {budget}")
-        t0 = time.perf_counter()
-        got = rrtc_mega.plan_batch_mega(spec, b_envs, b_st, g, b_mk, mega_s, budget=budget,
-                                        device=dev)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        ref = rrtc.plan_batch_compact(spec, b_envs, b_st, g, b_mk,
-                                      dataclasses.replace(mega_s, max_iterations=budget),
-                                      device=dev)
-        torch.cuda.synchronize()
-        same_b = same_plan(got, ref)[retried]
-        mbm_check[str(budget)] = {
-            "problems": int(retried.sum()), "identical": int(same_b.sum()),
-            "solved": {"kernel": int(got.solved[retried].sum()),
-                       "plain": int(ref.solved[retried].sum())},
-            "kernel_s": t1 - t0, "plain_s": time.perf_counter() - t1}
-        check(float(same_b.float().mean()) >= MIN_SHARE,
-              f"rrtc_mega equals plain on the MBM-shaped scenes at budget {budget}")
-        retried = ~got.solved
-        g = torch.where(retried[:, None, None], b_gl, b_st[:, None])
+    mbm_check = retry_compare(spec, b_envs, b_st, b_gl, b_mk, mega_s)
     emit({"phase": "rrtc_mega_mbm_shaped", "settings": "run_suite's mega settings",
           "min_share": MIN_SHARE, "by_budget": mbm_check})
+
+    # --- mega_interleave: the interleaved cadence of the planner kernel ---
+    inter_row = mega_interleave_phase(dev, spec, cages, c_envs, c_st, c_gl, c_mk, c_ops, mega_s,
+                                      problems[:MBM_CHECK], ss)
 
     # --- the pointcloud path ----------------------------------------------
     # the 700 scenes again; start and goal are the first two configurations
@@ -1498,6 +1733,7 @@ def main() -> int:
         for lib in kernels.values():
             lib.LAUNCHES = 0
             lib.PC_WORK = None
+        rrtc_mega.PAST_MAX_PATH = 0
         t0 = time.perf_counter()
         try:
             pc_res, ptm = mbm.run_suite_pointcloud("panda", data=pc_data, settings=pc_settings)
@@ -1523,6 +1759,7 @@ def main() -> int:
           "summary": psum, "filter_median_ms": ptm["filter_median_ms"],
           "build_median_ms": ptm["build_median_ms"], "phases": ptm["phases"],
           "launches": pc_launches, "pc_work": pc_points,
+          "past_max_path": rrtc_mega.PAST_MAX_PATH,
           "solved_paths_revalidated_plain": int((p_reval & p_solved).sum())})
     print(pc_res.percentile_table(), flush=True)
     check(all(v > 0 for v in pc_launches.values()), "the pointcloud path launched every kernel")
@@ -1634,6 +1871,9 @@ def main() -> int:
     robot_rows = suite_robots_phase(dev, ss)
     prm_row = api_planners_phase(dev)
 
+    # --- bench: the port's bench entry on its default source (this slice) --
+    bench_phase()
+
     emit({"kernels": [
         row("fkcc", kernel_ms, plain_ms, kernel, max_abs_err, mega_launches["fkcc"])
         | {"replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
@@ -1642,6 +1882,7 @@ def main() -> int:
         row("rrtc_mega", rrtc_ms, rrtc_plain_ms, r_bound, rrtc_err, mega_launches["rrtc_mega"])
         | {"replaces": "vamp_mvt_tpu/planning/rrtc_mega.py:943",
            "replaces_function": "vamp_mvt_tpu/planning/rrtc_mega.py::_run_mega"},
+        inter_row,
         row("simplify_mega", simp_ms, simp_plain_ms, s_bound, simp_err,
             mega_launches["simplify_mega"])
         | {"replaces": "vamp_mvt_tpu/planning/simplify_mega.py:377",

@@ -734,3 +734,100 @@ def test_roadmap_planners_card_match_cpu(cuda):
     card, cpu = (vmt.sphere.roadmap(start, goal, env, rs, device=d) for d in (cuda, "cpu"))
     np.testing.assert_array_equal(card.vertices, cpu.vertices)
     assert card.edges == cpu.edges
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,c,w", [(1, 1, 1), (4, 2, 2)])
+def test_rrtc_mega_interleave_matches_plain(cuda, k, c, w):
+    """The interleaved cadence (grow every step, an active chain riding
+    along) on the wall problem: the kernel equals its plain version, the
+    lockstep planner with interleave=True, exactly."""
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega
+
+    spec, envs, starts, goals, masks = _wall(cuda)
+    offs = torch.arange(3, device=cuda, dtype=torch.int32) * 100
+    s = _wall_settings(k, c, w, interleave=True)
+    before = rrtc_mega_cuda.LAUNCHES
+    got = rrtc_mega.plan_batch_mega(spec, envs, starts, goals, masks, s, offs, device=cuda)
+    torch.cuda.synchronize()
+    assert rrtc_mega_cuda.LAUNCHES == before + 1
+    ref = rrtc.plan_batch_compact(spec, envs, starts, goals, masks, s, offs, device=cuda,
+                                  interleave=True)
+    assert bool(ref.solved.any())
+    for f in ("solved", "iterations", "size_start", "size_goal", "path_length"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(ref, f).cpu()), f
+    torch.testing.assert_close(got.cost, ref.cost, rtol=1e-6, atol=0)
+    for i in range(3):
+        L = int(ref.path_length[i])
+        torch.testing.assert_close(got.path[i, :L], ref.path[i, :L], rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_rrtc_mega_interleave_matches_plain_on_cages(cuda, monkeypatch):
+    """The interleaved kernel on 16 Panda sphere cages at run_suite's mega
+    settings against its plain version, whose nearest-neighbour dots are
+    summed in index order as the kernel sums them (rrtc.IndexOrderTorch)."""
+    from vamp_mvt_tpu_torch.bench import mbm
+    from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega
+
+    spec = registry.load("panda")
+    envs, starts, goals, masks = mbm.build_batch(mbm.cage_suite(16)["problems"]["cage"],
+                                                 device=cuda)
+    s = dataclasses.replace(mbm.default_settings("panda", "mega"), interleave=True)
+    got = rrtc_mega.plan_batch_mega(spec, envs, starts, goals, masks, s, device=cuda)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(rrtc, "torch", rrtc.IndexOrderTorch())
+    ref = rrtc.plan_batch_compact(spec, envs, starts, goals, masks, s, device=cuda,
+                                  interleave=True)
+    monkeypatch.undo()
+    assert bool(ref.solved.any())
+    for f in ("solved", "iterations", "size_start", "size_goal", "path_length"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(ref, f).cpu()), f
+    torch.testing.assert_close(got.cost, ref.cost, rtol=1e-6, atol=0)
+
+
+def _cloud_env(kind):
+    """The sphere cage as a cloud of 150 points on each sphere, built as an
+    MVT or a CAPT structure through the user API (no kernel form)."""
+    import vamp_mvt_tpu_torch as vmt
+    from vamp_mvt_tpu_torch.bench import mbm
+
+    i = np.arange(150) + 0.5
+    phi, th = np.arccos(1 - 2 * i / 150), np.pi * (1 + 5 ** 0.5) * i
+    unit = np.stack([np.cos(th) * np.sin(phi), np.sin(th) * np.sin(phi), np.cos(phi)], 1)
+    pts = np.concatenate([np.asarray(c) + mbm.CAGE_RADIUS * unit
+                          for c in mbm.CAGE_CENTERS]).astype(np.float32)
+    env = vmt.Environment()
+    r_min, r_max = vmt.panda.min_max_radii()
+    if kind == "mvt":
+        env.add_mvt_pointcloud(pts, r_min, r_max, (-1.0, -1.0, -0.5), (1.0, 1.0, 1.5), R_POINT)
+    else:
+        env.add_capt_pointcloud(pts, r_min, r_max, R_POINT)
+    return env
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["capt", "mvt"])
+def test_api_with_mvt_or_capt_cloud_on_the_card(cuda, kind):
+    """An MVT or CAPT cloud without its kernel form: no kernel reads it
+    (fkcc_cuda.supports), so on the card validate and rrtc take the plain
+    version there, as the JAX package takes its XLA path; they run without
+    raising and equal their device="cpu" results."""
+    import vamp_mvt_tpu_torch as vmt
+    from vamp_mvt_tpu_torch.bench import profile_suite
+
+    env = _cloud_env(kind)
+    _, A, B = profile_suite.api_cage()
+    assert not fkcc_cuda.supports(env.build(cuda))
+    res = {}
+    for d in (None, "cpu"):
+        res[d] = ([vmt.panda.validate(x, env, device=d) for x in (A, B, [0.0] * 7)],
+                  vmt.panda.rrtc(A, B, env, device=d))
+    (v_card, r_card), (v_cpu, r_cpu) = res[None], res["cpu"]
+    assert v_card == v_cpu and v_card[:2] == [True, True]
+    assert bool(r_card.solved) and bool(r_cpu.solved)
+    for f in ("iterations", "path_length", "size_start", "size_goal"):
+        assert int(getattr(r_card, f)) == int(getattr(r_cpu, f)), f
+    L = int(r_cpu.path_length)
+    torch.testing.assert_close(r_card.path[:L].cpu(), r_cpu.path[:L], rtol=0, atol=1e-5)

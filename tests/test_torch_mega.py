@@ -14,6 +14,10 @@ against those plain versions in tests/test_torch_gpu.py and chip_smoke.py.
   tests/test_mega.py): exact solved flags, iterations, tree sizes and path
   lengths, costs within rtol 1e-6, paths within atol 1e-6; also the retry
   call (a runtime budget, solved rows' goals replaced by their starts).
+- The interleaved cadence (interleave=True): the port's plain version
+  against the JAX megakernel's with the same assertions (costs within rtol
+  1e-5); every problem solved with valid segments at test_mega.py's
+  settings; the lockstep planners of both packages ignore the flag.
 - `simplify_batch_mega` on the wall problem's planned paths: equal path
   lengths, costs within rtol 1e-5, paths within atol 1e-5 (B-spline pulls
   accumulate float32 rounding that the two packages order differently);
@@ -36,7 +40,7 @@ from vamp_mvt_tpu.planning import simplify_mega as jsimplify_mega
 from vamp_mvt_tpu.robots import registry as jregistry
 from vamp_mvt_tpu_torch.bench import mbm
 from vamp_mvt_tpu_torch.collision import environment as envmod
-from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega, simplify, simplify_mega
+from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega, simplify, simplify_mega, validate
 from vamp_mvt_tpu_torch.robots import registry
 
 from test_torch_planner import assert_same_plan, sphere_problem
@@ -215,12 +219,82 @@ def test_plan_batch_mega_retry_call_matches_jax():
     assert (got.iterations.numpy()[~unsolved] == 0).all()
 
 
+@pytest.mark.parametrize("k,c,w", [(1, 1, 1), (4, 2, 2)])
+def test_plan_batch_mega_interleave_matches_jax(k, c, w):
+    """The interleaved cadence (grow every step, an active chain riding
+    along): the port's plain version against the JAX megakernel with
+    interleave=True, in interpret mode."""
+    _, _, _, _, starts, goals, _ = sphere_problem()
+    ref, got = _plan_both(_wall_settings(k, c, w, interleave=True), starts, goals)
+    assert bool(got.solved.any())
+    assert_same_plan(ref, got, 3, rtol=1e-5)
+
+
+def test_plan_batch_mega_interleave_solves_with_valid_paths():
+    """tests/test_mega.py's interleave checks on the port's result: every
+    problem solved, every segment of every path valid."""
+    _, spec, _, envs_t, starts, goals, masks = sphere_problem()
+    res = rrtc_mega.plan_batch_mega(
+        spec, envs_t, torch.as_tensor(starts), torch.as_tensor(goals), torch.as_tensor(masks),
+        rrtc.RRTCSettings(**_wall_settings(4, 2, 2, max_iterations=2048, interleave=True)),
+        device="cpu")
+    assert bool(res.solved.all())
+    for i in range(3):
+        L = int(res.path_length[i])
+        assert L >= 2
+        p = res.path[i, :L]
+        ok = validate.validate_motion_batch(spec, envs_t.map(lambda t: t[i : i + 1]),
+                                            p[None, :-1], p[None, 1:], 64)
+        assert bool(ok.all())
+
+
+def test_lockstep_planner_ignores_interleave_as_jax():
+    """rrtc.plan_batch keeps the alternating cadence under interleave=True,
+    as the JAX lockstep planner does: both equal their interleave=False
+    results and each other."""
+    jspec, spec, envs_j, envs_t, starts, goals, masks = sphere_problem()
+    kw = _wall_settings(4, 2, 2)
+    plan_j = jax.jit(lambda e, s, g, m, o, st: jrrtc.plan_batch(jspec, e, s, g, m, st, o),
+                     static_argnums=5)
+    args_j = (envs_j, jnp.asarray(starts), jnp.asarray(goals), jnp.asarray(masks),
+              jnp.asarray(OFFSETS))
+    args_t = (spec, envs_t, torch.as_tensor(starts), torch.as_tensor(goals),
+              torch.as_tensor(masks))
+    ref = plan_j(*args_j, jrrtc.RRTCSettings(**kw, interleave=True))
+    ref_alt = plan_j(*args_j, jrrtc.RRTCSettings(**kw))
+    got = rrtc.plan_batch(*args_t, rrtc.RRTCSettings(**kw, interleave=True),
+                          torch.as_tensor(OFFSETS))
+    got_alt = rrtc.plan_batch(*args_t, rrtc.RRTCSettings(**kw), torch.as_tensor(OFFSETS))
+    assert_same_plan(ref, got, 3, rtol=1e-6)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(got_alt, f)), f
+        np.testing.assert_array_equal(np.asarray(getattr(ref, f)), np.asarray(getattr(ref_alt, f)))
+
+
+def test_finalize_mega_counts_solutions_past_the_path_buffer():
+    """PAST_MAX_PATH counts the problems the kernel's scalars mark done
+    whose chains together pass max_path and that no direct goal closed; the
+    result counts them unsolved."""
+    B, P, d = 4, 4, 2
+    paths = torch.zeros((B, P, d))
+    scal = torch.zeros((B, 16), dtype=torch.int32)
+    scal[:, 0] = torch.tensor([1, 1, 1, 0])           # done
+    scal[:, 3] = 1                                    # tree a was the start tree
+    scal[:, 11] = torch.tensor([2, 3, 3, 3])          # chain lengths: totals
+    scal[:, 12] = torch.tensor([2, 2, 2, 2])          # 4, 5, 5, 5
+    direct = torch.tensor([False, False, True, False])
+    rrtc_mega.PAST_MAX_PATH = 0
+    res = rrtc_mega._finalize_mega(paths, scal, paths[:, 0], paths[:, None, -1], direct,
+                                   torch.zeros(B, dtype=torch.long))
+    assert rrtc_mega.PAST_MAX_PATH == 1
+    assert res.solved.tolist() == [True, False, True, False]
+
+
 def test_unported_planner_settings_raise():
     _, spec, _, envs_t, starts, goals, masks = sphere_problem(1)
     args = (spec, envs_t, torch.as_tensor(starts), torch.as_tensor(goals), torch.as_tensor(masks))
     base = rrtc.RRTCSettings(**_wall_settings(4, 2, 2))
-    for change in (dict(interleave=True), dict(profile_mask=3), dict(pc_phase=1),
-                   dict(sampler="threefry")):
+    for change in (dict(profile_mask=3), dict(pc_phase=1), dict(sampler="threefry")):
         with pytest.raises(NotImplementedError):
             rrtc_mega.plan_batch_mega(*args, dataclasses.replace(base, **change), device="cpu")
     with pytest.raises(ValueError):

@@ -226,3 +226,36 @@ def test_converted_jax_environments():
                 k == only for k in ("mvt", "capt", "pck")]
             got = fkcc.fkcc(spec, port, torch.as_tensor(q), device="cpu").numpy()
             np.testing.assert_array_equal(got, want, err_msg=only)
+
+
+@pytest.mark.parametrize("kinds", [(), ("mvt",), ("capt",), ("pck",), ("mvt", "pck")])
+def test_supports_matches_jax(kinds):
+    """fkcc_cuda.supports is the JAX package's fkcc_pallas.supports: false
+    only for an MVT or CAPT cloud without its kernel form, which the
+    callers' dispatch (validate.fkcc_valid) sends to the plain version."""
+    from vamp_mvt_tpu.ops.kernels import fkcc_pallas as jfp
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
+    from vamp_mvt_tpu_torch.planning import validate
+
+    radius = 0.25
+    spec = registry.sphere_spec(lows=WMIN, highs=WMAX, radius=radius)
+    jspec = jregistry.sphere_spec(lows=WMIN, highs=WMAX, radius=radius)
+    pts = wall_points()
+    tb, jb = envmod.EnvironmentBuilder(), jenvmod.EnvironmentBuilder()
+    for b, classes in ((tb, pc_kernel.radius_classes(spec.sphere_radius)),
+                       (jb, jradius_classes(jspec.sphere_radius))):
+        b.add_sphere([0.0, 0.0, 5.0], 0.1)
+        if "mvt" in kinds:
+            b.add_mvt_pointcloud(pts, radius, radius, WMIN, WMAX, R_POINT)
+        if "capt" in kinds:
+            b.add_capt_pointcloud(pts, radius, radius, R_POINT)
+        if "pck" in kinds:
+            b.add_kernel_pointcloud(pts, classes, WMIN, WMAX, R_POINT, radius)
+    env = tb.build(device="cpu")
+    assert fkcc_cuda.supports(env) == jfp.supports(jb.build())
+    assert fkcc_cuda.supports(env) == (kinds not in (("mvt",), ("capt",)))
+    q = torch.as_tensor(np.random.default_rng(4).uniform(WMIN, WMAX, (1, 256, 3)),
+                        dtype=torch.float32)
+    envs = env.map(lambda t: t[None])
+    assert torch.equal(validate.fkcc_valid(spec, envs, q),
+                       fkcc_cuda.fkcc_batched_plain(spec, envs, q))

@@ -31,7 +31,7 @@ import torch
 from vamp_mvt_tpu_torch.collision import environment as envmod
 from vamp_mvt_tpu_torch.device import resolve_device
 from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
-from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega, simplify, simplify_mega
+from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega, simplify, simplify_mega, validate
 from vamp_mvt_tpu_torch.robots import registry
 
 RESOURCES = Path(os.environ.get("VAMP_MVT_TPU_RESOURCES", "/root/reference/resources"))
@@ -430,13 +430,13 @@ def _valid_fused(spec, envs, starts, goals, masks):
     """Start + goal validity in one fused FK+CC call (collision-only, like
     the reference's check_bounds=false)."""
     qall = torch.cat([starts[:, None], goals], dim=1)  # (B, 1+G, d)
-    free = fkcc_cuda.fkcc_batched(spec, envs, qall)
+    free = validate.fkcc_valid(spec, envs, qall)
     return free[:, 0] & (free[:, 1:] & masks).any(1)
 
 
 def validate_configs(spec, envs, configs, check_bounds: bool = False):
     """Config validity (B, d) -> (B,): collision, optionally joint limits."""
-    free = fkcc_cuda.fkcc_batched(spec, envs, configs[:, None])[:, 0]
+    free = validate.fkcc_valid(spec, envs, configs[:, None])[:, 0]
     if not check_bounds:
         return free
     lo = torch.as_tensor(spec.limits_low, device=configs.device)

@@ -11,7 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vamp_mvt_tpu_torch.bench import mbm
 from vamp_mvt_tpu_torch.bench.mbm import STANDARD_SCENARIOS
+from vamp_mvt_tpu_torch.planning import validate
 from vamp_mvt_tpu_torch.robots import registry
 
 
@@ -67,3 +69,28 @@ def first_two_valid(q: torch.Tensor, ok: torch.Tensor, keep: int | None = None):
     st = torch.stack([q[i, j[0]] for i, j in zip(rows, first2)])
     gl = torch.stack([q[i, j[1]] for i, j in zip(rows, first2)])[:, None]
     return rows, st, gl, torch.ones((len(rows), 1), dtype=torch.bool, device=q.device)
+
+
+def mbm_shaped_suite(robot: str, n: int, seed: int = 1, n_configs: int = 1024,
+                     device=None) -> dict:
+    """A suite of `n` problems for `robot` in the MBM data layout (problem
+    kind "mbm_shaped"): the first `n` MBM-shaped scenes (seed `seed`) in
+    which two of `n_configs` seeded configurations (seed `seed + 1`) are
+    valid, those two as start and goal.  Scenes are drawn in rounds of
+    doubling size until `n` qualify; the first k problems do not depend on
+    `n`.  The check runs on `device` (default: the GPU)."""
+    spec = registry.load(robot)
+    pool = n
+    while True:
+        scenes = mbm_shaped_problems(pool, seed)
+        envs = mbm.build_batch(scenes, device=device)[0]
+        q = seeded_configs(spec, pool, n_configs, seed + 1, envs.spheres.device)
+        ok = validate.fkcc_valid(spec, envs, q)
+        if int((ok.sum(1) >= 2).sum()) >= n:
+            break
+        pool *= 2
+    rows, st, gl, _ = first_two_valid(q, ok, keep=n)
+    problems = [dict(scenes[r], start=s_, goals=[g_])
+                for r, s_, g_ in zip(rows, st.tolist(), gl[:, 0].tolist())]
+    return {"robot": robot, "joints": list(spec.joint_names),
+            "problems": {"mbm_shaped": problems}}

@@ -6,10 +6,11 @@
 // block loops until its own problem is solved, out of sample budget or out
 // of node capacity, so a finished problem frees its SM at once.  One step
 // mirrors the lockstep plain version, vamp_mvt_tpu_torch/planning/rrtc.py
-// (_make_step), which the tests hold it against:
+// (_make_step), which the tests hold it against.  A step has a grow part
+// and a connect part:
 //
-//   grow step (no connect chain active):
-//     - tree balancing;
+//   grow part:
+//     - tree balancing (only while no connect chain is active);
 //     - K*W Halton samples (the integer digit recurrence of sampling/halton.py,
 //       numerator times the float32 constant 1/denom, scaled by the float32
 //       spans and lows of the plain version);
@@ -22,7 +23,19 @@
 //       (fkcc_device.cuh), inserts, dynamic-domain radius updates;
 //     - nearest node of tree b for every inserted node, and entry into a
 //       connect chain from the one nearest to tree b;
-//   connect step: up to C increments of the chain, inserted while valid.
+//   connect part: up to C increments of the active chain, inserted while
+//     valid.
+//
+// Two cadences, as in the TPU kernel (its `interleave` setting, INTER).  The
+// alternating one (the default) runs the grow part while no chain is active
+// and the connect part while one is.  The interleaved one runs the grow part
+// every step, and an active chain's increments ride along in the same step:
+// one FK + collision pass covers the grow edges and the chain's edges, the
+// chain's valid prefix is inserted first (rows n_nodes..), the grow nodes
+// after it, both nearest-neighbour scans read the pre-step tree, and a new
+// chain starts only where the old one failed or was absent.  The fixed cost
+// of a step (sampling, the scans, the bookkeeping) is then paid once where
+// the alternating cadence pays it on two steps.
 //
 // At the end the block walks both parent chains and exports only the
 // max_path path rows and the scalars (plus its work counters: configurations
@@ -39,14 +52,14 @@
 // problem it stays in L1/L2.  Nearest-neighbour scans stage 128 node rows at
 // a time into shared memory.
 //
-// What bounds it.  Per grow step the block evaluates up to K edges of
-// 8 * ceil(length * resolution / 8) points each through FK + collision
-// (some 18k-30k FP32 operations per Panda configuration) and scans the live
-// tree once per sample (2d + 3 operations per node-sample pair), so it is
-// bound by FP32 arithmetic; the node rows it reads are a few KB a step.  The
-// block runs one problem with T threads, and its shared memory (mostly the
-// FK scratch of T threads: 117,676 bytes for Panda at T = 128) allows one
-// block per SM, so 132 problems are in flight on an H100 and the slowest
+// What bounds it.  Per step the block evaluates up to K grow edges and C
+// chain increments of 8 * ceil(length * resolution / 8) points each through
+// FK + collision (some 18k-30k FP32 operations per Panda configuration) and
+// scans the live tree once per sample (2d + 3 operations per node-sample
+// pair), so it is bound by FP32 arithmetic in either cadence; the node rows
+// it reads are a few KB a step.  The block runs one problem with T threads,
+// and its shared memory (mostly the FK scratch of T threads: 117,676 bytes
+// for Panda at T = 128) allows one block per SM, so 132 problems are in flight on an H100 and the slowest
 // problem sets the kernel's end.
 //
 // Numerics.  --fmad=false; every sum in the plain version's order (sum_last
@@ -78,12 +91,12 @@ constexpr float kBig = 1.0e30f;
 // The launcher's integer parameters (ip[]) then its float ones (fp[]), in
 // this order (ops/kernels/rrtc_mega_cuda.py::params).
 struct PlanParams {
-  int d, K, C, KW, M, max_path, num_points, dyn, balance, a_start0, G1, B;
+  int d, K, C, KW, M, max_path, num_points, dyn, balance, a_start0, G1, B, inter;
   int base[kMaxDim], digits[kMaxDim];
   float range, inv_range, res8, radius, grow_ok, shrink_fail, min_radius, tree_ratio;
   float inv_denom[kMaxDim], low[kMaxDim], span[kMaxDim];
 };
-constexpr int kIntParams = 12 + 2 * kMaxDim;
+constexpr int kIntParams = 13 + 2 * kMaxDim;
 constexpr int kFloatParams = 8 + 3 * kMaxDim;
 static_assert(sizeof(PlanParams) == 4 * (kIntParams + kFloatParams), "PlanParams is packed");
 
@@ -91,7 +104,7 @@ static_assert(sizeof(PlanParams) == 4 * (kIntParams + kFloatParams), "PlanParams
 struct State {
   int iters, sample_idx, n_nodes, size_start, size_goal, a_is_start, connect;
   int c_tip, c_rem, c_other, done, junc_a, junc_b, a_j_start, gsteps, csteps;
-  int budget, consumed, n_acc, n_ins, kc;
+  int budget, consumed, n_ins, kc;
   float c_len;
 };
 
@@ -193,6 +206,9 @@ __device__ void nearest_scan(const float* nb, int RS, int d, int n_nodes, float 
   __syncthreads();
 }
 
+// kInter: the interleaved cadence (one instantiation each, so the alternating
+// one carries none of its code).
+template <bool kInter>
 __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
                                  const int* __restrict__ ctl,
                                  const float* __restrict__ nodes0,
@@ -270,8 +286,12 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
     const int n_nodes = st.n_nodes;
     if (!(st.done == 0 && (st.iters < st.budget || st.connect) && n_nodes < M)) break;
     const bool grow = st.connect == 0;
+    // The alternating cadence runs either part a step; the interleaved one
+    // (kInter) runs the grow part every step, an active chain riding along.
+    const bool do_grow = grow || kInter;
+    const bool do_conn = !grow;
 
-    // tree balancing (rrtc.hh:100-108), grow steps only
+    // tree balancing (rrtc.hh:100-108), while no chain is active
     int a_is = st.a_is_start;
     if (grow) {
       const float asize = (float)(a_is ? st.size_start : st.size_goal);
@@ -280,10 +300,10 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
       if (!p.balance || ratio < p.tree_ratio) a_is = 1 - a_is;
     }
     const float af = (float)a_is;
-    int n_edges;
+    int n_acc = 0, n_cedges = 0;  // grow edges, then the chain's increments
     float n_conn = 1.0f;
 
-    if (grow) {
+    if (do_grow) {
       // --- K*W Halton samples scaled to the joint limits
       for (int lane = tid; lane < KW; lane += T) {
         const int idx = st.sample_idx + lane;
@@ -330,7 +350,7 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
       const int n_words = (KW + 31) / 32;
       int total_acc = 0;
       for (int w = 0; w < n_words; ++w) total_acc += __popc(s_words[w]);
-      const int n_acc = min(total_acc, K);
+      n_acc = min(total_acc, K);
       for (int r = 0; r < kLanesPerThread; ++r) {
         const int lane = tid + r * T;
         if (lane >= KW || !acc[r]) continue;
@@ -362,19 +382,21 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
         s_en[e] = fmaxf(ceilf(fminf(nd, p.range) * p.res8), 1.0f);
         s_eq2[e] = sum_sq(nw, d);
       }
-      n_edges = n_acc;
-      if (tid == 0) st.n_acc = n_acc;
-    } else {
-      n_edges = min(C, st.c_rem);
+    }
+    if (do_conn) {
+      n_cedges = min(C, st.c_rem);
       const float* tip = nb + (long long)st.c_tip * RS;
       for (int j = tid; j < d; j += T) s_tip[j] = tip[j];
       n_conn = fmaxf(ceilf(st.c_len * p.res8), 1.0f);
     }
     __syncthreads();
+    // edges 0..n_acc-1 grow, n_acc..n_edges-1 the chain's increments, each
+    // with its own point count
+    const int n_edges = n_acc + n_cedges;
     if (tid == 0) {
       s_eoff[0] = 0;
       for (int e = 0; e < n_edges; ++e) {
-        const float n = grow ? s_en[e] : n_conn;
+        const float n = e < n_acc ? s_en[e] : n_conn;
         s_eoff[e + 1] = s_eoff[e] + min(8 * (int)n, p.num_points);
         s_ebad[e] = 0;
       }
@@ -382,35 +404,39 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
     }
     __syncthreads();
 
-    // --- FK + collision of every interpolation point of the active edges
+    // --- FK + collision of every interpolation point of both kinds of edge
     const int total = s_eoff[n_edges];
     for (int pt = tid; pt < total; pt += T) {
       int e = 0;
       while (s_eoff[e + 1] <= pt) ++e;
       const int k = pt - s_eoff[e] + 1;
-      const float n = grow ? s_en[e] : n_conn;
+      const bool is_grow = e < n_acc;
+      const float n = is_grow ? s_en[e] : n_conn;
       const float frac = fminf((float)k / (8.0f * n), 1.0f);
-      if (grow) {
+      if (is_grow) {
         for (int j = 0; j < d; ++j) s_q[j * T + tid] = s_ecfg[e * d + j] + s_evec[e * d + j] * frac;
       } else {
-        const float seg = (float)e + frac;
+        const float seg = (float)(e - n_acc) + frac;
         for (int j = 0; j < d; ++j) s_q[j * T + tid] = s_tip[j] + s_inc[j] * seg;
       }
       if (fkcc::config_vmin(env, robot, s_pose, T, tid, s_q + tid, T, pcw) < 0.0f) s_ebad[e] = 1;
     }
     __syncthreads();
 
-    if (grow) {
-      const int n_acc = st.n_acc;
-      // --- insert positions: every valid edge, in order, while room remains
+    // --- insert positions: the chain's leading run of valid increments at
+    // n_nodes.., then every valid grow edge, in order, while room remains
+    int prefix = 0;
+    while (prefix < n_cedges && !s_ebad[n_acc + prefix]) ++prefix;
+    const int c_ins = min(prefix, M - n_nodes);
+    if (n_acc > 0) {
       if (tid == 0) {
-        const int room = M - n_nodes;
+        const int gbase = n_nodes + c_ins;
         int order = 0, n_ins = 0;
         for (int e = 0; e < n_acc; ++e) {
           s_epos[e] = -1;
           if (s_ebad[e]) continue;
-          if (order < room) {
-            s_epos[e] = n_nodes + order;
+          if (order < M - gbase) {
+            s_epos[e] = gbase + order;
             ++n_ins;
           }
           ++order;
@@ -418,136 +444,115 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
         st.n_ins = n_ins;
       }
       __syncthreads();
-      const int n_ins = st.n_ins;
+    }
+    const int n_ins = n_acc > 0 ? st.n_ins : 0;
 
-      // --- nearest node of tree b (pre-step) for every edge, connect entry
+    // --- nearest node of tree b (the pre-step prefix) for every grow edge
+    if (n_ins > 0) {
+      float best[kLanesPerThread];
+      int bidx[kLanesPerThread];
+      nearest_scan(nb, RS, d, n_nodes, af, false, s_enew, s_eq2, n_acc, s_chunk, best,
+                   bidx, pairs);
+      for (int r = 0; r < kLanesPerThread; ++r) {
+        const int e = tid + r * T;
+        if (e < n_acc) {
+          s_eod[e] = sqrtf(fmaxf(best[r], 0.0f));
+          s_eoidx[e] = bidx[r];
+        }
+      }
+      __syncthreads();
+    }
+
+    // --- inserts: configuration, tree flag, radius, parent, norm
+    for (int j = tid; j < c_ins; j += T) {
+      float* row = nb + (long long)(n_nodes + j) * RS;
+      const float step = (float)j + 1.0f;
+      for (int k = 0; k < d; ++k) row[k] = s_tip[k] + s_inc[k] * step;
+      row[d] = af;
+      row[d + 1] = kBig;
+      row[d + 2] = __int_as_float(j == 0 ? st.c_tip : n_nodes + j - 1);
+      row[d + 3] = sum_sq(row, d);
+    }
+    for (int e = tid; e < n_acc; e += T) {
+      const int pos = s_epos[e];
+      if (pos < 0) continue;
+      float* row = nb + (long long)pos * RS;
+      for (int j = 0; j < d; ++j) row[j] = s_enew[e * d + j];
+      row[d] = af;
+      row[d + 1] = kBig;
+      row[d + 2] = __int_as_float(s_enear[e]);
+      row[d + 3] = s_eq2[e];
+    }
+    if (tid == 0) {
+      // dynamic-domain radius updates (rrtc.hh:152-155, 226-237): from the
+      // pre-step radii, in lane order, so the last lane sharing a node wins
+      if (p.dyn) {
+        for (int e = 0; e < n_acc; ++e) {
+          const float r = s_enrad[e];
+          const bool inf_r = r > 0.5f * kBig;
+          const float nr = !s_ebad[e] ? (inf_r ? r : r * p.grow_ok)
+                                      : (inf_r ? p.radius : fmaxf(r * p.shrink_fail, p.min_radius));
+          nb[(long long)s_enear[e] * RS + d + 1] = nr;
+        }
+      }
+      int kc = 0;
       if (n_ins > 0) {
-        float best[kLanesPerThread];
-        int bidx[kLanesPerThread];
-        nearest_scan(nb, RS, d, n_nodes, af, false, s_enew, s_eq2, n_acc, s_chunk, best,
-                     bidx, pairs);
-        for (int r = 0; r < kLanesPerThread; ++r) {
-          const int e = tid + r * T;
-          if (e < n_acc) {
-            s_eod[e] = sqrtf(fmaxf(best[r], 0.0f));
-            s_eoidx[e] = bidx[r];
+        float bd = inf_f();
+        for (int e = 0; e < n_acc; ++e) {
+          if (s_epos[e] >= 0 && s_eod[e] < bd) {
+            bd = s_eod[e];
+            kc = e;
           }
         }
-        }
-      __syncthreads();
+      }
+      st.kc = kc;
+    }
+    __syncthreads();
 
-      // --- inserts: configuration, tree flag, radius, parent, norm
-      for (int e = tid; e < n_acc; e += T) {
-        const int pos = s_epos[e];
-        if (pos < 0) continue;
-        float* row = nb + (long long)pos * RS;
-        for (int j = 0; j < d; ++j) row[j] = s_enew[e * d + j];
-        row[d] = af;
-        row[d + 1] = kBig;
-        row[d + 2] = __int_as_float(s_enear[e]);
-        row[d + 3] = s_eq2[e];
+    // --- state update (thread 0): the chain's outcome, then entry into a
+    // new chain from the grow node nearest to tree b, where the old chain
+    // failed or was absent
+    const int kc = st.kc;
+    const float other_dist = s_eod[kc];
+    const int other = s_eoidx[kc];
+    const int n_ext = (int)ceilf(other_dist * p.inv_range);
+    const float n_ext_f = fmaxf((float)n_ext, 1.0f);
+    const bool chain_ok = do_conn && prefix == n_cedges && c_ins == prefix;
+    const bool enter = do_grow && n_ins > 0 && !chain_ok;
+    if (enter) {
+      const float* orow = nb + (long long)other * RS;
+      for (int j = tid; j < d; j += T) s_inc[j] = (orow[j] - s_enew[kc * d + j]) / n_ext_f;
+    }
+    if (tid == 0) {
+      const int n_nodes_new = n_nodes + c_ins + n_ins;
+      if (a_is) st.size_start += c_ins + n_ins;
+      else st.size_goal += c_ins + n_ins;
+      const int rem_chain = st.c_rem - prefix;
+      const int tip_after = enter ? s_epos[kc]
+                                  : (chain_ok && prefix > 0 ? n_nodes + prefix - 1 : st.c_tip);
+      const int rem_after = enter ? n_ext : (do_conn ? rem_chain : 0);
+      const bool joined = ((enter && n_ext == 0) || (chain_ok && rem_chain == 0)) && st.done == 0;
+      const bool cnext = ((enter && n_ext > 0) || (chain_ok && rem_chain > 0)) && !joined &&
+                         n_nodes_new < M;
+      if (enter) st.c_len = other_dist / n_ext_f;
+      if (joined) {
+        st.done = 1;
+        st.junc_a = tip_after;
+        st.junc_b = enter ? other : st.c_other;
+        st.a_j_start = a_is;
       }
-      if (tid == 0) {
-        // dynamic-domain radius updates (rrtc.hh:152-155, 226-237): from the
-        // pre-step radii, in lane order, so the last lane sharing a node wins
-        if (p.dyn) {
-          for (int e = 0; e < n_acc; ++e) {
-            const float r = s_enrad[e];
-            const bool inf_r = r > 0.5f * kBig;
-            const float nr = !s_ebad[e] ? (inf_r ? r : r * p.grow_ok)
-                                        : (inf_r ? p.radius : fmaxf(r * p.shrink_fail, p.min_radius));
-            nb[(long long)s_enear[e] * RS + d + 1] = nr;
-          }
-        }
-        int kc = 0;
-        if (n_ins > 0) {
-          float bd = inf_f();
-          for (int e = 0; e < n_acc; ++e) {
-            if (s_epos[e] >= 0 && s_eod[e] < bd) {
-              bd = s_eod[e];
-              kc = e;
-            }
-          }
-        }
-        st.kc = kc;
-      }
-      __syncthreads();
-
-      // --- state update (thread 0), connect-chain entry
-      const int kc = st.kc;
-      const float other_dist = s_eod[kc];
-      const int other = s_eoidx[kc];
-      const int n_ext = (int)ceilf(other_dist * p.inv_range);
-      const float n_ext_f = fmaxf((float)n_ext, 1.0f);
-      const bool enter = n_ins > 0;
-      if (enter) {
-        const float* orow = nb + (long long)other * RS;
-        for (int j = tid; j < d; j += T) s_inc[j] = (orow[j] - s_enew[kc * d + j]) / n_ext_f;
-      }
-      if (tid == 0) {
-        const int n_nodes_new = n_nodes + n_ins;
-        if (a_is) st.size_start += n_ins;
-        else st.size_goal += n_ins;
-        const int tip_after = enter ? s_epos[kc] : st.c_tip;
-        const int rem_after = enter ? n_ext : 0;
-        const bool joined = enter && n_ext == 0 && st.done == 0;
-        const bool cnext = enter && n_ext > 0 && !joined && n_nodes_new < M;
-        if (enter) st.c_len = other_dist / n_ext_f;
-        if (joined) {
-          st.done = 1;
-          st.junc_a = tip_after;
-          st.junc_b = other;
-          st.a_j_start = a_is;
-        }
-        if (enter) st.c_other = other;
-        st.c_tip = tip_after;
-        st.c_rem = rem_after;
-        st.connect = cnext ? 1 : 0;
-        st.a_is_start = a_is;
-        st.n_nodes = n_nodes_new;
+      if (enter) st.c_other = other;
+      st.c_tip = tip_after;
+      st.c_rem = rem_after;
+      st.connect = cnext ? 1 : 0;
+      st.a_is_start = a_is;
+      st.n_nodes = n_nodes_new;
+      if (do_grow) {
         st.iters += st.consumed;
         st.sample_idx += st.consumed;
         st.gsteps += 1;
       }
-    } else {
-      // --- connect step: insert the leading run of valid increments
-      const int attempted = n_edges;
-      int prefix = 0;
-      while (prefix < attempted && !s_ebad[prefix]) ++prefix;
-      const int c_ins = min(prefix, M - n_nodes);
-      for (int j = tid; j < c_ins; j += T) {
-        float* row = nb + (long long)(n_nodes + j) * RS;
-        const float step = (float)j + 1.0f;
-        for (int k = 0; k < d; ++k) row[k] = s_tip[k] + s_inc[k] * step;
-        row[d] = af;
-        row[d + 1] = kBig;
-        row[d + 2] = __int_as_float(j == 0 ? st.c_tip : n_nodes + j - 1);
-        row[d + 3] = sum_sq(row, d);
-      }
-      __syncthreads();
-      if (tid == 0) {
-        const int n_nodes_new = n_nodes + c_ins;
-        if (a_is) st.size_start += c_ins;
-        else st.size_goal += c_ins;
-        const bool fail_chain = prefix < attempted;
-        const bool chain_ok = !fail_chain && c_ins == prefix;
-        const int tip_after = chain_ok && prefix > 0 ? n_nodes + prefix - 1 : st.c_tip;
-        const int rem_after = st.c_rem - prefix;
-        const bool joined = chain_ok && rem_after == 0 && st.done == 0;
-        const bool cnext = chain_ok && rem_after > 0 && !joined && n_nodes_new < M;
-        if (joined) {
-          st.done = 1;
-          st.junc_a = tip_after;
-          st.junc_b = st.c_other;
-          st.a_j_start = a_is;
-        }
-        st.c_tip = tip_after;
-        st.c_rem = rem_after;
-        st.connect = cnext ? 1 : 0;
-        st.a_is_start = a_is;
-        st.n_nodes = n_nodes_new;
-        st.csteps += 1;
-      }
+      if (do_conn) st.csteps += 1;
     }
   }
 
@@ -657,20 +662,21 @@ extern "C" int rrtc_mega_launch(
     }
   }
   if (T == 0) return -1;
+  const auto kernel = p.inter ? rrtc_mega_kernel<true> : rrtc_mega_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      rrtc_mega_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch's check does not see it
     return (int)err;
   }
   launch_info[0] = T;
   launch_info[1] = bytes;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&launch_info[2], rrtc_mega_kernel, T, bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&launch_info[2], kernel, T, bytes);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
   }
-  rrtc_mega_kernel<<<p.B, T, bytes, (cudaStream_t)stream>>>(et, robot, p, ctl, nodes0, nodes,
+  kernel<<<p.B, T, bytes, (cudaStream_t)stream>>>(et, robot, p, ctl, nodes0, nodes,
                                                            out_path, out_scal, out_work);
   return (int)cudaGetLastError();
 }

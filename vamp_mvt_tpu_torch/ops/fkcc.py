@@ -24,7 +24,9 @@ lies exactly at d^2 == (r + r_point)^2: MVT and CAPT call that a hit, the
 kernel's rule (valid iff vmin >= 0) does not.
 
 `fkcc` dispatches through `ops/kernels/fkcc_cuda.py`: a CUDA tensor goes to
-the hand-written kernel, a CPU tensor to the plain version below.
+the hand-written kernel, a CPU tensor to the plain version below, and so does
+a CUDA tensor where the tables hold an MVT or CAPT pointcloud without its
+kernel form (`fkcc_cuda.supports`; on the tensor's own device).
 """
 
 from __future__ import annotations
@@ -233,11 +235,12 @@ def fkcc_vmin(spec: RobotSpec, env: Environment, q: torch.Tensor) -> torch.Tenso
 def fkcc(spec: RobotSpec, env: Environment, q: torch.Tensor, device=None) -> torch.Tensor:
     """(..., d) configurations, one environment -> (...) bool validity.
 
-    Runs on `device` (default: the GPU, through the CUDA kernel)."""
-    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
+    Runs on `device` (default: the GPU, through the CUDA kernel where it
+    reads every table: `planning/validate.py::fkcc_valid`)."""
+    from vamp_mvt_tpu_torch.planning import validate
 
     dev = resolve_device(device)
     batch = q.shape[:-1]
     q = q.to(dev).reshape(1, -1, spec.dimension)
     envs = env.to(dev).map(lambda t: t.unsqueeze(0))
-    return fkcc_cuda.fkcc_batched(spec, envs, q).reshape(batch)
+    return validate.fkcc_valid(spec, envs, q).reshape(batch)

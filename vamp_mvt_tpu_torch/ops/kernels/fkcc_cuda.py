@@ -15,11 +15,12 @@ use and bound with ctypes.
 the batch (the heightfield tables `hf_meta` (B, Nh, 10) and `hf_data`
 (B, Nh, C) too); an attachment's leaves are (B, ...) or (1, ...) on their
 own; a pointcloud comes as `envs.pck` (collision/pc_kernel.py), the
-kernel's form (an MVT or CAPT structure alone is refused on the card).  With
-a pointcloud the kernel's vmin is sign-exact, not value-exact: it stops at
-the first negative value and writes -1 for a certain hit; each launch on a
-pointcloud adds its work to `PC_WORK`.  A CUDA tensor
-launches the kernel; a CPU tensor takes the plain version
+kernel's form (an MVT or CAPT structure alone is refused on the card:
+`supports` is false, and `planning/validate.py::fkcc_valid` takes the plain
+version there).  With a pointcloud the kernel's vmin is sign-exact, not
+value-exact: it stops at the first negative value and writes -1 for a
+certain hit; each launch on a pointcloud adds its work to `PC_WORK`.  A CUDA
+tensor launches the kernel; a CPU tensor takes the plain version
 (`fkcc_batched_plain` / `fkcc_vmin_plain`).  There is no fallback: a failed
 build, load or launch raises.
 """
@@ -161,6 +162,15 @@ _PC_TABLES = (("bitmap", torch.int32, 3), ("chunks", torch.float32, 3),
               ("points", torch.float32, 3), ("meta", torch.float32, 3))
 
 
+def supports(envs: Environment) -> bool:
+    """Whether the kernels read every table of `envs`: the JAX package's rule
+    (`fkcc_pallas.supports`).  An MVT or CAPT pointcloud without its kernel
+    form (`envs.pck`) is read by the plain version only; the callers' dispatch
+    (`planning/validate.py::fkcc_valid`) sends it there, on the tensors' own
+    device, as the JAX package sends it to its XLA path."""
+    return (envs.mvt is None and envs.capt is None) or envs.pck is not None
+
+
 def _check_inputs(spec: RobotSpec, envs: Environment, q: torch.Tensor, B: int):
     if q.dtype != torch.float32:
         raise TypeError(f"fkcc: q must be float32, got {q.dtype}")
@@ -190,7 +200,7 @@ def _check_inputs(spec: RobotSpec, envs: Environment, q: torch.Tensor, B: int):
                     f"fkcc: env.attachment.{name} must be float32 with a leading batch of 1 "
                     f"or {B} (spheres (B, A, 4)), got {tuple(t.shape)} {t.dtype}")
     if envs.pck is None:
-        if envs.mvt is not None or envs.capt is not None:
+        if not supports(envs):
             raise ValueError(
                 "fkcc: the CUDA kernels read a pointcloud as env.pck (the kernel "
                 "form, EnvironmentBuilder.add_kernel_pointcloud), not as MVT or CAPT")

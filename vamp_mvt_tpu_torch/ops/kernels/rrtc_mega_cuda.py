@@ -4,7 +4,9 @@ Port of the TPU kernel `vamp_mvt_tpu/planning/rrtc_mega.py::_run_mega`
 (body `_make_mega_kernel`).  The kernel is `csrc/rrtc_mega.cu`, CUDA C++ for
 sm_90a, built by `ops/kernels/build.py`; its host side (control word, initial
 node rows, result) is `planning/rrtc_mega.py`, and its plain version is the
-lockstep planner `planning/rrtc.py::plan_batch`.
+lockstep planner `planning/rrtc.py::plan_batch_compact` in the cadence that
+`settings.interleave` names (alternating grow and connect steps, or the grow
+part every step with an active chain riding along).
 
   plan(spec, envs, ctl, nodes0, settings)
       ctl (B, 8) int32, nodes0 (B, 1 + G, d + 4) float32, CUDA tensors
@@ -82,7 +84,7 @@ def params(spec: RobotSpec, s, G1: int, B: int) -> tuple[np.ndarray, np.ndarray]
         [d, s.samples_per_step, s.connect_segments,
          s.samples_per_step * s.sample_window, s.max_samples, s.max_path,
          validate_mod.n_points_bound(spec, s.range), int(s.dynamic_domain),
-         int(s.balance), int(not s.start_tree_first), G1, B]
+         int(s.balance), int(not s.start_tree_first), G1, B, int(s.interleave)]
         + bases + pad + digits + pad, np.int32,
     )
     lows = np.asarray(spec.limits_low, f32)

@@ -32,7 +32,6 @@ import torch
 
 from vamp_mvt_tpu_torch.collision.environment import Environment
 from vamp_mvt_tpu_torch.device import resolve_device
-from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
 from vamp_mvt_tpu_torch.planning import validate as validate_mod
 from vamp_mvt_tpu_torch.robots.spec import RobotSpec
 from vamp_mvt_tpu_torch.sampling.halton import halton
@@ -173,7 +172,7 @@ def make_device_fns(spec: RobotSpec, env: Environment, n_samples: int, device) -
 
     def sample_valid(offset):
         q = halton(offset + steps, spec.dimension) * spans + lows
-        ok = fkcc_cuda.fkcc_batched(spec, envs, q[None])[0]
+        ok = validate_mod.fkcc_valid(spec, envs, q[None])[0]
         return q.cpu().numpy(), ok.cpu().numpy()
 
     def validate_edges(starts, goals):

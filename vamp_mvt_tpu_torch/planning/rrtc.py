@@ -24,7 +24,6 @@ import torch
 
 from vamp_mvt_tpu_torch.collision.environment import Environment
 from vamp_mvt_tpu_torch.device import resolve_device
-from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
 from vamp_mvt_tpu_torch.planning import validate as validate_mod
 from vamp_mvt_tpu_torch.planning.validate import norm_last, sum_last
 from vamp_mvt_tpu_torch.robots.spec import RobotSpec
@@ -167,7 +166,14 @@ def _scatter_rows(buf: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
 
 
 def _make_step(spec: RobotSpec, s: RRTCSettings, envs: Environment,
-               num_points: int, nn_prefix: int | None = None):
+               num_points: int, nn_prefix: int | None = None, interleave: bool = False):
+    """One step of the batch.  interleave=True is the planner megakernel's
+    other cadence (vamp_mvt_tpu/planning/rrtc_mega.py, INTER): the grow part
+    runs every step and an active connect chain advances in the same step;
+    its inserts come first, the grow inserts after them.  Only
+    rrtc_mega.plan_batch_mega's plain version selects it: the lockstep
+    planner keeps the reference's alternating cadence and ignores
+    settings.interleave, as the JAX package's does."""
     M, K, C = s.max_samples, s.samples_per_step, s.connect_segments
     NP = M if nn_prefix is None else min(nn_prefix, M)
     KW = K * s.sample_window
@@ -186,8 +192,9 @@ def _make_step(spec: RobotSpec, s: RRTCSettings, envs: Environment,
     def step(st: _State) -> _State:
         B = st.n_nodes.shape[0]
         grow = ~st.connect
+        do_grow = torch.ones_like(grow) if interleave else grow
 
-        # --- tree balancing (rrtc.hh:100-108), grow mode only
+        # --- tree balancing (rrtc.hh:100-108), while no chain is active
         asize = torch.where(st.a_is_start, st.size_start, st.size_goal).to(torch.float32)
         bsize = torch.where(st.a_is_start, st.size_goal, st.size_start).to(torch.float32)
         ratio = torch.abs(asize - bsize) / asize
@@ -258,21 +265,14 @@ def _make_step(spec: RobotSpec, s: RRTCSettings, envs: Environment,
         )                                                                # (B, C, num, d)
 
         block = torch.cat([grow_block, conn_block], dim=1)               # (B, K+C, num, d)
-        ok = fkcc_cuda.fkcc_batched(spec, envs, block).all(dim=-1)       # (B, K+C)
+        ok = validate_mod.fkcc_valid(spec, envs, block).all(dim=-1)      # (B, K+C)
         grow_valid, seg_valid = ok[:, :K], ok[:, K:]
 
         room_for = M - st.n_nodes
 
-        # --- grow inserts: every valid, non-dd-skipped extension, in order
-        g_active = grow[:, None] & lane_ok & grow_valid
-        g_order = torch.cumsum(g_active.to(torch.long), dim=1) - 1
-        g_ins = g_active & (g_order < room_for[:, None])
-        g_pos = torch.where(g_ins, st.n_nodes[:, None] + g_order, M)
-
-        # --- connect prefix inserts
+        # --- connect prefix inserts, at n_nodes onwards
         seg_eff = seg_active & seg_valid
         prefix = torch.cumprod(seg_eff.to(torch.long), dim=1).sum(1)     # leading run
-        n_grow_ins = torch.where(grow, g_ins.sum(1), 0)
         c_active = st.connect[:, None] & (c_order[None] < prefix[:, None])
         c_ins = c_active & (c_order[None] < room_for[:, None])
         c_pos = torch.where(c_ins, st.n_nodes[:, None] + c_order, M)
@@ -280,13 +280,17 @@ def _make_step(spec: RobotSpec, s: RRTCSettings, envs: Environment,
         c_parents = torch.where(
             c_order[None] == 0, st.c_tip[:, None], st.n_nodes[:, None] + c_order - 1
         )
+        n_conn_ins = c_ins.sum(1)
 
-        # --- apply inserts (grow and connect are mutually exclusive modes)
-        full_k = torch.full((B, K), M, dtype=torch.long, device=dev)
-        full_c = torch.full((B, C), M, dtype=torch.long, device=dev)
-        all_pos = torch.where(
-            grow[:, None], torch.cat([g_pos, full_c], 1), torch.cat([full_k, c_pos], 1)
-        )
+        # --- grow inserts after them: every valid, non-dd-skipped extension,
+        # in order, while room remains
+        g_active = do_grow[:, None] & lane_ok & grow_valid
+        g_order = torch.cumsum(g_active.to(torch.long), dim=1) - 1
+        g_ins = g_active & (g_order < (room_for - n_conn_ins)[:, None])
+        g_pos = torch.where(g_ins, (st.n_nodes + n_conn_ins)[:, None] + g_order, M)
+
+        # --- apply inserts (inactive lanes point at the trash row)
+        all_pos = torch.cat([g_pos, c_pos], 1)
         all_cfg = torch.cat([new_cfg, c_cfgs], 1)
         all_par = torch.cat([nearest, c_parents], 1)
         configs = _scatter_rows(st.configs, all_pos, all_cfg)
@@ -296,8 +300,7 @@ def _make_step(spec: RobotSpec, s: RRTCSettings, envs: Environment,
         )
         radii = _scatter_rows(st.radii, all_pos, torch.full_like(all_cfg[..., 0], _INF))
 
-        n_conn_ins = torch.where(st.connect, c_ins.sum(1), 0)
-        n_ins = torch.where(grow, n_grow_ins, n_conn_ins)
+        n_ins = g_ins.sum(1) + n_conn_ins
         n_nodes = st.n_nodes + n_ins
         size_start = st.size_start + torch.where(a_is_start, n_ins, 0)
         size_goal = st.size_goal + torch.where(a_is_start, 0, n_ins)
@@ -309,7 +312,7 @@ def _make_step(spec: RobotSpec, s: RRTCSettings, envs: Environment,
             inf_r, s.radius,
             torch.clamp_min(nearest_radius * (1.0 - s.alpha), s.min_radius),
         )
-        g_attempt = grow[:, None] & lane_ok
+        g_attempt = do_grow[:, None] & lane_ok
         new_r = torch.where(
             g_attempt & grow_valid & dyn, ok_upd,
             torch.where(g_attempt & ~grow_valid & dyn, fail_upd, nearest_radius),
@@ -339,10 +342,11 @@ def _make_step(spec: RobotSpec, s: RRTCSettings, envs: Environment,
         inc = (_gather_rows(st.configs, other[:, None])[:, 0] - new_kc) / n_ext_f[:, None]
         inc_len = other_dist / n_ext_f
 
-        enter = grow & any_g
         attempted = torch.clamp_max(st.c_remaining, C)
         fail_chain = st.connect & (prefix < attempted)
         chain_ok = st.connect & ~fail_chain & (n_conn_ins == prefix)
+        # a new chain starts only where the old one failed or was absent
+        enter = do_grow & any_g & ~chain_ok
         tip_after = torch.where(
             enter,
             torch.gather(g_pos, 1, kc)[:, 0],
@@ -367,7 +371,7 @@ def _make_step(spec: RobotSpec, s: RRTCSettings, envs: Environment,
             joined, torch.where(enter, other, st.c_other), st.junction_b
         )
         a_start_at_join = torch.where(joined, a_is_start, st.a_start_at_join)
-        used = torch.where(grow, consumed, 0)
+        used = torch.where(do_grow, consumed, 0)
 
         return _State(
             configs=configs, parents=parents, radii=radii, in_start=in_start,
@@ -533,16 +537,19 @@ def _cond(s: RRTCSettings):
     return cond
 
 
-def _run_steps(spec, s, envs, st, num_points, max_steps=None, nn_prefix=None):
+def _run_steps(spec, s, envs, st, num_points, max_steps=None, nn_prefix=None,
+               interleave=False):
     """Advance every problem until done/budget (or for at most max_steps).
 
     Each step runs on the whole batch and is kept only where `_cond` holds,
     which is what the vmapped while_loop computes.  With max_steps the
     segment runs exactly that many masked steps and never syncs; without it,
     the host checks for live problems once every _SYNC_EVERY steps.
-    nn_prefix soundness: n_nodes + max_steps * (K + C) <= nn_prefix.
+    nn_prefix soundness: n_nodes + max_steps * (K + C) <= nn_prefix.  A step
+    inserts at most K + C nodes in either cadence (the interleaved one at
+    most K grow and C connect nodes together), so the bound holds for both.
     """
-    step = _make_step(spec, s, envs, num_points, nn_prefix=nn_prefix)
+    step = _make_step(spec, s, envs, num_points, nn_prefix=nn_prefix, interleave=interleave)
     cond = _cond(s)
     if max_steps is not None:
         for _ in range(max_steps):
@@ -604,6 +611,8 @@ def plan_batch_compact(
     segment_steps: int = 64,
     min_batch: int = 32,
     device=None,
+    *,
+    interleave: bool = False,
 ) -> RRTCResult:
     """Lockstep planning with straggler compaction.
 
@@ -611,6 +620,9 @@ def plan_batch_compact(
     problems drops below the next power of two, finished problems are
     finalized and the stragglers gathered into a smaller batch.  Results
     equal plan_batch's.  Runs on `device` (default: the GPU).
+    settings.interleave is ignored, as in plan_batch; interleave=True runs
+    the megakernel's interleaved cadence instead (_make_step), which only
+    rrtc_mega.plan_batch_mega's plain version asks for.
     """
     _check_settings(settings)
     dev = resolve_device(device)
@@ -653,7 +665,7 @@ def plan_batch_compact(
         if prefix < M:
             steps = min(segment_steps, max((prefix - n_max) // per_step, 2))
         st = _run_steps(spec, settings, work_envs, st, num_points,
-                        max_steps=steps, nn_prefix=prefix)
+                        max_steps=steps, nn_prefix=prefix, interleave=interleave)
         active = cond(st).cpu().numpy() & (gidx >= 0)
         n_act = int(active.sum())
         cur = len(gidx)

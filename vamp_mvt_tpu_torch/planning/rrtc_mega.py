@@ -8,9 +8,10 @@ check, the control word and the initial node rows, `mega_inputs`) and turns
 its outputs into an `RRTCResult` (`_finalize_mega`).
 
 On CUDA tensors `plan_batch_mega` launches the kernel; on CPU tensors it runs
-the plain version, the lockstep planner `planning/rrtc.py`, which the kernel
-matches step for step.  The sample budget is a runtime value of the control
-word, so the 32x-budget retry of `run_suite` reuses the same kernel.
+the plain version, the lockstep planner `planning/rrtc.py` in the cadence
+`settings.interleave` names, which the kernel matches step for step.  The
+sample budget is a runtime value of the control word, so the 32x-budget
+retry of `run_suite` reuses the same kernel.
 """
 
 from __future__ import annotations
@@ -31,6 +32,12 @@ from vamp_mvt_tpu_torch.robots.spec import RobotSpec
 
 # Radius of a node never updated (a finite stand-in for infinity).
 _BIG = 1e30
+
+# Problems the kernel solved whose two chains together pass max_path, since a
+# caller last set it to 0.  Their path cannot be exported, so the result
+# counts them as unsolved (rrtc.result_from_chains), where the JAX package
+# reports them solved with a path cut short of the goal.
+PAST_MAX_PATH = 0
 
 
 def _kernel_config(spec: RobotSpec, s: RRTCSettings, G: int) -> dict:
@@ -56,10 +63,6 @@ def _kernel_config(spec: RobotSpec, s: RRTCSettings, G: int) -> dict:
 def _check_settings(s: RRTCSettings) -> None:
     """Raise for settings the megakernel does not run."""
     rrtc._check_settings(s)
-    if s.interleave:
-        raise NotImplementedError(
-            "interleave=True (grow every step, connect riding along) is not "
-            "ported: it has no lockstep twin (ROADMAP queue 1)")
     if s.profile_mask != -1:
         raise NotImplementedError("profile_mask is a profiling-only switch, not ported")
     if s.pc_phase != 2:
@@ -113,10 +116,14 @@ def mega_inputs(spec, envs, starts, goals, goal_masks, settings,
 
 def _finalize_mega(paths, scal, starts, goals, any_direct, first_direct) -> RRTCResult:
     """Orientation, padding, cost and direct overrides of the exported chain
-    rows (the kernel writes them where rrtc._recover_path scatters them)."""
+    rows (the kernel writes them where rrtc._recover_path scatters them);
+    adds the solved problems past the path buffer to PAST_MAX_PATH."""
+    global PAST_MAX_PATH
     scal = scal.long()
+    total = scal[:, 11] + scal[:, 12]
+    PAST_MAX_PATH += int(((scal[:, 0] > 0) & (total > paths.shape[1]) & ~any_direct).sum())
     return rrtc.result_from_chains(
-        paths, scal[:, 11] + scal[:, 12], scal[:, 3] > 0, scal[:, 0] > 0, scal[:, 4],
+        paths, total, scal[:, 3] > 0, scal[:, 0] > 0, scal[:, 4],
         scal[:, 7], scal[:, 8], scal[:, 5], starts, goals, any_direct, first_direct,
     )
 
@@ -147,7 +154,7 @@ def plan_batch_mega(
         return rrtc.plan_batch_compact(
             spec, envs, starts, goals, goal_masks,
             dataclasses.replace(settings, max_iterations=int(budget)),
-            sample_offsets, device=dev,
+            sample_offsets, device=dev, interleave=settings.interleave,
         )
     ctl, nodes0, any_direct, first_direct = mega_inputs(
         spec, envs, starts, goals, goal_masks, settings, sample_offsets, budget

@@ -40,6 +40,26 @@ def norm_last(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(sum_last(v * v))
 
 
+def fkcc_valid(spec: RobotSpec, envs: Environment, q: torch.Tensor) -> torch.Tensor:
+    """q (B, ..., d) -> (B, ...) bool validity: the fkcc kernel on CUDA
+    tensors and the plain version on CPU tensors, except for tables no kernel
+    reads (an MVT or CAPT pointcloud without its kernel form,
+    `fkcc_cuda.supports`): those take the plain version on q's own device,
+    where the JAX package takes its XLA path (vamp_mvt_tpu/ops/fkcc.py)."""
+    if q.is_cuda and not fkcc_cuda.supports(envs):
+        B = q.shape[0]
+        qf = q.reshape(B, -1, spec.dimension)
+        return fkcc_cuda.fkcc_batched_plain(spec, envs, qf).reshape(q.shape[:-1])
+    return fkcc_cuda.fkcc_batched(spec, envs, q)
+
+
+def _fkcc_valid_lanes(spec: RobotSpec, envs: Environment, q_d: torch.Tensor) -> torch.Tensor:
+    """fkcc_valid in the lanes layout: q_d (B, d, N) -> (B, N) bool."""
+    if q_d.is_cuda and not fkcc_cuda.supports(envs):
+        return fkcc_cuda.fkcc_batched_plain(spec, envs, q_d.transpose(1, 2))
+    return fkcc_cuda.fkcc_batched_lanes(spec, envs, q_d)
+
+
 def interpolation_fractions(spec: RobotSpec, dist: torch.Tensor, num: int) -> torch.Tensor:
     """(..., num) fractions k/N (k = 1..num), clamped to 1 past the endpoint."""
     n = torch.clamp_min(torch.ceil(dist * (spec.resolution / RAKE)), 1.0)
@@ -72,7 +92,7 @@ def validate_motion_batch(
     One fused FK+CC evaluation over B x E x num configurations."""
     B, E, _ = starts.shape
     block_d = motion_configs(spec, starts, goals, num)
-    ok = fkcc_cuda.fkcc_batched_lanes(spec, envs, block_d).reshape(B, E, num)
+    ok = _fkcc_valid_lanes(spec, envs, block_d).reshape(B, E, num)
     return torch.all(ok, dim=-1)
 
 
@@ -129,7 +149,7 @@ def validate_motion_jobs(
     k = j.to(torch.float32)[None] - g_off
     frac = torch.where(valid_job, (k + 1.0) / torch.clamp_min(g_n, 1.0), 0.0)
     block_d = (g_start + g_vec * frac[..., None]).transpose(1, 2)         # (B, d, t_cap)
-    ok_jobs = fkcc_cuda.fkcc_batched_lanes(spec, envs, block_d)
+    ok_jobs = _fkcc_valid_lanes(spec, envs, block_d)
 
     bad = torch.where(valid_job, 1 - ok_jobs.to(torch.int32), 0)
     pref = torch.cat(
