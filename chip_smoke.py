@@ -39,6 +39,10 @@ or an exception exits non-zero):
                  then on the 700 MBM-shaped scenes with starts and goals drawn
                  from configurations the fkcc kernel found valid (every solved
                  path revalidated)
+  fkcc_bench_path
+                 the fkcc launches of that path on the cages, the start and
+                 goal validity and the direct-goal check, each against its
+                 plain version, with its time and bound
   rrtc_mega_mbm_shaped
                  the planner megakernel against its plain version on the
                  first MBM_CHECK of those scenes (capsule and cuboid tables),
@@ -134,7 +138,10 @@ or an exception exits non-zero):
   bench          the port's bench entry (python -m vamp_mvt_tpu_torch.bench)
                  in this process on the 700 cages: its JSON line
 
-The suite phases report `past_max_path`: the planner kernel's solves whose
+The megakernels' lines and rows carry each launch's shape and occupancy
+(threads, lanes a configuration, blocks and warps an SM, registers) and
+each phase's share of the blocks' clock cycles (`phase_share`).  The suite
+phases report `past_max_path`: the planner kernel's solves whose
 two chains together pass max_path, counted unsolved (rrtc_mega.PAST_MAX_PATH;
 a problem the retry replays counts once in each call); suite_robots lists the
 first UNSOLVED_LISTED unsolved problems of each robot.
@@ -560,13 +567,14 @@ def mega_compare(spec, envs, st, gl, mk, settings, ss) -> dict:
     ctl, nodes0, _, _ = rrtc_mega.mega_inputs(spec, envs, st, gl, mk, settings)
     _, r_scal, r_work = rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, settings)
     r_work = r_work.cpu().numpy().astype(np.int64)
+    r_launch = launch_line(rrtc_mega_cuda, r_work)
     r_ms = time_cuda(lambda: rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, settings), 1, 3)
     r_bound = bound(int(np.sum(r_work[:, 0] * per_cfg))
                     + int(r_work[:, 1].sum()) * rrtc_mega_cuda.ops_per_pair(d),
                     nbytes(ctl, nodes0, *tables) + int(r_scal[:, 6].sum()) * (d + 4) * 4
                     + heights_at_most(spec, envs, r_work[:, 0], n_att)
                     + B * (settings.max_path * d + rrtc_mega_cuda.SCALARS
-                           + 2 * rrtc_mega_cuda.WORK) * 4)
+                           + 2 * r_work.shape[1]) * 4)
     k_ = torch.arange(kp.path.shape[1], device=dev)
     r_err = float(torch.where((k_[None] < pp.path_length[:, None])[..., None],
                               (kp.path - pp.path).abs(), 0).max())
@@ -579,6 +587,7 @@ def mega_compare(spec, envs, st, gl, mk, settings, ss) -> dict:
     s_len = ks.path_length == ps.path_length
     s_cost = (ks.cost - ps.cost).abs() <= SIMPLIFY_RTOL * ps.cost.abs()
     s_work = simplify_mega_cuda.simplify(spec, envs, sp_in, sl_in, ss)[2].cpu().numpy()
+    s_launch = launch_line(simplify_mega_cuda, s_work)
     s_ms = time_cuda(lambda: simplify_mega_cuda.simplify(spec, envs, sp_in, sl_in, ss), 1, 3)
     s_bound = bound(int(np.sum(s_work[:, 0].astype(np.int64) * per_cfg)),
                     2 * nbytes(sp_in) + nbytes(sl_in, *tables) + B * (2 * 4 + 32)
@@ -592,11 +601,12 @@ def mega_compare(spec, envs, st, gl, mk, settings, ss) -> dict:
                           r_scal[:, 11] + r_scal[:, 12] > settings.max_path)).sum()),
                       "ms": r_ms, "plain_ms": r_plain, "max_abs_err": r_err,
                       "work": {"configs": int(r_work[:, 0].sum()), "pairs": int(r_work[:, 1].sum())},
-                      **r_bound, "library_ms": None},
+                      **r_launch, **r_bound, "library_ms": None},
         "simplify_mega": {"problems": B, "equal_length_share": float(s_len.float().mean()),
                           "cost_rtol_share": float(s_cost.float().mean()),
                           "ms": s_ms, "plain_ms": s_plain, "max_abs_err": s_err,
-                          "configs": int(s_work[:, 0].sum()), **s_bound, "library_ms": None},
+                          "configs": int(s_work[:, 0].sum()), **s_launch, **s_bound,
+                          "library_ms": None},
     }
 
 
@@ -694,6 +704,7 @@ def cadence_run(spec, envs, st, gl, mk, settings, budget=None) -> dict:
     past = rrtc_mega.PAST_MAX_PATH
     ctl, nodes0, _, _ = rrtc_mega.mega_inputs(spec, envs, st, gl, mk, settings, budget=budget)
     _, scal, work = rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, settings)
+    launch = launch_line(rrtc_mega_cuda, work)
     ms = time_cuda(lambda: rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, settings), 1, 3)
     scal = scal.cpu().numpy().astype(np.int64)
     return {"res": res, "ctl": ctl, "nodes0": nodes0, "scal": scal,
@@ -702,7 +713,7 @@ def cadence_run(spec, envs, st, gl, mk, settings, budget=None) -> dict:
                 "gsteps": int(scal[:, 9].sum()), "csteps": int(scal[:, 10].sum()),
                 "gsteps_plus_csteps": int(scal[:, 9].sum() + scal[:, 10].sum()),
                 "iterations_p50": float(np.median(res.iterations.cpu().numpy())),
-                "nodes": int(scal[:, 6].sum())}}
+                "nodes": int(scal[:, 6].sum()), **launch}}
 
 
 def mega_interleave_phase(dev, spec, cages, c_envs, c_st, c_gl, c_mk, c_ops, mega_s,
@@ -772,7 +783,8 @@ def mega_interleave_phase(dev, spec, cages, c_envs, c_st, c_gl, c_mk, c_ops, meg
         nbytes(cad["interleaved"]["ctl"], cad["interleaved"]["nodes0"],
                *(getattr(c_envs, n) for n in TABLES))
         + int(cad["interleaved"]["scal"][:, 6].sum()) * (d + 4) * 4
-        + len(c_st) * (mega_s.max_path * d + rrtc_mega_cuda.SCALARS + 2 * rrtc_mega_cuda.WORK) * 4)
+        + len(c_st) * (mega_s.max_path * d + rrtc_mega_cuda.SCALARS
+                       + 2 * (rrtc_mega_cuda.WORK + len(rrtc_mega_cuda.PHASES))) * 4)
     cages_line = {"problems": len(c_st), **{n: c["line"] for n, c in cad.items()},
                   "identical_share": float(same.float().mean()),
                   "solved_plain": int(pres.solved.sum()), "diverged": diverged,
@@ -823,6 +835,8 @@ def mega_interleave_phase(dev, spec, cages, c_envs, c_st, c_gl, c_mk, c_ops, meg
     return row("rrtc_mega", cad["interleaved"]["line"]["ms"], plain_ms, r_bound, err,
                launches["rrtc_mega"]) | {
         "name": "rrtc_mega_interleave", "replaces": "vamp_mvt_tpu/planning/rrtc_mega.py:943",
+        "phase_share": cad["interleaved"]["line"]["phase_share"],
+        "warps_per_sm": cad["interleaved"]["line"]["occupancy"]["warps_per_sm"],
         "replaces_function": "vamp_mvt_tpu/planning/rrtc_mega.py::_run_mega, interleave=True "
                              "(INTER, _make_mega_kernel)",
         "max_abs_err_of": "the wall problem's paths"}
@@ -953,6 +967,68 @@ def api_phase(dev) -> tuple[dict, dict]:
             "revalidated_plain": reval, "identical_card_cpu": identical,
             "kernel_vs_plain": held}
     return line, launches["cuda"]
+
+
+def bench_path_fkcc(spec, envs, st, gl, live, launches) -> dict:
+    """The fkcc launches of the bench path (run_suite's mega path on the
+    cages): the start and goal validity (mbm._valid_fused, B x (1 + G)
+    configurations) and the straight-line direct-goal check of mega_inputs
+    (validate_motion_batch at the span's point bound): each against its
+    plain version (no validity mismatch outside the contact band), its time
+    and bound.  Returns the kernels line's row."""
+    import numpy as np
+    import torch
+
+    from vamp_mvt_tpu_torch.collision.environment import TABLES
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
+    from vamp_mvt_tpu_torch.planning import validate
+
+    span = float(np.linalg.norm(spec.limits_high - spec.limits_low))
+    num = validate.n_points_bound(spec, span)
+    # the layouts the path launches: rows for the validity, lanes for the check
+    q_d = validate.motion_configs(spec, st[:, None].expand_as(gl).contiguous(), gl,
+                                  num).contiguous()
+    calls = {"validity": (torch.cat([st[:, None], gl], 1).contiguous(), fkcc_cuda.fkcc_batched,
+                          None),
+             "direct": (q_d.transpose(1, 2).contiguous(), fkcc_cuda.fkcc_batched_lanes, q_d)}
+    tabs = sum(v.nbytes for v in fkcc_cuda.robot_tables(spec).values()
+               if isinstance(v, np.ndarray))
+    line, ms, plain, ops, n_bytes, outside = {}, 0.0, 0.0, 0, 0, 0
+    for name, (q, launch, arg) in calls.items():
+        vk = fkcc_cuda.fkcc_vmin(spec, envs, q)
+        vp = fkcc_cuda.fkcc_vmin_plain(spec, envs, q)
+        torch.cuda.synchronize()
+        out = int((((vk >= 0) != (vp >= 0)) & (vp.abs() > CONTACT_BAND)).sum())
+        arg = q if arg is None else arg
+        k_ms = time_cuda(lambda: launch(spec, envs, arg), 3, 20)
+        p_ms = time_cuda(lambda: fkcc_cuda.fkcc_batched_plain(spec, envs, q), 1, 3)
+        b = bound(fkcc_cuda.op_count(spec, live, q.shape[1]),
+                  nbytes(q, *(getattr(envs, n) for n in TABLES)) + tabs + q.shape[0] * q.shape[1])
+        line[name] = {"configs": q.shape[0] * q.shape[1], "ms": k_ms, "plain_ms": p_ms,
+                      "mismatches_outside_band": out, **b}
+        ms, plain, outside = ms + k_ms, plain + p_ms, outside + out
+        ops, n_bytes = ops + b["fp32_ops"], n_bytes + b["bytes"]
+    total = bound(ops, n_bytes)
+    emit({"phase": "fkcc_bench_path", "problems": st.shape[0], "launches_suite_mega": launches,
+          **line, "ms": ms, "plain_ms": plain, **total, "library_ms": None})
+    check(outside == 0, "the bench path's fkcc launches agree with plain outside the band")
+    return (row("fkcc", ms, plain, total, float(outside), launches)
+            | {"name": "fkcc_bench_path", "replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
+               "replaces_function": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py::_run (the start "
+                                    "and goal validity and the direct-goal check of the bench "
+                                    "path)",
+               "ms_of": "the two launches summed (each in the phase line)",
+               "max_abs_err_of": "validity mismatches outside the contact band"})
+
+
+def launch_line(mod, work) -> dict:
+    """A megakernel launch's shape and occupancy (the wrapper's LAST_LAUNCH:
+    threads, lanes a configuration, shared memory, blocks and warps an SM,
+    registers) and each phase's share of its blocks' clock cycles."""
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
+
+    return {"occupancy": dict(mod.LAST_LAUNCH),
+            "phase_share": fkcc_cuda.phase_split(work, mod.WORK, mod.PHASES)["share"]}
 
 
 def row(name, ms, plain, b, err, launches):
@@ -1223,9 +1299,10 @@ def suite_robots_phase(dev, ss) -> list[dict]:
             r = m[k]
             out.append(row(k, r["ms"], r["plain_ms"], r, r["max_abs_err"], launches[k])
                        | {"name": f"{k}_{robot}", "replaces": src,
-                          "threads": occupancy[k].get("threads"),
-                          "smem_bytes": occupancy[k].get("smem_bytes"),
-                          "blocks_per_sm": occupancy[k].get("blocks_per_sm")})
+                          **{f: occupancy[k].get(f) for f in (
+                              "threads", "group", "smem_bytes", "blocks_per_sm",
+                              "warps_per_sm")},
+                          "phase_share": r["phase_share"]})
     return out
 
 
@@ -1527,8 +1604,8 @@ def main() -> int:
     work = {k: v.cpu().numpy().astype(np.int64) for k, v in (
         ("configs", r_work[:, 0]), ("pairs", r_work[:, 1]), ("nodes", r_scal[:, 6]),
         ("grow_steps", r_scal[:, 9]), ("connect_steps", r_scal[:, 10]))}
+    r_launch = launch_line(rrtc_mega_cuda, r_work)
     rrtc_ms = time_cuda(lambda: rrtc_mega_cuda.plan(spec, c_envs, ctl, nodes0, mega_s), 1, 3)
-    occupancy = dict(rrtc_mega_cuda.LAST_LAUNCH)
     entry_ms = time_cuda(lambda: rrtc_mega.plan_batch_mega(spec, c_envs, c_st, c_gl, c_mk,
                                                            mega_s, device=dev), 0, 1)
     rrtc_plain_ms = time_cuda(lambda: rrtc.plan_batch_compact(spec, c_envs, c_st, c_gl, c_mk,
@@ -1538,7 +1615,8 @@ def main() -> int:
         int(np.sum(work["configs"] * c_ops)) + int(np.sum(work["pairs"])) * rrtc_mega_cuda.ops_per_pair(d),
         nbytes(ctl, nodes0, *(getattr(c_envs, n) for n in TABLES))
         + int(np.sum(work["nodes"])) * (d + 4) * 4            # each node row written once
-        + MEGA_PROBLEMS * (mega_s.max_path * d + rrtc_mega_cuda.SCALARS + 2 * rrtc_mega_cuda.WORK) * 4)
+        + MEGA_PROBLEMS * (mega_s.max_path * d + rrtc_mega_cuda.SCALARS
+                           + 2 * (rrtc_mega_cuda.WORK + len(rrtc_mega_cuda.PHASES))) * 4)
     iters = kres.iterations.cpu().numpy()
     emit({"phase": "rrtc_mega", "wall_problem": wall, "problems": MEGA_PROBLEMS,
           "settings": dataclasses.asdict(mega_s),
@@ -1551,7 +1629,7 @@ def main() -> int:
           "iterations": {q: float(np.percentile(iters, p)) for q, p in
                          (("min", 0), ("p50", 50), ("p90", 90), ("p99", 99), ("max", 100))},
           "grow_steps_max": int(work["grow_steps"].max()),
-          "occupancy": occupancy, "max_abs_err": rrtc_err, **r_bound, "library_ms": None})
+          **r_launch, "max_abs_err": rrtc_err, **r_bound, "library_ms": None})
     check(int(kres.solved.sum()) == MEGA_PROBLEMS, "the planner megakernel solves every cage")
     check(float(same.float().mean()) >= MIN_SHARE, "rrtc_mega equals plain on the cages")
 
@@ -1578,10 +1656,10 @@ def main() -> int:
     eq_cost = (ksimp.cost - psimp.cost).abs() <= SIMPLIFY_RTOL * psimp.cost.abs()
     # the wrapper on the entry point's inputs, for the work counter
     sp_in, sl_in = pres.path.contiguous(), pres.path_length.to(torch.int32)
-    s_configs = simplify_mega_cuda.simplify(spec, c_envs, sp_in, sl_in, ss)[2][:, 0]
-    s_configs = s_configs.cpu().numpy().astype(np.int64)
+    s_work = simplify_mega_cuda.simplify(spec, c_envs, sp_in, sl_in, ss)[2]
+    s_launch = launch_line(simplify_mega_cuda, s_work)
+    s_configs = s_work[:, 0].cpu().numpy().astype(np.int64)
     simp_ms = time_cuda(lambda: simplify_mega_cuda.simplify(spec, c_envs, sp_in, sl_in, ss), 1, 3)
-    s_occupancy = dict(simplify_mega_cuda.LAST_LAUNCH)
     simp_plain_ms = time_cuda(lambda: simplify_mega.simplify_batch_plain(
         spec, c_envs, pres.path, pres.path_length, ss), 0, 1)
     s_bound = bound(int(np.sum(s_configs * c_ops)),
@@ -1595,8 +1673,7 @@ def main() -> int:
           "median_cost": {"kernel": median(ksimp.cost[pres.solved]),
                           "plain": plain_pipeline_cost},
           "ms": simp_ms, "plain_ms": simp_plain_ms,
-          "configs": int(s_configs.sum()), "occupancy": s_occupancy, **s_bound,
-          "library_ms": None})
+          "configs": int(s_configs.sum()), **s_launch, **s_bound, "library_ms": None})
     check(float(eq_len.float().mean()) >= MIN_SHARE
           and float(eq_cost.float().mean()) >= MIN_SHARE, "simplify_mega equals plain on the cages")
 
@@ -1626,6 +1703,7 @@ def main() -> int:
           "every cage valid and solved on the mega path")
     check(m_ok == MEGA_PROBLEMS, "every simplified path of the mega path revalidates")
     check(abs(cost_ratio - 1.0) <= 0.01, "median simplified cost within 1% of the plain versions'")
+    bench_fkcc_row = bench_path_fkcc(spec, c_envs, c_st, c_gl, c_live, mega_launches["fkcc"])
 
     # the kernel phase's MBM-shaped scenes, starts and goals drawn from the
     # configurations the fkcc kernel found valid
@@ -1785,6 +1863,7 @@ def main() -> int:
     ctl, nodes0, _, _ = rrtc_mega.mega_inputs(spec, pk_envs, c_st, c_gl, c_mk, pc_settings)
     _, rp_scal, rp_work = rrtc_mega_cuda.plan(spec, pk_envs, ctl, nodes0, pc_settings)
     rp_work = rp_work.cpu().numpy().astype(np.int64)
+    rp_launch = launch_line(rrtc_mega_cuda, rp_work)
     rpc_ms = time_cuda(lambda: rrtc_mega_cuda.plan(spec, pk_envs, ctl, nodes0, pc_settings), 1, 3)
     rpc_bound = bound(
         int(np.sum(rp_work[:, 0] * pc_ops[:PC_CHECK])) + fkcc_cuda.pc_ops(rp_work[:, 2:5])
@@ -1792,7 +1871,7 @@ def main() -> int:
         nbytes(ctl, nodes0, *pk_envs.pck)
         + int(rp_scal[:, 6].sum()) * (spec.dimension + 4) * 4
         + PC_CHECK * (pc_settings.max_path * spec.dimension + rrtc_mega_cuda.SCALARS
-                      + 2 * rrtc_mega_cuda.WORK) * 4)
+                      + 2 * (rrtc_mega_cuda.WORK + len(rrtc_mega_cuda.PHASES))) * 4)
     k_ = torch.arange(kp.path.shape[1], device=dev)
     rpc_err = float(torch.where((k_[None] < pp.path_length[:, None])[..., None],
                                 (kp.path - pp.path).abs(), 0).max())
@@ -1802,7 +1881,7 @@ def main() -> int:
           "ms": rpc_ms, "plain_ms": rpc_plain_ms, "max_abs_err": rpc_err,
           "work": dict(zip(("configs", "pairs", "gates", "chunks", "points"),
                            rp_work.sum(0).tolist())),
-          **rpc_bound, "library_ms": None})
+          **rp_launch, **rpc_bound, "library_ms": None})
     check(float(same_pc.float().mean()) >= MIN_SHARE, "rrtc_mega equals plain on pointclouds")
 
     sp_in, sl_in = pp.path.contiguous(), pp.path_length.to(torch.int32)
@@ -1816,6 +1895,7 @@ def main() -> int:
     spc_cost = (ks.cost - ps.cost).abs() <= SIMPLIFY_RTOL * ps.cost.abs()
     sp_work = simplify_mega_cuda.simplify(spec, pk_envs, sp_in, sl_in, ss)[2]
     sp_work = sp_work.cpu().numpy().astype(np.int64)
+    sp_launch = launch_line(simplify_mega_cuda, sp_work)
     spc_ms = time_cuda(lambda: simplify_mega_cuda.simplify(spec, pk_envs, sp_in, sl_in, ss), 1, 3)
     spc_bound = bound(int(np.sum(sp_work[:, 0] * pc_ops[:PC_CHECK]))
                       + fkcc_cuda.pc_ops(sp_work[:, 1:4]),
@@ -1826,7 +1906,7 @@ def main() -> int:
           "cost_rtol_share": float(spc_cost.float().mean()), "rtol": SIMPLIFY_RTOL,
           "ms": spc_ms, "plain_ms": spc_plain_ms, "max_abs_err": spc_err,
           "work": dict(zip(("configs", "gates", "chunks", "points"), sp_work.sum(0).tolist())),
-          **spc_bound, "library_ms": None})
+          **sp_launch, **spc_bound, "library_ms": None})
     check(float(spc_len.float().mean()) >= MIN_SHARE
           and float(spc_cost.float().mean()) >= MIN_SHARE,
           "simplify_mega equals plain on pointclouds")
@@ -1879,14 +1959,19 @@ def main() -> int:
         | {"replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
            "replaces_function": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py::_run",
            "launches_xla_suite": launches},
+        bench_fkcc_row,
         row("rrtc_mega", rrtc_ms, rrtc_plain_ms, r_bound, rrtc_err, mega_launches["rrtc_mega"])
         | {"replaces": "vamp_mvt_tpu/planning/rrtc_mega.py:943",
-           "replaces_function": "vamp_mvt_tpu/planning/rrtc_mega.py::_run_mega"},
+           "replaces_function": "vamp_mvt_tpu/planning/rrtc_mega.py::_run_mega",
+           "warps_per_sm": r_launch["occupancy"]["warps_per_sm"],
+           "phase_share": r_launch["phase_share"]},
         inter_row,
         row("simplify_mega", simp_ms, simp_plain_ms, s_bound, simp_err,
             mega_launches["simplify_mega"])
         | {"replaces": "vamp_mvt_tpu/planning/simplify_mega.py:377",
-           "replaces_function": "vamp_mvt_tpu/planning/simplify_mega.py::_run"},
+           "replaces_function": "vamp_mvt_tpu/planning/simplify_mega.py::_run",
+           "warps_per_sm": s_launch["occupancy"]["warps_per_sm"],
+           "phase_share": s_launch["phase_share"]},
         # the pointcloud branch in each kernel, on this slice's path
         row("fkcc", pk_ms, pp_ms, pk_bound, p_err, pc_launches["fkcc"])
         | {"name": "fkcc_pc", "replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
@@ -1895,11 +1980,15 @@ def main() -> int:
            "max_abs_err_of": "validity outside the contact band"},
         row("rrtc_mega", rpc_ms, rpc_plain_ms, rpc_bound, rpc_err, pc_launches["rrtc_mega"])
         | {"name": "rrtc_mega_pc", "replaces": "vamp_mvt_tpu/planning/rrtc_mega.py:943",
-           "replaces_function": "vamp_mvt_tpu/planning/rrtc_mega.py::_run_mega on pck"},
+           "replaces_function": "vamp_mvt_tpu/planning/rrtc_mega.py::_run_mega on pck",
+           "warps_per_sm": rp_launch["occupancy"]["warps_per_sm"],
+           "phase_share": rp_launch["phase_share"]},
         row("simplify_mega", spc_ms, spc_plain_ms, spc_bound, spc_err,
             pc_launches["simplify_mega"])
         | {"name": "simplify_mega_pc", "replaces": "vamp_mvt_tpu/planning/simplify_mega.py:377",
-           "replaces_function": "vamp_mvt_tpu/planning/simplify_mega.py::_run on pck"},
+           "replaces_function": "vamp_mvt_tpu/planning/simplify_mega.py::_run on pck",
+           "warps_per_sm": sp_launch["occupancy"]["warps_per_sm"],
+           "phase_share": sp_launch["phase_share"]},
         *branch_rows,
         gather_row,
         mosaic_row,

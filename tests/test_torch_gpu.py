@@ -688,7 +688,7 @@ def test_megakernels_other_robots_match_plain(cuda, robot, monkeypatch):
     torch.cuda.synchronize()
     launch = dict(rrtc_mega_cuda.LAST_LAUNCH)
     print(f"{robot}: rrtc_mega {launch}")
-    assert launch["threads"] in (128, 64, 32) and launch["blocks_per_sm"] >= 1
+    assert launch["threads"] in fkcc_cuda.MEGA_THREADS and launch["blocks_per_sm"] >= 1
     monkeypatch.setattr(rrtc, "torch", rrtc.IndexOrderTorch())
     ref = rrtc.plan_batch(spec, envs, starts, goals, masks, s)
     monkeypatch.undo()
@@ -831,3 +831,153 @@ def test_api_with_mvt_or_capt_cloud_on_the_card(cuda, kind):
         assert int(getattr(r_card, f)) == int(getattr(r_cpu, f)), f
     L = int(r_cpu.path_length)
     torch.testing.assert_close(r_card.path[:L].cpu(), r_cpu.path[:L], rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Both megakernels at every launch shape's group size G (lanes of a warp a
+# configuration): the same results as their plain versions at each
+# ---------------------------------------------------------------------------
+
+
+def _every_group(cuda, monkeypatch, spec, envs, starts, goals, masks, s, offs=None):
+    """Both megakernels against their plain versions (the planner's
+    nearest-neighbour dots in index order, rrtc.IndexOrderTorch, as the
+    kernel sums them) at every G of fkcc_cuda.MEGA_GROUPS, each with the
+    threads the launch shape picks for it: solved flags, iterations, tree
+    sizes and path lengths equal, costs within rtol 1e-6 (planner) and 1e-5
+    (simplifier).  Returns each G's launch shapes."""
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda, simplify_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega, simplify, simplify_mega
+
+    monkeypatch.setattr(rrtc, "torch", rrtc.IndexOrderTorch())
+    ref = rrtc.plan_batch_compact(spec, envs, starts, goals, masks, s, offs, device=cuda,
+                                  interleave=s.interleave)
+    monkeypatch.undo()
+    assert bool(ref.solved.any())
+    ss = simplify.SimplifySettings(pair_chunk=64)
+    sref = simplify_mega.simplify_batch_plain(spec, envs, ref.path, ref.path_length, ss)
+    shapes = {}
+    for G in fkcc_cuda.MEGA_GROUPS:
+        got = rrtc_mega.plan_batch_mega(spec, envs, starts, goals, masks, s, offs, device=cuda,
+                                        shape=(None, G))
+        torch.cuda.synchronize()
+        launch = dict(rrtc_mega_cuda.LAST_LAUNCH)
+        assert launch["group"] == G
+        for f in ("solved", "iterations", "size_start", "size_goal", "path_length"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(ref, f).cpu()), (G, f)
+        torch.testing.assert_close(got.cost, ref.cost, rtol=1e-6, atol=0, msg=f"G={G}")
+        ks = simplify_mega.simplify_batch_mega(spec, envs, ref.path, ref.path_length, ss,
+                                               device=cuda, shape=(None, G))
+        torch.cuda.synchronize()
+        assert simplify_mega_cuda.LAST_LAUNCH["group"] == G
+        assert torch.equal(ks.path_length.cpu(), sref.path_length.cpu()), G
+        torch.testing.assert_close(ks.cost, sref.cost, rtol=1e-5, atol=0, msg=f"G={G}")
+        shapes[G] = (launch, dict(simplify_mega_cuda.LAST_LAUNCH))
+    print(f"{spec.name}: {shapes}")
+    return shapes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interleave", [False, True])
+@pytest.mark.parametrize("k,c,w", [(1, 1, 1), (4, 2, 2)])
+def test_megakernels_every_group_on_the_wall(cuda, monkeypatch, k, c, w, interleave):
+    spec, envs, starts, goals, masks = _wall(cuda)
+    offs = torch.arange(3, device=cuda, dtype=torch.int32) * 100
+    _every_group(cuda, monkeypatch, spec, envs, starts, goals, masks,
+                 _wall_settings(k, c, w, interleave=interleave), offs)
+
+
+@pytest.mark.gpu
+def test_megakernels_every_group_on_cages(cuda, monkeypatch):
+    """64 Panda sphere cages at run_suite's mega settings; the shape the
+    chooser picks keeps more than four warps an SM."""
+    from vamp_mvt_tpu_torch.bench import mbm
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda, simplify_mega_cuda
+
+    spec = registry.load("panda")
+    envs, starts, goals, masks = mbm.build_batch(mbm.cage_suite(64)["problems"]["cage"],
+                                                 device=cuda)
+    s = mbm.default_settings("panda", "mega")
+    _every_group(cuda, monkeypatch, spec, envs, starts, goals, masks, s)
+    assert rrtc_mega_cuda.launch_shape(spec, envs, s)["warps_per_sm"] > 4
+    assert simplify_mega_cuda.launch_shape(spec, envs, s.max_path)["warps_per_sm"] > 4
+
+
+def _panda_draws(spec, envs, device, seed):
+    """Start and goal of each of `envs`' problems: the first two of 2048
+    seeded configurations the fkcc kernel finds valid there."""
+    from vamp_mvt_tpu_torch.bench import scenes
+
+    q = scenes.seeded_configs(spec, envs.spheres.shape[0], 2048, seed, device)
+    rows, starts, goals, masks = scenes.first_two_valid(q, fkcc_cuda.fkcc_batched(spec, envs, q))
+    assert rows == list(range(envs.spheres.shape[0]))
+    return starts, goals, masks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["payload", "terrain"])
+def test_megakernels_every_group_on_panda_branches(cuda, monkeypatch, which):
+    """The Panda with a payload (two scenes, each its own) and over a
+    terrain (a 40 x 40 heightfield of 5 cm cells under a sphere and a
+    cuboid)."""
+    from vamp_mvt_tpu_torch.bench import mbm
+
+    spec = registry.load("panda")
+    if which == "payload":
+        envs = _panda_attach_envs(cuda)
+    else:
+        grid = np.random.default_rng(13).uniform(0.0, 0.15, (40, 40)).astype(np.float32)
+        meta, data = envmod.make_heightfield((0.0, 0.0, -0.2), (0.05, 0.05, 1.0), grid)
+        b = envmod.EnvironmentBuilder().add_heightfield(meta, data)
+        b.add_sphere([0.5, 0.0, 0.6], 0.18)
+        b.add_cuboid(envmod.make_cuboid([0.0, 0.55, 0.4], [0.3, 0.2, 0.1], [0.2, 0.15, 0.1]))
+        envs = envmod.broadcast_environment(b.build(device=cuda), 2)
+    starts, goals, masks = _panda_draws(spec, envs, cuda, seed=14)
+    s = dataclasses.replace(mbm.default_settings("panda", "mega"), max_iterations=1024,
+                            max_samples=4096)
+    _every_group(cuda, monkeypatch, spec, envs, starts, goals, masks, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["heightfield", "attachment"])
+def test_megakernels_every_group_on_sphere_branches(cuda, monkeypatch, which):
+    spec, envs, starts, goals, masks, s = _branch_problems(cuda)[which]
+    offs = torch.arange(2, device=cuda, dtype=torch.int32) * 100
+    _every_group(cuda, monkeypatch, spec, envs, starts, goals, masks, s, offs)
+
+
+@pytest.mark.gpu
+def test_megakernels_every_group_on_clouds(cuda, monkeypatch):
+    """The sphere robot through the pck wall, and four Panda problems in
+    MBM-shaped clouds (run_suite_pointcloud's pipeline, 10,000 samples an
+    object) at run_suite_pointcloud's settings with a smaller budget."""
+    from vamp_mvt_tpu_torch.bench import mbm, scenes
+    from vamp_mvt_tpu_torch.pointcloud import pipeline
+
+    spec, envs, starts, goals, masks = _pc_wall_problem(cuda)
+    offs = torch.arange(2, device=cuda, dtype=torch.int32) * 100
+    _every_group(cuda, monkeypatch, spec, envs, starts, goals, masks,
+                 _wall_settings(4, 2, 2, max_iterations=1024, max_samples=512), offs)
+    spec = registry.load("panda")
+    problems = [dict(p, sphere=[]) for p in scenes.mbm_shaped_problems(4, seed=1)]
+    envs = envmod.stack_environments([envmod.EnvironmentBuilder(
+        pck=pipeline.problem_to_pointcloud_env("panda", p, pc_repr="capt")[0].pck).build(
+            device="cpu") for p in problems]).to(cuda)
+    q = scenes.seeded_configs(spec, 4, 2048, 15, cuda)
+    rows, starts, goals, masks = scenes.first_two_valid(q, fkcc_cuda.fkcc_batched(spec, envs, q))
+    assert len(rows) >= 2
+    envs = envs.map(lambda t: t[rows])
+    s = dataclasses.replace(mbm.pointcloud_settings("panda"), max_iterations=1024)
+    _every_group(cuda, monkeypatch, spec, envs, starts, goals, masks, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("robot", ["fetch", "baxter"])
+def test_megakernels_every_group_other_robots(cuda, monkeypatch, robot):
+    from vamp_mvt_tpu_torch.bench import mbm
+
+    spec = registry.load(robot)
+    envs, starts, goals, masks = _robot_problems(spec, cuda)
+    s = dataclasses.replace(mbm.default_settings(robot, "mega"), max_iterations=1024,
+                            max_samples=4096)
+    _every_group(cuda, monkeypatch, spec, envs, starts, goals, masks, s)

@@ -6,6 +6,14 @@ W = 4 on Fetch); the JAX side's are captured at its planner call.  Then
 `run_suite("ur5", planner="xla", device="cpu")` against the JAX package's on
 three seeded MBM-shaped scenes: the same valid and solved flags and
 iterations, planner costs and simplified costs within rtol 1e-5.
+
+The JAX package memoizes robot tables and compiled planners by `id(spec)`
+without keeping the spec alive, so a spec freed earlier in the same process
+(a test's `sphere_spec()`) can leave an entry that a later spec allocated at
+its address picks up: the reference then plans with another robot's
+self-collision thresholds.  `_fresh_jax_caches` gives every test here empty
+caches, so the reference result does not depend on which tests ran before
+it in the worker.
 """
 
 import dataclasses
@@ -14,16 +22,35 @@ import numpy as np
 import pytest
 import torch
 
+from vamp_mvt_tpu import api as japi
 from vamp_mvt_tpu.bench import mbm as jmbm
+from vamp_mvt_tpu.ops import fkcc as jfkcc
+from vamp_mvt_tpu.ops.kernels import fkcc_pallas as jfkcc_pallas
 from vamp_mvt_tpu.planning import rrtc as jrrtc
 from vamp_mvt_tpu.planning import rrtc_mega as jrrtc_mega
 from vamp_mvt_tpu.planning import simplify as jsimplify
+from vamp_mvt_tpu.planning import simplify_mega as jsimplify_mega
 from vamp_mvt_tpu_torch.bench import mbm, scenes
 from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
 from vamp_mvt_tpu_torch.planning import rrtc, simplify
 from vamp_mvt_tpu_torch.robots import registry
 
 torch.set_num_threads(1)
+
+
+# the JAX package's caches keyed by id(spec) (module, attribute)
+_JAX_ID_CACHES = (
+    (jfkcc, "_THRESH_CACHE"), (jfkcc_pallas, "_STAB_CACHE"), (jfkcc_pallas, "_VMAP_CACHE"),
+    (jfkcc_pallas, "_VMAP_LANES_CACHE"), (jrrtc, "_COMPACT_CACHE"),
+    (jsimplify, "_COMPACT_CACHE"), (jsimplify_mega, "_RUN_CACHE"), (japi, "_JIT_CACHE"),
+    (jmbm, "_FN_CACHE"),
+)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_jax_caches(monkeypatch):
+    for mod, name in _JAX_ID_CACHES:
+        monkeypatch.setattr(mod, name, {})
 
 
 class _Stop(Exception):

@@ -57,9 +57,24 @@
 // thr = r + r_point.  A payload sphere's table row comes with the problem
 // (pc_kernel.attachment_table).  The branch is sign-exact, not value-exact
 // (every consumer thresholds vmin at 0), and stops the moment vmin < 0.
-// One thread per configuration, no warp collective (the megakernels call it
-// inside divergent loops); the bitmap, chunks and points stay in global
-// memory, read through the read-only path.
+// The bitmap, chunks and points stay in global memory, read through the
+// read-only path.
+//
+// Two forms.  config_vmin checks one configuration per thread with its FK
+// scratch in shared memory, (n_slots * 12 + (S + A) * 3) floats a thread
+// (scratch_floats); fkcc.cu runs it over 700 x 1024 configurations, enough
+// to fill the card at one warp a scheduler.  config_vmin_group (below)
+// checks one configuration with G lanes of a warp and a scratch a group;
+// the megakernels run it, since a planner step has only a few hundred
+// configurations and the per-thread scratch (90,624 bytes of sphere centres
+// alone for the Panda at 128 threads) left them one block of 4 warps an SM.
+//
+// What bounds it.  FP32 arithmetic (some 18k-30k operations a Panda
+// configuration) and the shared-memory loads that feed it (rows, poses,
+// centres).  The grouped form reads each environment row once for 4
+// spheres, pads each group's scratch so that the lanes of a warp meet 32
+// distinct banks on the pair table's centre reads, and runs FK by rows
+// (3 lanes of a group).
 
 #pragma once
 
@@ -500,6 +515,450 @@ __device__ inline float config_vmin(const Env& env, const Robot& r, float* s_pos
   }
   if (env.nh > 0) vmin = hf_vmin(env, r, s_ctr, T, tid, vmin);
   if (env.bm != nullptr && vmin >= 0.0f) vmin = pc_vmin(env, r, s_ctr, T, tid, vmin, w);
+  return vmin;
+}
+
+// ---------------------------------------------------------------------------
+// The lane-group check of the megakernels (rrtc_mega.cu, simplify_mega.cu).
+//
+// G lanes of one warp (a group; G a power of two, 1..32, fixed at compile
+// time) check one configuration together, so the FK scratch is paid per
+// group, not per thread: the group's configuration, the cosine and sine of
+// each joint, every frame's pose and every sphere centre, group_floats()
+// floats.  The robot tables sit in shared memory too (load_robot).  Within a
+// group:
+//   - each lane takes the cos/sin of joints j = gl, gl + G, ...;
+//   - FK runs by rows: row i of a frame's rotation and translation depends
+//     only on row i of its parent's, so lane gl walks the whole chain for
+//     rows i = gl, gl + G, ... < 3 (at G >= 4 lanes 3.. idle through FK) and
+//     stores them in the group's pose table;
+//   - sphere poses with their environment rows, the self-collision pairs,
+//     the payload checks and the heightfield loop are split by index across
+//     the lanes, and vmin is the min over the group (__shfl_xor_sync);
+//   - the pointcloud branch gates the spheres G at a time, then scans each
+//     undecided sphere's live chunks split across the lanes, and stops for
+//     the whole group as soon as one lane holds vmin < 0 (sign-exact).
+// Every value is computed by the same expression, in the same order, as in
+// config_vmin, and a min is exact in any order, so the validity equals the
+// per-thread routine's (config_vmin, which fkcc.cu keeps using).
+// ---------------------------------------------------------------------------
+
+// vmin over the live shape rows of U spheres (centres px, py, pz, radii
+// rad), from `vmin`: prim_vmin's expressions, each row read once for all U
+// (U independent chains of mins).
+template <int U>
+__device__ __forceinline__ float prim_vmin_n(const Env& env, const float* px, const float* py,
+                                             const float* pz, const float* rad, float vmin) {
+  float v[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) v[u] = vmin;
+  for (int m = 0; m < env.ls; ++m) {
+    const float* o = env.sph + m * 4;
+    const float o0 = o[0], o1 = o[1], o2 = o[2], o3 = o[3];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float d2 = sq(px[u] - o0) + sq(py[u] - o1) + sq(pz[u] - o2);
+      const float rs = rad[u] + o3;
+      v[u] = fminf(v[u], d2 - rs * rs);
+    }
+  }
+  for (int m = 0; m < env.lc; ++m) {
+    const float* o = env.cap + m * 8;
+    const float o0 = o[0], o1 = o[1], o2 = o[2], o3 = o[3], o4 = o[4], o5 = o[5];
+    const float o6 = o[6], o7 = o[7];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float dot = (px[u] - o0) * o3 + (py[u] - o1) * o4 + (pz[u] - o2) * o5;
+      const float t = fminf(fmaxf(dot * o7, 0.0f), 1.0f);
+      const float d2 = sq(px[u] - (o0 + o3 * t)) + sq(py[u] - (o1 + o4 * t)) +
+                       sq(pz[u] - (o2 + o5 * t));
+      const float rs = rad[u] + o6;
+      v[u] = fminf(v[u], d2 - rs * rs);
+    }
+  }
+  for (int m = 0; m < env.lzc; ++m) {
+    const float* o = env.zcap + m * 8;
+    const float o0 = o[0], o1 = o[1], o2 = o[2], o5 = o[5], o6 = o[6], o7 = o[7];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float t = fminf(fmaxf((pz[u] - o2) * o5 * o7, 0.0f), 1.0f);
+      const float d2 = sq(px[u] - o0) + sq(py[u] - o1) + sq(pz[u] - (o2 + o5 * t));
+      const float rs = rad[u] + o6;
+      v[u] = fminf(v[u], d2 - rs * rs);
+    }
+  }
+  for (int m = 0; m < env.lb; ++m) {
+    const float* o = env.cub + m * 15;
+    float c[15];
+#pragma unroll
+    for (int e = 0; e < 15; ++e) c[e] = o[e];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float xs = px[u] - c[0], ys = py[u] - c[1], zs = pz[u] - c[2];
+      const float a1 = fmaxf(fabsf(c[3] * xs + c[4] * ys + c[5] * zs) - c[12], 0.0f);
+      const float a2 = fmaxf(fabsf(c[6] * xs + c[7] * ys + c[8] * zs) - c[13], 0.0f);
+      const float a3 = fmaxf(fabsf(c[9] * xs + c[10] * ys + c[11] * zs) - c[14], 0.0f);
+      v[u] = fminf(v[u], a1 * a1 + a2 * a2 + a3 * a3 - rad[u] * rad[u]);
+    }
+  }
+  for (int m = 0; m < env.lzb; ++m) {
+    const float* o = env.zcub + m * 15;
+    const float o0 = o[0], o1 = o[1], o2 = o[2], o3 = o[3], o4 = o[4], o6 = o[6], o7 = o[7];
+    const float o12 = o[12], o13 = o[13], o14 = o[14];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float xs = px[u] - o0, ys = py[u] - o1, zs = pz[u] - o2;
+      const float a1 = fmaxf(fabsf(o3 * xs + o4 * ys) - o12, 0.0f);
+      const float a2 = fmaxf(fabsf(o6 * xs + o7 * ys) - o13, 0.0f);
+      const float a3 = fmaxf(fabsf(zs) - o14, 0.0f);
+      v[u] = fminf(v[u], a1 * a1 + a2 * a2 + a3 * a3 - rad[u] * rad[u]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) vmin = fminf(vmin, v[u]);
+  return vmin;
+}
+
+// The robot tables in shared memory, plus each sphere's frame.
+struct GroupRobot {
+  Robot r;
+  const int* kframe;  // S: the frame that carries sphere k
+};
+
+// Floats of shared memory the robot tables take (load_robot).
+__host__ __device__ inline int robot_floats(const Robot& r) {
+  return r.F * (kFrameInts + kFrameFloats) + r.S * 9 + r.P * 3 + r.n_att_check;
+}
+
+// Floats of one group's scratch: its configuration, the cos and sin of each
+// joint (3 d), every frame's pose (12 F: rotation row-major, translation)
+// and every robot and payload sphere centre (3 (S + A)), padded to 3 G
+// modulo 32.  Group g then starts 3 G g banks after group 0, so when the
+// lanes of a group read consecutive centres of their own copies (the pair
+// table runs through consecutive j for one i), lane l of the warp meets
+// bank 3 l: no two lanes of a warp collide.
+__host__ __device__ inline int group_floats(const Robot& r, const EnvTables& e, int d, int G) {
+  const int n = 3 * d + 12 * r.F + 3 * (r.S + e.A);
+  return n + ((3 * G - n) % 32 + 32) % 32;
+}
+
+template <typename V>
+__device__ __forceinline__ void load_vals(V* dst, const V* src, int count) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
+}
+
+// Copy the robot tables to `smem` (robot_floats(r) floats) and build each
+// sphere's frame.  Every thread of the block must call it.
+__device__ inline GroupRobot load_robot(const Robot& r, float* smem) {
+  int* s_fi = reinterpret_cast<int*>(smem);
+  float* s_ff = smem + r.F * kFrameInts;
+  float* s_sf = s_ff + r.F * kFrameFloats;
+  float* s_spc = s_sf + r.S * 4;
+  int* s_kf = reinterpret_cast<int*>(s_spc + r.S * 4);
+  int* s_pairs = s_kf + r.S;
+  float* s_thr = reinterpret_cast<float*>(s_pairs + 2 * r.P);
+  int* s_att = reinterpret_cast<int*>(s_thr + r.P);
+  load_vals(s_fi, r.frame_i, r.F * kFrameInts);
+  load_vals(s_ff, r.frame_f, r.F * kFrameFloats);
+  load_vals(s_sf, r.sphere_f, r.S * 4);
+  load_vals(s_spc, r.sphere_pc, r.S * 4);
+  load_vals(s_pairs, r.pairs, 2 * r.P);
+  load_vals(s_thr, r.pair_thr, r.P);
+  load_vals(s_att, r.att_check, r.n_att_check);
+  for (int f = threadIdx.x; f < r.F; f += blockDim.x) {
+    const int* fi = r.frame_i + f * kFrameInts;
+    for (int idx = fi[4]; idx < fi[5]; ++idx) s_kf[r.sphere_order[idx]] = f;
+  }
+  __syncthreads();
+  GroupRobot g;
+  g.r = r;
+  g.r.frame_i = s_fi;
+  g.r.frame_f = s_ff;
+  g.r.sphere_f = s_sf;
+  g.r.sphere_pc = s_spc;
+  g.r.pairs = s_pairs;
+  g.r.pair_thr = s_thr;
+  g.r.att_check = s_att;
+  g.kframe = s_kf;
+  return g;
+}
+
+// Spheres and pairs a lane takes at a time in config_vmin_group.
+constexpr int kUnroll = 4;
+
+// The lanes of the calling thread's group.
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  if (G == 32) return 0xffffffffu;
+  return ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+}
+
+template <int G>
+__device__ __forceinline__ float group_min(float v, unsigned gmask) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(gmask, v, o));
+  return v;
+}
+
+// The pointcloud branch for the group's S + A centres `ctr` (3 floats a
+// sphere), from the group's vmin >= 0; returns the group's new vmin.
+template <int G>
+__device__ inline float pc_vmin_group(const Env& env, const GroupRobot& gr, const float* ctr,
+                                      int gl, unsigned gmask, float vmin, Work& w) {
+  const Robot& r = gr.r;
+  const int SA = r.S + env.A;
+  const unsigned low = G == 32 ? 0xffffffffu : (1u << G) - 1u;
+  const int gbase = (threadIdx.x & 31) & ~(G - 1);
+  for (int k0 = 0; k0 < SA; k0 += G) {
+    // the gate of sphere k0 + gl
+    const int k = k0 + gl;
+    bool maybe = false, hit = false;
+    if (k < SA) {
+      const float cx = ctr[k * 3 + 0], cy = ctr[k * 3 + 1], cz = ctr[k * 3 + 2];
+      const float* sp = k < r.S ? r.sphere_pc + 4 * k : env.att_pc + 4 * (k - r.S);
+      const int cls = (int)sp[1];
+      const bool chit_ok = sp[2] > 0.0f;
+      const bool gate_ok = sp[3] > 0.0f;
+      ++w.gates;
+      const float fx = floorf((cx - env.wsx) * env.inv);
+      const float fy = floorf((cy - env.wsy) * env.inv);
+      const float fz = floorf((cz - env.wsz) * env.inv);
+      const bool ing = fx >= 0.0f && fx < env.Wf && fy >= 0.0f && fy < env.Wf &&
+                       fz >= 0.0f && fz < env.Wf;
+      maybe = !ing || !gate_ok;
+      if (ing) {
+        const int widx = (int)fx * env.W + (int)fy;
+        const unsigned zs = (unsigned)(int)fz;
+        const unsigned hw = (unsigned)__ldg(env.bm + (kMaxClasses + cls) * env.plane + widx);
+        hit = chit_ok && ((hw >> zs) & 1u);
+        const unsigned free_word = (unsigned)__ldg(env.bm + cls * env.plane + widx);
+        maybe = maybe || ((free_word >> zs) & 1u);
+      }
+    }
+    if (__any_sync(gmask, hit)) return fminf(vmin, -1.0f);
+    // the exact scan of each undecided sphere, its chunks split across lanes
+    unsigned want = (__ballot_sync(gmask, maybe && !hit) >> gbase) & low;
+    while (want) {
+      const int kk = k0 + __ffs(want) - 1;
+      want &= want - 1;
+      const float cx = ctr[kk * 3 + 0], cy = ctr[kk * 3 + 1], cz = ctr[kk * 3 + 2];
+      const float rk = kk < r.S ? r.sphere_pc[4 * kk] : env.att_pc[4 * (kk - r.S)];
+      const float thr = rk + env.pr;
+      const float thr2 = thr * thr;
+      for (int c0 = 0; c0 < env.nlive; c0 += G) {
+        const int c = c0 + gl;
+        if (c < env.nlive) {
+          const float4 bnd = __ldg(env.ch + 2 * c);
+          ++w.chunks;
+          const float m = thr + bnd.w + kChunkMargin;
+          if (!(sq(cx - bnd.x) + sq(cy - bnd.y) + sq(cz - bnd.z) > m * m)) {
+            const float* p = env.pt + (long long)c * 3 * kChunkPoints;
+            w.points += kChunkPoints;
+            for (int s = 0; s < kChunkPoints; ++s) {
+              const float d2 = sq(cx - __ldg(p + s)) + sq(cy - __ldg(p + kChunkPoints + s)) +
+                               sq(cz - __ldg(p + 2 * kChunkPoints + s));
+              vmin = fminf(vmin, d2 - thr2);
+            }
+          }
+        }
+        if (__any_sync(gmask, vmin < 0.0f)) return group_min<G>(vmin, gmask);
+      }
+    }
+  }
+  return group_min<G>(vmin, gmask);
+}
+
+// vmin of the configuration in the group's scratch `gs` (group_floats(r,
+// e, d, G) floats, the configuration first), checked by the G lanes of the
+// calling thread's group (gl its lane in the group, gmask the group's lanes);
+// every lane of the group must call it and gets the group's vmin.  The
+// caller writes the configuration before the call.  Pointcloud work goes to
+// `w`.  No block barrier inside.
+template <int G>
+__device__ inline float config_vmin_group(const Env& env, const GroupRobot& gr, float* gs,
+                                          int d, int gl, unsigned gmask, Work& w) {
+  const Robot& r = gr.r;
+  const float* q = gs;
+  float* cs = gs + d;
+  float* sn = gs + 2 * d;
+  float* pose = gs + 3 * d;        // F x 12
+  float* ctr = pose + 12 * r.F;    // (S + A) x 3
+  __syncwarp(gmask);
+  for (int j = gl; j < d; j += G) {
+    cs[j] = cosf(q[j]);
+    sn[j] = sinf(q[j]);
+  }
+  __syncwarp(gmask);
+
+  // FK by rows: this lane's rows i = gl + G m < 3 of every frame.
+  constexpr int kRows = G >= 3 ? 1 : (G == 2 ? 2 : 3);
+  int row[kRows];
+  bool own[kRows];
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) {
+    own[m] = gl + G * m < 3;
+    row[m] = own[m] ? gl + G * m : 2;
+  }
+  float R[kRows][3], t[kRows];
+  for (int f = 0; f < r.F; ++f) {
+    const int* fi = r.frame_i + f * kFrameInts;
+    const float* ff = r.frame_f + f * kFrameFloats;
+    const int parent = fi[0];
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) {
+      const int i = row[m];
+      if (parent < 0) {
+        for (int j = 0; j < 3; ++j) R[m][j] = ff[i * 3 + j];
+        t[m] = ff[9 + i];
+      } else {
+        float Rp[3], tp;
+        if (parent == f - 1) {
+          for (int j = 0; j < 3; ++j) Rp[j] = R[m][j];
+          tp = t[m];
+        } else {
+          const float* src = pose + parent * 12;
+          for (int j = 0; j < 3; ++j) Rp[j] = src[i * 3 + j];
+          tp = src[9 + i];
+        }
+        // R = Rp @ origin_rot;  t = Rp @ origin_xyz + tp
+        for (int j = 0; j < 3; ++j) {
+          float acc = Rp[0] * ff[0 * 3 + j];
+          acc = acc + Rp[1] * ff[1 * 3 + j];
+          acc = acc + Rp[2] * ff[2 * 3 + j];
+          R[m][j] = acc;
+        }
+        float acc = Rp[0] * ff[9];
+        acc = acc + Rp[1] * ff[10];
+        acc = acc + Rp[2] * ff[11];
+        t[m] = acc + tp;
+      }
+    }
+    const int jt = fi[1];
+    if (jt == kRevolute) {
+      const float c = cs[fi[2]];
+      const float s = sn[fi[2]];
+      float Q[9];
+      for (int e = 0; e < 9; ++e) Q[e] = (ff[15 + e] + ff[24 + e] * c) + ff[33 + e] * s;
+#pragma unroll
+      for (int m = 0; m < kRows; ++m) {
+        float Rn[3];
+        for (int j = 0; j < 3; ++j) {
+          float acc = R[m][0] * Q[0 * 3 + j];
+          acc = acc + R[m][1] * Q[1 * 3 + j];
+          acc = acc + R[m][2] * Q[2 * 3 + j];
+          Rn[j] = acc;
+        }
+        for (int j = 0; j < 3; ++j) R[m][j] = Rn[j];
+      }
+    } else if (jt == kPrismatic) {
+      const float x = q[fi[2]];
+#pragma unroll
+      for (int m = 0; m < kRows; ++m) {
+        float acc = R[m][0] * ff[12];
+        acc = acc + R[m][1] * ff[13];
+        acc = acc + R[m][2] * ff[14];
+        t[m] = t[m] + x * acc;
+      }
+    }
+    float* dst = pose + f * 12;
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) {
+      if (!own[m]) continue;
+      const int i = row[m];
+      for (int j = 0; j < 3; ++j) dst[i * 3 + j] = R[m][j];
+      dst[9 + i] = t[m];
+    }
+  }
+  __syncwarp(gmask);
+
+  // Robot and payload sphere centres, split across the lanes kUnroll at a
+  // time (a lane's spheres k0 + G u): pose, store, environment rows.  A slot
+  // past the last sphere repeats sphere k0, which leaves the min as it is.
+  float vmin = __int_as_float(0x7f800000);  // +inf
+  const int SA = r.S + env.A;
+  for (int k0 = gl; k0 < SA; k0 += G * kUnroll) {
+    float px[kUnroll], py[kUnroll], pz[kUnroll], rad[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + G * u < SA ? k0 + G * u : k0;
+      const bool robot_sphere = k < r.S;
+      const float* loc = robot_sphere ? r.sphere_f + k * 4 : env.att + (k - r.S) * 4;
+      const float* P = pose + (robot_sphere ? gr.kframe[k] : r.ee_frame) * 12;
+      float p[3];
+      for (int i = 0; i < 3; ++i) {
+        float acc = P[i * 3 + 0] * loc[0];
+        acc = acc + P[i * 3 + 1] * loc[1];
+        acc = acc + P[i * 3 + 2] * loc[2];
+        p[i] = acc + P[9 + i];
+      }
+      ctr[k * 3 + 0] = p[0];
+      ctr[k * 3 + 1] = p[1];
+      ctr[k * 3 + 2] = p[2];
+      px[u] = p[0];
+      py[u] = p[1];
+      pz[u] = p[2];
+      rad[u] = loc[3];
+    }
+    vmin = prim_vmin_n<kUnroll>(env, px, py, pz, rad, vmin);
+  }
+  __syncwarp(gmask);
+
+  // Self-collision pair table, kUnroll pairs a lane at a time (a slot past
+  // the last pair repeats pair m0).
+  for (int m0 = gl; m0 < r.P; m0 += G * kUnroll) {
+    int pi[kUnroll], pj[kUnroll];
+    float thr[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int m = m0 + G * u < r.P ? m0 + G * u : m0;
+      pi[u] = r.pairs[2 * m];
+      pj[u] = r.pairs[2 * m + 1];
+      thr[u] = r.pair_thr[m];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = pi[u], j = pj[u];
+      const float dx = ctr[i * 3 + 0] - ctr[j * 3 + 0];
+      const float dy = ctr[i * 3 + 1] - ctr[j * 3 + 1];
+      const float dz = ctr[i * 3 + 2] - ctr[j * 3 + 2];
+      vmin = fminf(vmin, dx * dx + dy * dy + dz * dz - thr[u]);
+    }
+  }
+
+  // Payload spheres against the robot's attachment-check spheres.
+  const int nac = r.n_att_check;
+  for (int idx = gl; idx < env.A * nac; idx += G) {
+    const int a = idx / nac;
+    const int k = r.att_check[idx - a * nac];
+    const int ka = r.S + a;
+    const float dx = ctr[ka * 3 + 0] - ctr[k * 3 + 0];
+    const float dy = ctr[ka * 3 + 1] - ctr[k * 3 + 1];
+    const float dz = ctr[ka * 3 + 2] - ctr[k * 3 + 2];
+    const float rs = env.att[a * 4 + 3] + r.sphere_f[k * 4 + 3];
+    vmin = fminf(vmin, dx * dx + dy * dy + dz * dz - rs * rs);
+  }
+
+  // Heightfields.
+  if (env.nh > 0) {
+    for (int k = gl; k < SA; k += G) {
+      const float cx = ctr[k * 3 + 0];
+      const float cy = ctr[k * 3 + 1];
+      const float cz = ctr[k * 3 + 2];
+      const float rk = k < r.S ? r.sphere_f[k * 4 + 3] : env.att[(k - r.S) * 4 + 3];
+      for (int n = 0; n < env.nh; ++n) {
+        const float* m = env.hfm + n * 10;
+        const float xo = m[0] - cx;
+        const float yo = m[1] - cy;
+        const float ccx = floorf(fminf(fmaxf(m[3] * xo + m[8], 0.0f), m[6]));
+        const float ccy = floorf(fminf(fmaxf(m[4] * yo + m[9], 0.0f), m[7]));
+        const int idx = min(max((int)(ccy * m[6] + ccx), 0), env.C - 1);
+        const float zh = __ldg(env.hfd + (long long)n * env.C + idx);
+        vmin = fminf(vmin, cz - rk - (m[5] * zh + m[2]));
+      }
+    }
+  }
+  vmin = group_min<G>(vmin, gmask);
+  if (env.bm != nullptr && vmin >= 0.0f) vmin = pc_vmin_group<G>(env, gr, ctr, gl, gmask, vmin, w);
   return vmin;
 }
 

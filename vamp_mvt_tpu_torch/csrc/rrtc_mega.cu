@@ -40,10 +40,12 @@
 // At the end the block walks both parent chains and exports only the
 // max_path path rows and the scalars (plus its work counters: configurations
 // checked, node-sample pairs scanned, and the pointcloud's spheres gated,
-// chunk bounds tested and points evaluated).  A pointcloud (fkcc_device.cuh)
-// and a heightfield's heights stay in global memory; a heightfield's meta
-// rows (10 floats a field) and an attachment's payload rows go to shared
-// memory, and each payload sphere adds 3 floats a thread to the FK scratch.
+// chunk bounds tested and points evaluated) and the cycles of each phase of
+// a step, read by thread 0 at barriers the step passes anyway.  A pointcloud
+// (fkcc_device.cuh) and a heightfield's heights stay in global memory; a
+// heightfield's meta rows (10 floats a field), an attachment's payload rows
+// and the robot tables go to shared memory, and each payload sphere adds 3
+// floats a group to the FK scratch.
 //
 // Node memory.  On the TPU the (M + 32, 128) node buffer lived in VMEM.  Here
 // each problem owns M rows of (d + 4) floats in global memory (configuration,
@@ -56,11 +58,28 @@
 // chain increments of 8 * ceil(length * resolution / 8) points each through
 // FK + collision (some 18k-30k FP32 operations per Panda configuration) and
 // scans the live tree once per sample (2d + 3 operations per node-sample
-// pair), so it is bound by FP32 arithmetic in either cadence; the node rows
-// it reads are a few KB a step.  The block runs one problem with T threads,
-// and its shared memory (mostly the FK scratch of T threads: 117,676 bytes
-// for Panda at T = 128) allows one block per SM, so 132 problems are in flight on an H100 and the slowest
-// problem sets the kernel's end.
+// pair): FP32 arithmetic and the shared-memory loads that feed it, in either
+// cadence; the node rows it reads are a few KB a step.  The FK + collision
+// pass takes about 90% of a block's cycles (the phase clocks), and the
+// kernel ends when its slowest problem does (that block's cycles match the
+// kernel's time), so the design cuts one problem's step latency:
+//   - a block of T threads (512 for every robot; launch_shape in
+//     ops/kernels/rrtc_mega_cuda.py picks T and G) checks T / G
+//     configurations at a time, G lanes of a warp each
+//     (fkcc_device.cuh::config_vmin_group): one FK scratch a group, not a
+//     thread (Panda: 364 floats a group, 128 groups of 4 lanes in 220,544
+//     bytes), so 16 warps work on one problem where the per-thread design
+//     ran 4 (128 threads, 117,676 bytes of per-thread scratch);
+//   - the point -> edge map is a binary search over s_eoff;
+//   - warp 0 builds the edges and their prefix sum with a shuffle scan,
+//     every warp ballots the grow edges' insert positions and finds the
+//     grow node nearest to tree b with a warp min (lowest edge on ties), the
+//     radius updates run one edge a thread (the last edge sharing a node
+//     writes), the chain's increment is double-buffered: a grow step passes
+//     6 block barriers besides the scans', a connect step 3 (11 and 5
+//     before);
+//   - the nearest-neighbour scans split each query's nodes over the T / 128
+//     threads that would otherwise wait, and merge their minima.
 //
 // Numerics.  --fmad=false; every sum in the plain version's order (sum_last
 // is left to right); `range / x` is computed as reciprocal(x) * range and
@@ -80,10 +99,14 @@ constexpr int kMaxDim = 16;
 constexpr int kMaxLanes = 128;   // K * W
 constexpr int kMaxEdges = 64;    // K + C
 constexpr int kChunk = 128;      // node rows staged per nearest-neighbour pass
+constexpr int kMaxThreads = 512; // threads a block (the launcher's T)
 constexpr int kMeta = 4;         // in_start, radius, parent, norm
 constexpr int kLanesPerThread = kMaxLanes / 32;
 constexpr int kScalars = 16;
 constexpr int kWork = 5;
+// Phase clocks (cycles of clock64() summed per block, read by thread 0 at
+// barriers the step passes anyway), exported after the work counters.
+enum Phase { kSampling, kNnA, kPrefilter, kEdges, kFkcc, kNnB, kInserts, kPhases };
 // Radius of a node never updated: a finite stand-in for infinity, as in the
 // TPU kernel's node rows (mega_inputs writes it for the roots).
 constexpr float kBig = 1.0e30f;
@@ -104,24 +127,27 @@ static_assert(sizeof(PlanParams) == 4 * (kIntParams + kFloatParams), "PlanParams
 struct State {
   int iters, sample_idx, n_nodes, size_start, size_goal, a_is_start, connect;
   int c_tip, c_rem, c_other, done, junc_a, junc_b, a_j_start, gsteps, csteps;
-  int budget, consumed, n_ins, kc;
+  int budget, consumed, inc;  // inc: which half of s_inc holds the chain's increment
   float c_len;
 };
 
-// Shared-memory layout in floats (ints share the 4-byte slots).
+// Shared-memory layout in floats (ints share the 4-byte slots): the
+// problem's shape rows, the robot tables, T / G groups' FK scratch, then the
+// step's samples, node chunk and edge lists.
 struct Layout {
-  int env, pose, q, samp, s2, chunk, ecfg, evec, enew, en, enear, endist, enrad,
-      eq2, eoff, ebad, epos, eod, eoidx, tip, inc, words, pathidx, total;
+  int env, robot, group, samp, s2, chunk, part, ecfg, evec, enew, en, enear, endist, enrad,
+      eq2, eoff, ebad, eod, eoidx, tip, inc, words, pathidx, total;
   __host__ __device__ Layout(const PlanParams& p, const fkcc::EnvTables& et,
-                             const fkcc::Robot& r, int T) {
+                             const fkcc::Robot& r, int T, int G) {
     const int d = p.d, E = kMaxEdges;
     int o = 0;
     env = o; o += fkcc::env_floats(et);
-    pose = o; o += fkcc::scratch_floats(r, et, T);
-    q = o; o += d * T;
+    robot = o; o += fkcc::robot_floats(r);
+    group = o; o += fkcc::group_floats(r, et, d, G) * (T / G);
     samp = o; o += kMaxLanes * d;
     s2 = o; o += kMaxLanes;
     chunk = o; o += kChunk * (d + 2);
+    part = o; o += 2 * T;
     ecfg = o; o += E * d;
     evec = o; o += E * d;
     enew = o; o += E * d;
@@ -132,11 +158,10 @@ struct Layout {
     eq2 = o; o += E;
     eoff = o; o += E + 1;
     ebad = o; o += E;
-    epos = o; o += E;
     eod = o; o += E;
     eoidx = o; o += E;
     tip = o; o += d;
-    inc = o; o += d;
+    inc = o; o += 2 * d;
     words = o; o += kMaxLanes / 32;
     pathidx = o; o += p.max_path;
     total = o;
@@ -161,14 +186,19 @@ __device__ __forceinline__ float dot(const float* a, const float* b, int d) {
 
 // Scan the live prefix [0, n_nodes) of a node buffer for the nearest node of
 // each query among rows whose in_start flag equals `want` (in_tree) or
-// differs from it.  Queries qidx = tid + r * T < nq of s_queries (nq x d) with
-// squared norms qn2; best d2 / index per query in best[] / bidx[].  Every
-// thread of the block must call it.
+// differs from it.  Queries qi = q0 + r * Tq < nq of s_queries (nq x d) with
+// squared norms qn2, Tq = min(T, kMaxLanes); a block of more threads splits
+// each staged chunk's rows among its T / Tq parts and merges the parts'
+// minima through s_part (2 T floats), lowest node index on ties, as one
+// scan in index order finds them.  Best d2 / index per query in best[] /
+// bidx[] (complete in part 0: threads tid < Tq).  Every thread of the
+// block must call it.
 __device__ void nearest_scan(const float* nb, int RS, int d, int n_nodes, float want,
                              bool in_tree, const float* s_queries, const float* s_qn2,
-                             int nq, float* s_chunk, float best[kLanesPerThread],
+                             int nq, float* s_chunk, float* s_part, float best[kLanesPerThread],
                              int bidx[kLanesPerThread], long long& pairs) {
   const int T = blockDim.x, tid = threadIdx.x;
+  const int Tq = min(T, kMaxLanes), parts = T / Tq, part = tid / Tq, q0 = tid - part * Tq;
   for (int r = 0; r < kLanesPerThread; ++r) {
     best[r] = inf_f();
     bidx[r] = 0;
@@ -183,13 +213,13 @@ __device__ void nearest_scan(const float* nb, int RS, int d, int n_nodes, float 
     }
     __syncthreads();
     for (int r = 0; r < kLanesPerThread; ++r) {
-      const int qi = tid + r * T;
+      const int qi = q0 + r * Tq;
       if (qi >= nq) break;
       const float* qv = s_queries + qi * d;
       const float q2 = s_qn2[qi];
       float bd = best[r];
       int bi = bidx[r];
-      for (int k = 0; k < cnt; ++k) {
+      for (int k = part; k < cnt; k += parts) {
         const float* row = s_chunk + k * (d + 2);
         if ((row[d + 1] == want) != in_tree) continue;
         const float d2 = (q2 + row[d]) - 2.0f * dot(qv, row, d);
@@ -203,30 +233,59 @@ __device__ void nearest_scan(const float* nb, int RS, int d, int n_nodes, float 
       bidx[r] = bi;
     }
   }
+  if (parts > 1) {  // one query a thread (Tq = kMaxLanes >= nq)
+    s_part[tid] = best[0];
+    reinterpret_cast<int*>(s_part)[T + tid] = bidx[0];
+    __syncthreads();
+    if (part == 0) {
+      for (int p = 1; p < parts; ++p) {
+        const float pd = s_part[p * Tq + q0];
+        const int pi = reinterpret_cast<int*>(s_part)[T + p * Tq + q0];
+        if (pd < best[0] || (pd == best[0] && pi < bidx[0])) {
+          best[0] = pd;
+          bidx[0] = pi;
+        }
+      }
+    }
+  }
   __syncthreads();
 }
 
+// Inclusive sum of v over the lanes of a warp (every lane calls it).
+__device__ __forceinline__ int warp_scan(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += x;
+  }
+  return v;
+}
+
 // kInter: the interleaved cadence (one instantiation each, so the alternating
-// one carries none of its code).
-template <bool kInter>
-__global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
-                                 const int* __restrict__ ctl,
-                                 const float* __restrict__ nodes0,
-                                 float* __restrict__ nodes, float* __restrict__ out_path,
-                                 int* __restrict__ out_scal,
-                                 long long* __restrict__ out_work) {
+// one carries none of its code); G: lanes a configuration of the FK pass.
+template <bool kInter, int G>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
+                 const int* __restrict__ ctl, const float* __restrict__ nodes0,
+                 float* __restrict__ nodes, float* __restrict__ out_path,
+                 int* __restrict__ out_scal, long long* __restrict__ out_work) {
   extern __shared__ float smem[];
   __shared__ State st;
   __shared__ unsigned long long s_work[kWork - 1];  // pairs, gates, chunks, points
-  const int T = blockDim.x, tid = threadIdx.x, b = blockIdx.x;
+  __shared__ long long s_ph[kPhases + 1];            // the phases' cycles, then the last read
+  const int T = blockDim.x, tid = threadIdx.x, b = blockIdx.x, lane = tid & 31;
   const int d = p.d, K = p.K, C = p.C, KW = p.KW, M = p.M, RS = d + kMeta;
-  const Layout L(p, et, robot, T);
+  const Layout L(p, et, robot, T, G);
   const fkcc::Env env = fkcc::load_env(et, b, smem + L.env);
-  float* s_pose = smem + L.pose;
-  float* s_q = smem + L.q;
+  const fkcc::GroupRobot gr = fkcc::load_robot(robot, smem + L.robot);
+  // this thread's group: its scratch, its lane, its lanes
+  const int n_groups = T / G, gl = tid & (G - 1);
+  const unsigned gmask = fkcc::group_mask<G>();
+  float* s_group = smem + L.group + (tid / G) * fkcc::group_floats(robot, et, d, G);
   float* s_samp = smem + L.samp;
   float* s_s2 = smem + L.s2;
   float* s_chunk = smem + L.chunk;
+  float* s_part = smem + L.part;
   float* s_ecfg = smem + L.ecfg;
   float* s_evec = smem + L.evec;
   float* s_enew = smem + L.enew;
@@ -237,11 +296,9 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
   float* s_eq2 = smem + L.eq2;
   int* s_eoff = reinterpret_cast<int*>(smem + L.eoff);
   int* s_ebad = reinterpret_cast<int*>(smem + L.ebad);
-  int* s_epos = reinterpret_cast<int*>(smem + L.epos);
   float* s_eod = smem + L.eod;
   int* s_eoidx = reinterpret_cast<int*>(smem + L.eoidx);
   float* s_tip = smem + L.tip;
-  float* s_inc = smem + L.inc;
   unsigned* s_words = reinterpret_cast<unsigned*>(smem + L.words);
   int* s_pathidx = reinterpret_cast<int*>(smem + L.pathidx);
 
@@ -274,15 +331,27 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
     st.gsteps = 0;
     st.csteps = 0;
     st.budget = c[3];
+    st.inc = 0;
     st.c_len = 1.0f;
     for (int i = 0; i < kWork - 1; ++i) s_work[i] = 0;
+    for (int i = 0; i < kPhases; ++i) s_ph[i] = 0;
   }
-  for (int j = tid; j < d; j += T) s_inc[j] = 0.0f;
+  for (int j = tid; j < 2 * d; j += T) smem[L.inc + j] = 0.0f;
   __syncthreads();
+  // thread 0 charges the cycles since its last read to phase i
+  const auto tick = [&](int i) {
+    if (tid == 0) {
+      const long long now = clock64();
+      s_ph[i] += now - s_ph[kPhases];
+      s_ph[kPhases] = now;
+    }
+  };
+  if (tid == 0) s_ph[kPhases] = clock64();
 
   // --------------------------------- loop ---------------------------------
   while (true) {
     __syncthreads();
+    tick(kInserts);
     const int n_nodes = st.n_nodes;
     if (!(st.done == 0 && (st.iters < st.budget || st.connect) && n_nodes < M)) break;
     const bool grow = st.connect == 0;
@@ -290,6 +359,10 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
     // (kInter) runs the grow part every step, an active chain riding along.
     const bool do_grow = grow || kInter;
     const bool do_conn = !grow;
+    // thread 0 rewrites the state at the end of the step; what the other
+    // threads read after the FK pass is taken here
+    const int c_tip = st.c_tip, inc_cur = st.inc;
+    const float* s_inc = smem + L.inc + inc_cur * d;
 
     // tree balancing (rrtc.hh:100-108), while no chain is active
     int a_is = st.a_is_start;
@@ -300,14 +373,13 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
       if (!p.balance || ratio < p.tree_ratio) a_is = 1 - a_is;
     }
     const float af = (float)a_is;
-    int n_acc = 0, n_cedges = 0;  // grow edges, then the chain's increments
-    float n_conn = 1.0f;
+    int n_acc = 0;  // grow edges, then the chain's increments
 
     if (do_grow) {
       // --- K*W Halton samples scaled to the joint limits
-      for (int lane = tid; lane < KW; lane += T) {
-        const int idx = st.sample_idx + lane;
-        float* sv = s_samp + lane * d;
+      for (int ln = tid; ln < KW; ln += T) {
+        const int idx = st.sample_idx + ln;
+        float* sv = s_samp + ln * d;
         for (int j = 0; j < d; ++j) {
           const int bj = p.base[j];
           int i = idx, n = 0;
@@ -318,24 +390,26 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
           const float u = (float)n * p.inv_denom[j];
           sv[j] = u * p.span[j] + p.low[j];
         }
-        s_s2[lane] = sum_sq(sv, d);
+        s_s2[ln] = sum_sq(sv, d);
       }
       if (tid == 0) st.consumed = KW;
-      __syncthreads();
+      tick(kSampling);
 
-      // --- nearest node of tree a for every sample
+      // --- nearest node of tree a for every sample (its first barriers
+      // publish the samples)
       float best[kLanesPerThread];
       int bidx[kLanesPerThread];
-      nearest_scan(nb, RS, d, n_nodes, af, true, s_samp, s_s2, KW, s_chunk, best, bidx,
-                   pairs);
+      nearest_scan(nb, RS, d, n_nodes, af, true, s_samp, s_s2, KW, s_chunk, s_part, best,
+                   bidx, pairs);
+      tick(kNnA);
 
       // --- dynamic-domain prefilter, ballot scan of the kept samples
       bool acc[kLanesPerThread];
       float ndist[kLanesPerThread], nrad[kLanesPerThread];
       for (int r = 0; r < kLanesPerThread; ++r) {
-        const int lane = tid + r * T;
+        const int ln = tid + r * T;
         acc[r] = false;
-        if (lane < KW) {
+        if (ln < KW) {
           ndist[r] = sqrtf(fmaxf(best[r], 0.0f));
           nrad[r] = nb[(long long)bidx[r] * RS + d + 1];
           acc[r] = !(p.dyn && nrad[r] < ndist[r]);
@@ -343,7 +417,7 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
         const int first = r * T;
         if (first < KW) {  // warp-uniform: lanes of a warp share r
           const unsigned word = __ballot_sync(0xffffffffu, acc[r]);
-          if ((tid & 31) == 0 && lane < KW) s_words[lane >> 5] = word;
+          if (lane == 0 && ln < KW) s_words[ln >> 5] = word;
         }
       }
       __syncthreads();
@@ -352,107 +426,117 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
       for (int w = 0; w < n_words; ++w) total_acc += __popc(s_words[w]);
       n_acc = min(total_acc, K);
       for (int r = 0; r < kLanesPerThread; ++r) {
-        const int lane = tid + r * T;
-        if (lane >= KW || !acc[r]) continue;
-        int rank = __popc(s_words[lane >> 5] & ((1u << (lane & 31)) - 1u));
-        for (int w = 0; w < (lane >> 5); ++w) rank += __popc(s_words[w]);
+        const int ln = tid + r * T;
+        if (ln >= KW || !acc[r]) continue;
+        int rank = __popc(s_words[ln >> 5] & ((1u << (ln & 31)) - 1u));
+        for (int w = 0; w < (ln >> 5); ++w) rank += __popc(s_words[w]);
         if (rank >= K) continue;
-        if (rank == K - 1) st.consumed = lane + 1;
-        for (int j = 0; j < d; ++j) s_ecfg[rank * d + j] = s_samp[lane * d + j];
+        if (rank == K - 1) st.consumed = ln + 1;
+        for (int j = 0; j < d; ++j) s_ecfg[rank * d + j] = s_samp[ln * d + j];
         s_enear[rank] = bidx[r];
         s_endist[rank] = ndist[r];
         s_enrad[rank] = nrad[r];
       }
       __syncthreads();
-
-      // --- extension edges of the kept samples
-      for (int e = tid; e < n_acc; e += T) {
-        const float nd = s_endist[e];
-        const float* near = nb + (long long)s_enear[e] * RS;
-        const float scale = nd < p.range ? 1.0f : (1.0f / fmaxf(nd, 1e-12f)) * p.range;
-        float* cfg = s_ecfg + e * d;  // the sample; becomes the edge start
-        float* vec = s_evec + e * d;
-        float* nw = s_enew + e * d;
-        for (int j = 0; j < d; ++j) {
-          const float nj = near[j];
-          vec[j] = (cfg[j] - nj) * scale;
-          cfg[j] = nj;
-          nw[j] = nj + vec[j];
-        }
-        s_en[e] = fmaxf(ceilf(fminf(nd, p.range) * p.res8), 1.0f);
-        s_eq2[e] = sum_sq(nw, d);
-      }
+      tick(kPrefilter);
     }
-    if (do_conn) {
-      n_cedges = min(C, st.c_rem);
-      const float* tip = nb + (long long)st.c_tip * RS;
-      for (int j = tid; j < d; j += T) s_tip[j] = tip[j];
-      n_conn = fmaxf(ceilf(st.c_len * p.res8), 1.0f);
-    }
-    __syncthreads();
-    // edges 0..n_acc-1 grow, n_acc..n_edges-1 the chain's increments, each
-    // with its own point count
+    const int n_cedges = do_conn ? min(C, st.c_rem) : 0;
+    const float n_conn = do_conn ? fmaxf(ceilf(st.c_len * p.res8), 1.0f) : 1.0f;
     const int n_edges = n_acc + n_cedges;
-    if (tid == 0) {
-      s_eoff[0] = 0;
-      for (int e = 0; e < n_edges; ++e) {
-        const float n = e < n_acc ? s_en[e] : n_conn;
-        s_eoff[e + 1] = s_eoff[e] + min(8 * (int)n, p.num_points);
-        s_ebad[e] = 0;
+    if (do_conn) {
+      const float* tip = nb + (long long)c_tip * RS;
+      for (int j = tid; j < d; j += T) s_tip[j] = tip[j];
+    }
+    // --- warp 0: the extension edges of the kept samples (edges 0..n_acc-1;
+    // n_acc..n_edges-1 are the chain's increments), each edge's point count
+    // and their prefix sum s_eoff (a shuffle scan over lanes e and e + 32)
+    if (tid < 32) {
+      int cnt[2];
+      for (int h = 0; h < 2; ++h) {
+        const int e = lane + 32 * h;
+        float n = n_conn;
+        if (e < n_acc) {
+          const float nd = s_endist[e];
+          const float* near = nb + (long long)s_enear[e] * RS;
+          const float scale = nd < p.range ? 1.0f : (1.0f / fmaxf(nd, 1e-12f)) * p.range;
+          float* cfg = s_ecfg + e * d;  // the sample; becomes the edge start
+          float* vec = s_evec + e * d;
+          float* nw = s_enew + e * d;
+          for (int j = 0; j < d; ++j) {
+            const float nj = near[j];
+            vec[j] = (cfg[j] - nj) * scale;
+            cfg[j] = nj;
+            nw[j] = nj + vec[j];
+          }
+          n = fmaxf(ceilf(fminf(nd, p.range) * p.res8), 1.0f);
+          s_en[e] = n;
+          s_eq2[e] = sum_sq(nw, d);
+        }
+        cnt[h] = e < n_edges ? min(8 * (int)n, p.num_points) : 0;
+        if (e < n_edges) s_ebad[e] = 0;
       }
-      configs += s_eoff[n_edges];
+      const int lo = warp_scan(cnt[0], lane);
+      const int hi = warp_scan(cnt[1], lane) + __shfl_sync(0xffffffffu, lo, 31);
+      s_eoff[lane + 1] = lo;
+      s_eoff[lane + 33] = hi;
+      if (lane == 0) s_eoff[0] = 0;
     }
     __syncthreads();
+    tick(kEdges);
 
-    // --- FK + collision of every interpolation point of both kinds of edge
+    // --- FK + collision of every interpolation point of both kinds of
+    // edge, one configuration a group of G lanes
     const int total = s_eoff[n_edges];
-    for (int pt = tid; pt < total; pt += T) {
-      int e = 0;
-      while (s_eoff[e + 1] <= pt) ++e;
+    if (tid == 0) configs += total;
+    for (int pt = tid / G; pt < total; pt += n_groups) {
+      int lo = 0, hi = n_edges - 1;  // the edge e with s_eoff[e] <= pt < s_eoff[e + 1]
+      while (lo < hi) {
+        const int m = (lo + hi + 1) >> 1;
+        if (s_eoff[m] <= pt) lo = m;
+        else hi = m - 1;
+      }
+      const int e = lo;
       const int k = pt - s_eoff[e] + 1;
       const bool is_grow = e < n_acc;
       const float n = is_grow ? s_en[e] : n_conn;
       const float frac = fminf((float)k / (8.0f * n), 1.0f);
       if (is_grow) {
-        for (int j = 0; j < d; ++j) s_q[j * T + tid] = s_ecfg[e * d + j] + s_evec[e * d + j] * frac;
+        for (int j = gl; j < d; j += G) s_group[j] = s_ecfg[e * d + j] + s_evec[e * d + j] * frac;
       } else {
         const float seg = (float)(e - n_acc) + frac;
-        for (int j = 0; j < d; ++j) s_q[j * T + tid] = s_tip[j] + s_inc[j] * seg;
+        for (int j = gl; j < d; j += G) s_group[j] = s_tip[j] + s_inc[j] * seg;
       }
-      if (fkcc::config_vmin(env, robot, s_pose, T, tid, s_q + tid, T, pcw) < 0.0f) s_ebad[e] = 1;
+      const float v = fkcc::config_vmin_group<G>(env, gr, s_group, d, gl, gmask, pcw);
+      if (gl == 0 && v < 0.0f) s_ebad[e] = 1;
     }
     __syncthreads();
+    tick(kFkcc);
 
     // --- insert positions: the chain's leading run of valid increments at
     // n_nodes.., then every valid grow edge, in order, while room remains
+    // (every warp ballots the grow edges' validity, so each thread knows
+    // every edge's position)
     int prefix = 0;
     while (prefix < n_cedges && !s_ebad[n_acc + prefix]) ++prefix;
     const int c_ins = min(prefix, M - n_nodes);
-    if (n_acc > 0) {
-      if (tid == 0) {
-        const int gbase = n_nodes + c_ins;
-        int order = 0, n_ins = 0;
-        for (int e = 0; e < n_acc; ++e) {
-          s_epos[e] = -1;
-          if (s_ebad[e]) continue;
-          if (order < M - gbase) {
-            s_epos[e] = gbase + order;
-            ++n_ins;
-          }
-          ++order;
-        }
-        st.n_ins = n_ins;
-      }
-      __syncthreads();
-    }
-    const int n_ins = n_acc > 0 ? st.n_ins : 0;
+    const int gbase = n_nodes + c_ins;
+    const unsigned ok0 = __ballot_sync(0xffffffffu, lane < n_acc && !s_ebad[lane]);
+    const unsigned ok1 = __ballot_sync(0xffffffffu, lane + 32 < n_acc && !s_ebad[lane + 32]);
+    const int n_ins = min(__popc(ok0) + __popc(ok1), M - gbase);
+    const auto epos = [&](int e) {  // insert row of grow edge e, or -1
+      const unsigned w = e < 32 ? ok0 : ok1;
+      const int bit = e & 31;
+      if (!((w >> bit) & 1u)) return -1;
+      const int rank = (e < 32 ? 0 : __popc(ok0)) + __popc(w & ((1u << bit) - 1u));
+      return rank < M - gbase ? gbase + rank : -1;
+    };
 
     // --- nearest node of tree b (the pre-step prefix) for every grow edge
     if (n_ins > 0) {
       float best[kLanesPerThread];
       int bidx[kLanesPerThread];
-      nearest_scan(nb, RS, d, n_nodes, af, false, s_enew, s_eq2, n_acc, s_chunk, best,
-                   bidx, pairs);
+      nearest_scan(nb, RS, d, n_nodes, af, false, s_enew, s_eq2, n_acc, s_chunk, s_part,
+                   best, bidx, pairs);
       for (int r = 0; r < kLanesPerThread; ++r) {
         const int e = tid + r * T;
         if (e < n_acc) {
@@ -461,6 +545,7 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
         }
       }
       __syncthreads();
+      tick(kNnB);
     }
 
     // --- inserts: configuration, tree flag, radius, parent, norm
@@ -470,24 +555,25 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
       for (int k = 0; k < d; ++k) row[k] = s_tip[k] + s_inc[k] * step;
       row[d] = af;
       row[d + 1] = kBig;
-      row[d + 2] = __int_as_float(j == 0 ? st.c_tip : n_nodes + j - 1);
+      row[d + 2] = __int_as_float(j == 0 ? c_tip : n_nodes + j - 1);
       row[d + 3] = sum_sq(row, d);
     }
     for (int e = tid; e < n_acc; e += T) {
-      const int pos = s_epos[e];
-      if (pos < 0) continue;
-      float* row = nb + (long long)pos * RS;
-      for (int j = 0; j < d; ++j) row[j] = s_enew[e * d + j];
-      row[d] = af;
-      row[d + 1] = kBig;
-      row[d + 2] = __int_as_float(s_enear[e]);
-      row[d + 3] = s_eq2[e];
-    }
-    if (tid == 0) {
+      const int pos = epos(e);
+      if (pos >= 0) {
+        float* row = nb + (long long)pos * RS;
+        for (int j = 0; j < d; ++j) row[j] = s_enew[e * d + j];
+        row[d] = af;
+        row[d + 1] = kBig;
+        row[d + 2] = __int_as_float(s_enear[e]);
+        row[d + 3] = s_eq2[e];
+      }
       // dynamic-domain radius updates (rrtc.hh:152-155, 226-237): from the
-      // pre-step radii, in lane order, so the last lane sharing a node wins
+      // pre-step radii; of the edges sharing a node the last one writes
       if (p.dyn) {
-        for (int e = 0; e < n_acc; ++e) {
+        bool last = true;
+        for (int e2 = e + 1; e2 < n_acc; ++e2) last = last && s_enear[e2] != s_enear[e];
+        if (last) {
           const float r = s_enrad[e];
           const bool inf_r = r > 0.5f * kBig;
           const float nr = !s_ebad[e] ? (inf_r ? r : r * p.grow_ok)
@@ -495,24 +581,34 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
           nb[(long long)s_enear[e] * RS + d + 1] = nr;
         }
       }
-      int kc = 0;
-      if (n_ins > 0) {
-        float bd = inf_f();
-        for (int e = 0; e < n_acc; ++e) {
-          if (s_epos[e] >= 0 && s_eod[e] < bd) {
-            bd = s_eod[e];
-            kc = e;
-          }
+    }
+
+    // --- the inserted grow node nearest to tree b (lowest edge on ties):
+    // a warp min over edges e and e + 32, in every warp
+    int kc = 0;
+    if (n_ins > 0) {
+      float v = lane < n_acc && epos(lane) >= 0 ? s_eod[lane] : inf_f();
+      int vi = lane;
+      if (lane + 32 < n_acc && epos(lane + 32) >= 0 && s_eod[lane + 32] < v) {
+        v = s_eod[lane + 32];
+        vi = lane + 32;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+        const int oi = __shfl_xor_sync(0xffffffffu, vi, o);
+        if (ov < v || (ov == v && oi < vi)) {
+          v = ov;
+          vi = oi;
         }
       }
-      st.kc = kc;
+      kc = v < inf_f() ? vi : 0;
     }
-    __syncthreads();
 
     // --- state update (thread 0): the chain's outcome, then entry into a
     // new chain from the grow node nearest to tree b, where the old chain
-    // failed or was absent
-    const int kc = st.kc;
+    // failed or was absent; a new chain's increment goes to the other half
+    // of s_inc, so this step's readers need no barrier
     const float other_dist = s_eod[kc];
     const int other = s_eoidx[kc];
     const int n_ext = (int)ceilf(other_dist * p.inv_range);
@@ -521,20 +617,24 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
     const bool enter = do_grow && n_ins > 0 && !chain_ok;
     if (enter) {
       const float* orow = nb + (long long)other * RS;
-      for (int j = tid; j < d; j += T) s_inc[j] = (orow[j] - s_enew[kc * d + j]) / n_ext_f;
+      float* inc_next = smem + L.inc + (1 - inc_cur) * d;
+      for (int j = tid; j < d; j += T) inc_next[j] = (orow[j] - s_enew[kc * d + j]) / n_ext_f;
     }
     if (tid == 0) {
       const int n_nodes_new = n_nodes + c_ins + n_ins;
       if (a_is) st.size_start += c_ins + n_ins;
       else st.size_goal += c_ins + n_ins;
       const int rem_chain = st.c_rem - prefix;
-      const int tip_after = enter ? s_epos[kc]
-                                  : (chain_ok && prefix > 0 ? n_nodes + prefix - 1 : st.c_tip);
+      const int tip_after = enter ? epos(kc)
+                                  : (chain_ok && prefix > 0 ? n_nodes + prefix - 1 : c_tip);
       const int rem_after = enter ? n_ext : (do_conn ? rem_chain : 0);
       const bool joined = ((enter && n_ext == 0) || (chain_ok && rem_chain == 0)) && st.done == 0;
       const bool cnext = ((enter && n_ext > 0) || (chain_ok && rem_chain > 0)) && !joined &&
                          n_nodes_new < M;
-      if (enter) st.c_len = other_dist / n_ext_f;
+      if (enter) {
+        st.c_len = other_dist / n_ext_f;
+        st.inc = 1 - inc_cur;
+      }
       if (joined) {
         st.done = 1;
         st.junc_a = tip_after;
@@ -615,20 +715,38 @@ __global__ void rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanPara
     out_path[(long long)b * PP * d + i] = node >= 0 ? nb[(long long)node * RS + col] : 0.0f;
   }
   if (tid == 0) {
-    long long* w = out_work + (long long)b * kWork;
+    long long* w = out_work + (long long)b * (kWork + kPhases);
     w[0] = configs;
     for (int i = 0; i < kWork - 1; ++i) w[1 + i] = (long long)s_work[i];
+    for (int i = 0; i < kPhases; ++i) w[kWork + i] = s_ph[i];
+  }
+}
+
+using Kernel = void (*)(fkcc::EnvTables, fkcc::Robot, PlanParams, const int*, const float*,
+                        float*, float*, int*, long long*);
+
+template <bool kInter>
+Kernel kernel_for(int G) {
+  switch (G) {
+    case 1: return rrtc_mega_kernel<kInter, 1>;
+    case 2: return rrtc_mega_kernel<kInter, 2>;
+    case 4: return rrtc_mega_kernel<kInter, 4>;
+    case 8: return rrtc_mega_kernel<kInter, 8>;
+    case 16: return rrtc_mega_kernel<kInter, 16>;
+    case 32: return rrtc_mega_kernel<kInter, 32>;
+    default: return nullptr;
   }
 }
 
 }  // namespace
 
-// Launch one block per problem on `stream`; returns the CUDA error code of
-// the launch (0 = ok), or -1 when no block size fits in shared memory.
-// ip / fp are host arrays in PlanParams order; the block has the largest of
-// 128, 64, 32 threads whose shared memory fits in max_smem bytes.  launch_info
-// receives the threads, the dynamic shared memory in bytes and the blocks
-// the card keeps resident on one SM.
+// Launch one block of T threads per problem, G lanes a configuration in the
+// FK pass, on `stream`; returns the CUDA error code of the launch (0 = ok),
+// or -1 when the shape is not one the kernel runs (T a multiple of 32 up to
+// kMaxThreads, G a power of two up to 32) or its shared memory does not fit
+// in max_smem bytes.  ip / fp are host arrays in PlanParams order.
+// launch_info receives the dynamic shared memory in bytes, the blocks the
+// card keeps resident on one SM and the kernel's registers a thread.
 extern "C" int rrtc_mega_launch(
     const float* sph, const float* cap, const float* zcap, const float* cub,
     const float* zcub, int ns, int nc, int nzc, int nb, int nzb, int env_batched,
@@ -641,7 +759,7 @@ extern "C" int rrtc_mega_launch(
     const float* pair_thr, int P, const float* sphere_pc, int ee_frame, const int* att_check,
     int n_att_check, const int* ip, const float* fp,
     const int* ctl, const float* nodes0, float* nodes, float* out_path, int* out_scal,
-    long long* out_work, int max_smem, int* launch_info, void* stream) {
+    long long* out_work, int T, int G, int max_smem, int* launch_info, void* stream) {
   const fkcc::EnvTables et{sph, cap, zcap, cub, zcub, ns, nc, nzc, nb, nzb, env_batched,
                            bitmap, chunks, points, pc_meta, rrows, nch, pc_batched,
                            att, att_pc, A, att_batched, hf_meta, hf_data, nh, hf_cells,
@@ -651,32 +769,26 @@ extern "C" int rrtc_mega_launch(
   PlanParams p;
   memcpy(&p, ip, kIntParams * 4);
   memcpy(reinterpret_cast<char*>(&p) + kIntParams * 4, fp, kFloatParams * 4);
-  int T = 0, bytes = 0;
-  const int cands[] = {128, 64, 32};
-  for (int cand : cands) {
-    const int need = Layout(p, et, robot, cand).total * 4;
-    if (need <= max_smem) {
-      T = cand;
-      bytes = need;
-      break;
-    }
-  }
-  if (T == 0) return -1;
-  const auto kernel = p.inter ? rrtc_mega_kernel<true> : rrtc_mega_kernel<false>;
+  const Kernel kernel = p.inter ? kernel_for<true>(G) : kernel_for<false>(G);
+  if (kernel == nullptr || T % 32 != 0 || T < 32 || T > kMaxThreads) return -1;
+  const int bytes = Layout(p, et, robot, T, G).total * 4;
+  if (bytes > max_smem) return -1;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch's check does not see it
     return (int)err;
   }
-  launch_info[0] = T;
-  launch_info[1] = bytes;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&launch_info[2], kernel, T, bytes);
+  launch_info[0] = bytes;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&launch_info[1], kernel, T, bytes);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
   }
-  kernel<<<p.B, T, bytes, (cudaStream_t)stream>>>(et, robot, p, ctl, nodes0, nodes,
-                                                           out_path, out_scal, out_work);
+  launch_info[2] = attr.numRegs;
+  kernel<<<p.B, T, bytes, (cudaStream_t)stream>>>(et, robot, p, ctl, nodes0, nodes, out_path,
+                                                  out_scal, out_work);
   return (int)cudaGetLastError();
 }

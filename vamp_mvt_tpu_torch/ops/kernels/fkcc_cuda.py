@@ -39,9 +39,10 @@ from vamp_mvt_tpu_torch.ops import smat
 from vamp_mvt_tpu_torch.ops.kernels import build
 from vamp_mvt_tpu_torch.robots.spec import PRISMATIC, REVOLUTE, RobotSpec
 
-# Shared memory one block may use on an H100 (227 KB).  Each launcher sizes
-# its blocks itself (fkcc_device.cuh::env_floats, scratch_floats): the
-# largest of 128, 64, 32 threads that fits.
+# Shared memory one block may use on an H100 (227 KB).  fkcc's launcher sizes
+# its blocks itself (fkcc_device.cuh::env_floats, scratch_floats: the largest
+# of 128, 64, 32 threads that fits); the megakernels' shapes come from
+# choose_shape below.
 MAX_SMEM = 232448
 
 # Kernel launches made by this process; callers reset it to 0 around a run.
@@ -286,6 +287,95 @@ def tally_pc_work(total, work: torch.Tensor):
     points evaluated.  Summed on the card: no synchronisation."""
     w = work.sum(0)
     return w if total is None else total + w
+
+
+# ---------------------------------------------------------------------------
+# The megakernels' launch shape (threads a block T, lanes a configuration G)
+# ---------------------------------------------------------------------------
+
+# What one H100 SM holds (CUDA occupancy rules for sm_90): shared memory for
+# its blocks, of which each block also takes 1 KB for the system, 64K
+# registers, 2048 threads and 32 blocks.  The megakernels are built with
+# __launch_bounds__(512, 1), so a thread has at most 128 registers.
+SM_SMEM = 233472
+BLOCK_SMEM_RESERVED = 1024
+SM_REGISTERS = 65536
+SM_THREADS = 2048
+SM_BLOCKS = 32
+MEGA_MAX_REGISTERS = 128
+MEGA_THREADS = (512, 256, 128, 64, 32)
+MEGA_GROUPS = (1, 2, 4, 8, 16, 32)
+# Lanes a configuration on pointcloud tables: the chunk scan of an undecided
+# sphere, split across the group's lanes, takes most of an FK pass there.
+MEGA_PC_MIN_GROUP = 8
+
+
+def table_floats(spec: RobotSpec, envs: Environment, G: int) -> dict:
+    """The shared-memory floats of a megakernel block that do not depend on
+    its step lists, mirrored from csrc/fkcc_device.cuh: the problem's shape,
+    heightfield-meta and payload rows (`env_floats`), the robot tables
+    (`robot_floats`) and the FK scratch of one group of G lanes
+    (`group_floats`, padded to 3 G modulo 32)."""
+    rows = {n: getattr(envs, n).shape[1] for n in TABLES}
+    A = 0 if envs.attachment is None else envs.attachment.spheres.shape[-2]
+    nh = envs.hf_meta.shape[1]
+    env = (rows["spheres"] * 4 + (rows["capsules"] + rows["z_capsules"]) * 8
+           + (rows["cuboids"] + rows["z_cuboids"]) * 15 + nh * 10 + A * 8)
+    F, S, P = len(spec.frames), spec.n_spheres, len(spec.self_collision_pairs)
+    robot = F * (6 + 42) + S * 9 + P * 3 + len(spec.attachment_check_spheres)
+    group = 3 * spec.dimension + 12 * F + 3 * (S + A)
+    group += (3 * G - group) % 32
+    return dict(env=env, robot=robot, group=group)
+
+
+def blocks_per_sm(T: int, smem_bytes: int, static_bytes: int) -> int:
+    """Blocks of T threads with this shared memory that one SM keeps
+    resident, at the megakernels' register cap."""
+    by_smem = SM_SMEM // (smem_bytes + static_bytes + BLOCK_SMEM_RESERVED)
+    by_regs = SM_REGISTERS // (MEGA_MAX_REGISTERS * T)
+    return min(by_smem, by_regs, SM_THREADS // T, SM_BLOCKS)
+
+
+def choose_shape(smem_bytes, static_bytes: int, max_smem: int, points: int,
+                 min_group: int = 1, shape=None) -> dict:
+    """The launch shape of a megakernel: `smem_bytes(T, G)` is its dynamic
+    shared memory, `points` the configurations a typical FK pass checks.
+    Of the shapes (T in MEGA_THREADS, G in MEGA_GROUPS, G <= T) whose
+    shared memory is at most `max_smem` (the card refuses a launch above a
+    block's 227 KB, whatever `max_smem` says), take G at least `min_group`
+    where one fits, then the most threads (a block runs one problem, and the
+    slowest problem's latency sets the kernel's end), then the fewest rounds
+    of T / G configurations for `points`, then the most lanes a
+    configuration at that count (each lane's share of a check shrinks with
+    G).  `shape` = (T, G) takes that shape
+    instead, if it fits, and (None, G) the best T for that G.  Returns threads, group, smem_bytes, blocks_per_sm
+    and warps_per_sm; raises ValueError when no shape fits."""
+    cands = []
+    for T in MEGA_THREADS:
+        for G in MEGA_GROUPS:
+            if G > T or (shape is not None and (G != shape[1] or shape[0] not in (None, T))):
+                continue
+            nbytes = smem_bytes(T, G)
+            if nbytes > max_smem:
+                continue
+            blocks = blocks_per_sm(T, nbytes, static_bytes)
+            cands.append(dict(threads=T, group=G, smem_bytes=nbytes, blocks_per_sm=blocks,
+                              warps_per_sm=blocks * T // 32))
+    if not cands:
+        raise ValueError("no launch shape fits" if shape is None
+                         else f"launch shape {tuple(shape)} does not fit")
+    return max(cands, key=lambda c: (c["group"] >= min_group, c["threads"],
+                                     -points * c["group"] // c["threads"], c["group"]))
+
+
+def phase_split(work: torch.Tensor, first: int, names) -> dict:
+    """The phase clocks of a megakernel launch, columns `first..` of its
+    `work` (B, first + len(names)): each phase's cycles summed over the
+    blocks, and its share of their total."""
+    cyc = work[:, first:first + len(names)].sum(0).tolist()
+    total = sum(cyc)
+    return {"cycles": dict(zip(names, cyc)),
+            "share": {n: (c / total if total else 0.0) for n, c in zip(names, cyc)}}
 
 
 def _launch(spec, envs, q, q_strides, B, N, want_vmin):

@@ -44,8 +44,8 @@ def _kernel_config(spec: RobotSpec, s: RRTCSettings, G: int) -> dict:
     """The planner kernel's figures for these settings, refusing what
     csrc/rrtc_mega.cu cannot run: K * W <= 128 samples a step (kMaxLanes),
     K + C <= 64 edges (kMaxEdges) and d <= 16 (kMaxDim).  Whether a block's
-    shared memory fits is the launch's own check (rrtc_mega_launch returns
-    -1 when no block of 128, 64 or 32 threads fits)."""
+    shared memory fits is the launch shape's own check
+    (rrtc_mega_cuda.launch_shape raises when no shape fits)."""
     d = spec.dimension
     K, C, W = s.samples_per_step, s.connect_segments, s.sample_window
     KW = K * W
@@ -138,9 +138,11 @@ def plan_batch_mega(
     sample_offsets: torch.Tensor | None = None,
     budget: int | None = None,
     device=None,
+    shape=None,
 ) -> RRTCResult:
     """Solve a batch with the planner megakernel, on `device` (default: the
-    GPU).  `budget` replaces settings.max_iterations (the sample budget)."""
+    GPU).  `budget` replaces settings.max_iterations (the sample budget);
+    `shape` overrides the kernel's launch shape (rrtc_mega_cuda.plan)."""
     _check_settings(settings)
     _kernel_config(spec, settings, goals.shape[1])
     dev = resolve_device(device)
@@ -159,5 +161,5 @@ def plan_batch_mega(
     ctl, nodes0, any_direct, first_direct = mega_inputs(
         spec, envs, starts, goals, goal_masks, settings, sample_offsets, budget
     )
-    paths, scal, _ = rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, settings)
+    paths, scal, _ = rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, settings, shape)
     return _finalize_mega(paths, scal, starts, goals, any_direct, first_direct)

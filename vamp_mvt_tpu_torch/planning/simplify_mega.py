@@ -41,10 +41,12 @@ def simplify_batch_mega(
     lengths: torch.Tensor,     # (B,)
     settings: SimplifySettings,
     device=None,
+    shape=None,
 ) -> SimplifyResult:
     """Simplify a batch of paths with the megakernel, on `device` (default:
     the GPU).  Semantics are simplify_batch's for the default op sequence,
-    with every candidate pair checked exactly (no capacity binds)."""
+    with every candidate pair checked exactly (no capacity binds); `shape`
+    overrides the kernel's launch shape (simplify_mega_cuda.simplify)."""
     if not supports(settings):
         raise ValueError("megakernel supports operations=('shortcut','bspline')")
     dev = resolve_device(device)
@@ -53,7 +55,7 @@ def simplify_batch_mega(
     if dev.type != "cuda":
         return simplify_batch_plain(spec, envs, paths, lengths, settings)
     out, scal, _ = simplify_mega_cuda.simplify(
-        spec, envs, paths.contiguous(), lengths.to(torch.int32).contiguous(), settings
+        spec, envs, paths.contiguous(), lengths.to(torch.int32).contiguous(), settings, shape
     )
     return _finalize(out, scal)
 
