@@ -135,20 +135,29 @@ or an exception exits non-zero):
                  call; the fkcc kernel against its plain version on PRM's
                  largest edge wave; the card against device="cpu" on
                  tests/test_planners.py's sphere-robot wall cases
+  fkcc_paths     the fkcc kernel at the launch shapes of the one-problem
+                 paths (bench/time_fkcc.py's cases): a panda.rrtc lockstep
+                 step in the API's payload cage, a sphere.rrtc step over the
+                 API's maze, PRM's sample wave and an edge wave of its
+                 largest size, one FCIT edge; each against its plain
+                 version (no validity mismatch outside the contact and cell
+                 bands), with its time, bound and launch shape
   bench          the port's bench entry (python -m vamp_mvt_tpu_torch.bench)
                  in this process on the 700 cages: its JSON line
 
-The megakernels' lines and rows carry each launch's shape and occupancy
-(threads, lanes a configuration, blocks and warps an SM, registers) and
-each phase's share of the blocks' clock cycles (`phase_share`).  The suite
+Every kernel's lines and rows carry each launch's shape and occupancy
+(threads, lanes a configuration, blocks and warps an SM, registers; the
+megakernels' and fkcc's LAST_LAUNCH), and the megakernels' rows each
+phase's share of the blocks' clock cycles (`phase_share`).  The suite
 phases report `past_max_path`: the planner kernel's solves whose
 two chains together pass max_path, counted unsolved (rrtc_mega.PAST_MAX_PATH;
 a problem the retry replays counts once in each call); suite_robots lists the
 first UNSOLVED_LISTED unsolved problems of each robot.
 
 then the kernels line (the pointcloud, attachment and heightfield branches of
-each kernel, the megakernels on each other robot and fkcc on the PRM path as
-rows of their own, with the launches of the path that runs them; the probes'
+each kernel, the megakernels on each other robot and fkcc on the PRM and
+FCIT paths as rows of their own, with the launches of the path that runs
+them; fkcc's attachment and heightfield rows at the API's step; the probes'
 rows with the launches of their entry point) and, last, {"ok": true, "device": {...}}.  The script imports nothing of JAX or of the JAX package.  Without a
 GPU it exits 1.
 """
@@ -182,9 +191,10 @@ PC_RETRY_SAMPLES = 16384  # run_suite's node rows, if the 4096 of the pointcloud
 PROBE_TILES = 4096  # (8, 128) index tiles a gather probe reads
 BRANCH_PROBLEMS = 700  # payload cages, terrain scenes and mazes
 BRANCH_CHECK = 64      # of them, the megakernels are compared on
-ATTACH_ROWS = 4        # payload rows a problem: 1-4 live, the rest radius 0
 CELL_BAND = 1e-4       # a centre this close to a heightfield cell edge
 API_CHECK = 4096       # seeded configurations the API's tables are checked on
+ATTACH_SRC = "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:215-246"  # the attachment branch
+HF_SRC = "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:459-505"      # the heightfield branch
 OTHER_ROBOTS = ("ur5", "fetch", "baxter")
 ROBOT_SCENES = 256     # problems of suite_robots, per robot: scenes with two valid configurations
 ROBOT_POOL = 2048      # MBM-shaped scenes drawn for them (placed for the Panda, most block Fetch)
@@ -343,97 +353,6 @@ def time_cuda(fn, warmup: int, reps: int) -> float:
     return float(np.median(times))
 
 
-# ---------------------------------------------------------------------------
-# Scenes of the attachment and heightfield phases
-# ---------------------------------------------------------------------------
-
-
-def payloads(n: int, seed: int, spec, device):
-    """n seeded payloads (an Attachment of tensors, leading dim n): 1-4
-    spheres 0.05-0.25 m along the EE axis under a seeded rotation about that
-    axis and a seeded shift of up to 1 cm; radii 0.02 m up to the robot's
-    largest class radius (below their class radius), and in one payload of
-    ten above every class radius up to 0.15 m.  Each payload has ATTACH_ROWS
-    rows: the rows past its spheres repeat its first at radius 0, which can
-    lower no signed value."""
-    import numpy as np
-    import torch
-
-    from vamp_mvt_tpu_torch.collision import environment as envmod
-    from vamp_mvt_tpu_torch.collision import pc_kernel
-
-    top = float(pc_kernel.radius_classes(spec.sphere_radius)[-1])
-    rng = np.random.default_rng(seed)
-    sph = np.zeros((n, ATTACH_ROWS, 4), np.float32)
-    rot = np.zeros((n, 3, 3), np.float32)
-    pos = rng.uniform(-0.01, 0.01, (n, 3)).astype(np.float32)
-    live = rng.integers(1, ATTACH_ROWS + 1, n)
-    for i in range(n):
-        a = live[i]
-        sph[i, :a, 2] = rng.uniform(0.05, 0.25, a)
-        sph[i, :a, 3] = rng.uniform(top + 0.005, 0.15, a) if i % 10 == 0 else \
-            rng.uniform(0.02, top, a)
-        sph[i, a:, :3] = sph[i, 0, :3]
-        th = rng.uniform(-np.pi, np.pi)
-        rot[i] = [[np.cos(th), -np.sin(th), 0.0], [np.sin(th), np.cos(th), 0.0], [0, 0, 1]]
-    return envmod.Attachment(*(torch.as_tensor(a, device=device) for a in (rot, pos, sph)))
-
-
-def terrain_tables(n: int, seed: int, device):
-    """n seeded terrains of 250 x 250 cells of 1 cm around the Panda: hills
-    0.2-0.6 m high (a seeded 11 x 11 grid, bilinear), below the base (-0.1 m)
-    within 0.25 m of it; the grid sits a third of a cell off the origin, so
-    that no base sphere lies on a cell edge.  (hf_meta (n, 1, 10), hf_data
-    (n, 1, 62500))."""
-    import numpy as np
-    import torch
-
-    from vamp_mvt_tpu_torch.collision import environment as envmod
-
-    rng = np.random.default_rng(seed)
-    coarse = torch.as_tensor(rng.uniform(0.2, 0.6, (n, 1, 11, 11)).astype(np.float32),
-                             device=device)
-    h = torch.nn.functional.interpolate(coarse, size=(250, 250), mode="bilinear",
-                                        align_corners=True)[:, 0]
-    xy = (torch.arange(250, device=device) - 125 + 0.5) * 0.01
-    h[:, torch.hypot(xy[None, :], xy[:, None]) < 0.25] = -0.1
-    meta, _ = envmod.make_heightfield((0.0033, 0.0033, 0.0), (0.01, 0.01, 1.0),
-                                      np.zeros((250, 250), np.float32))
-    return (torch.as_tensor(meta, device=device).expand(n, 1, 10).contiguous(),
-            h.reshape(n, 1, -1).contiguous())
-
-
-def maze(rng):
-    """A seeded 200 x 200 maze (walls 1, floor 0): a depth-first maze of 9 x 9
-    cells in blocks of 10 pixels, inside an open margin of 5 pixels."""
-    import numpy as np
-
-    n = 9
-    blocks = np.ones((2 * n + 1, 2 * n + 1), np.float32)
-    seen = np.zeros((n, n), bool)
-    stack = [(0, 0)]
-    seen[0, 0] = True
-    blocks[1, 1] = 0.0
-    while stack:
-        i, j = stack[-1]
-        nxt = [(i + di, j + dj) for di, dj in ((1, 0), (-1, 0), (0, 1), (0, -1))
-               if 0 <= i + di < n and 0 <= j + dj < n and not seen[i + di, j + dj]]
-        if not nxt:
-            stack.pop()
-            continue
-        a, b = nxt[rng.integers(len(nxt))]
-        seen[a, b] = True
-        blocks[2 * a + 1, 2 * b + 1] = 0.0
-        blocks[i + a + 1, j + b + 1] = 0.0
-        stack.append((a, b))
-    out = np.zeros((200, 200), np.float32)
-    out[5:195, 5:195] = np.kron(blocks, np.ones((10, 10), np.float32))
-    return out
-
-
-MAZE_META = ((0.0, 0.0, 0.5), (0.04, 0.04, 0.5))  # examples/flying_sphere.py's center, z scale
-
-
 def live_payload(envs):
     """(B,) the payload spheres of each problem that have a radius (the
     radius-0 rows that pad a payload to ATTACH_ROWS check nothing), or 0."""
@@ -473,12 +392,13 @@ def heights_at_most(spec, envs, checks, n_att) -> int:
     return 4 * int(np.sum(per))
 
 
-def branch_kernel(spec, envs, q):
+def branch_kernel(spec, envs, q, layout="lanes"):
     """The fkcc kernel against its plain version on `envs` (payload and/or
     heightfield tables): validity outside the contact band and the cell
-    band, both outcomes, times and the bound (the live payload spheres'
-    operations; the heights read, not the whole table); and the kernel's
-    validity."""
+    band, both outcomes, times (of the launch in `layout`, rows or lanes)
+    with its launch shape and occupancy, and the bound (the live payload
+    spheres' operations; the heights read, not the whole table); and the
+    kernel's validity."""
     import numpy as np
     import torch
 
@@ -498,7 +418,10 @@ def branch_kernel(spec, envs, q):
     mism = (vk >= 0) != (vp >= 0)
     outside = mism & ~contact & ~cells
     live = {n: (getattr(envs, n)[..., 0].abs() < LIVE_LIMIT).sum(-1).cpu().numpy() for n in TABLES}
-    k_ms = time_cuda(lambda: fkcc_cuda.fkcc_batched_lanes(spec, envs, q_d), 3, 20)
+    launch = (lambda: fkcc_cuda.fkcc_batched_lanes(spec, envs, q_d)) if layout == "lanes" \
+        else (lambda: fkcc_cuda.fkcc_batched(spec, envs, q))
+    k_ms = time_cuda(launch, 3, 20)
+    occupancy = dict(fkcc_cuda.LAST_LAUNCH)
     p_ms = time_cuda(lambda: fkcc_cuda.fkcc_batched_plain(spec, envs, q), 1, 3)
     tabs = fkcc_cuda.robot_tables(spec)
     extra = [] if envs.attachment is None else list(envs.attachment)
@@ -510,7 +433,8 @@ def branch_kernel(spec, envs, q):
             "inside_cell_band": int(cells.sum()), "mismatches_outside_bands": int(outside.sum()),
             "heights_read": heights,
             "max_abs_err": float((vk - vp).abs()[~contact & ~cells].max()),
-            "kernel_ms": k_ms, "plain_ms": p_ms, **b, "library_ms": None}, ok
+            "kernel_ms": k_ms, "layout": layout, "occupancy": occupancy, "plain_ms": p_ms, **b,
+            "library_ms": None}, ok
 
 
 def index_order_replay(spec, envs, st, gl, mk, settings, kp, rows) -> dict:
@@ -872,13 +796,14 @@ def api_phase(dev) -> tuple[dict, dict]:
     import torch
 
     import vamp_mvt_tpu_torch as vmt
-    from vamp_mvt_tpu_torch.bench import profile_suite
+    from vamp_mvt_tpu_torch.bench import profile_suite, scenes
     from vamp_mvt_tpu_torch.collision import environment as envmod
     from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
 
     cage, A, B = profile_suite.api_cage()
     terrain = vmt.Environment()
-    terrain.add_heightfield(*envmod.make_heightfield(*MAZE_META, maze(np.random.default_rng(41))))
+    terrain.add_heightfield(*envmod.make_heightfield(*scenes.MAZE_META,
+                                                     scenes.maze(np.random.default_rng(41))))
     S, G = [-4.0, -4.0, 1.0], [4.0, 4.0, 1.0]
     out, launches, results = {}, {}, {}
 
@@ -1001,11 +926,12 @@ def bench_path_fkcc(spec, envs, st, gl, live, launches) -> dict:
         out = int((((vk >= 0) != (vp >= 0)) & (vp.abs() > CONTACT_BAND)).sum())
         arg = q if arg is None else arg
         k_ms = time_cuda(lambda: launch(spec, envs, arg), 3, 20)
+        occupancy = dict(fkcc_cuda.LAST_LAUNCH)
         p_ms = time_cuda(lambda: fkcc_cuda.fkcc_batched_plain(spec, envs, q), 1, 3)
         b = bound(fkcc_cuda.op_count(spec, live, q.shape[1]),
                   nbytes(q, *(getattr(envs, n) for n in TABLES)) + tabs + q.shape[0] * q.shape[1])
         line[name] = {"configs": q.shape[0] * q.shape[1], "ms": k_ms, "plain_ms": p_ms,
-                      "mismatches_outside_band": out, **b}
+                      "mismatches_outside_band": out, "occupancy": occupancy, **b}
         ms, plain, outside = ms + k_ms, plain + p_ms, outside + out
         ops, n_bytes = ops + b["fp32_ops"], n_bytes + b["bytes"]
     total = bound(ops, n_bytes)
@@ -1014,6 +940,7 @@ def bench_path_fkcc(spec, envs, st, gl, live, launches) -> dict:
     check(outside == 0, "the bench path's fkcc launches agree with plain outside the band")
     return (row("fkcc", ms, plain, total, float(outside), launches)
             | {"name": "fkcc_bench_path", "replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
+               "occupancy": {k: v["occupancy"] for k, v in line.items()},
                "replaces_function": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py::_run (the start "
                                     "and goal validity and the direct-goal check of the bench "
                                     "path)",
@@ -1039,13 +966,16 @@ def row(name, ms, plain, b, err, launches):
             "checked_against_plain": True}
 
 
-def branch_phases(dev, spec, q, ss) -> list[dict]:
+def branch_phases(dev, spec, q, ss):
     """The attachment and heightfield phases (attach_kernel, hf_kernel, api,
-    mega_attach, mega_hf); returns their rows of the kernels line."""
+    mega_attach, mega_hf); returns the megakernels' rows of the kernels
+    line, the API's fkcc launches on the card and the two 700-problem fkcc
+    lines."""
     import numpy as np
     import torch
 
     from vamp_mvt_tpu_torch.bench import mbm
+    from vamp_mvt_tpu_torch.bench import scenes as scene_mod
     from vamp_mvt_tpu_torch.bench.scenes import first_two_valid, mbm_shaped_problems
     from vamp_mvt_tpu_torch.collision import environment as envmod
     from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
@@ -1057,7 +987,7 @@ def branch_phases(dev, spec, q, ss) -> list[dict]:
     # attach_kernel: 700 sphere cages, each with a seeded payload
     cages = mbm.cage_suite(B, seed=5)["problems"]["cage"]
     c_envs = mbm.build_batch(cages, device=dev)[0]
-    a_envs = c_envs._replace(attachment=payloads(B, 6, spec, dev))
+    a_envs = c_envs._replace(attachment=scene_mod.payloads(B, 6, spec, dev))
     ak, a_ok = branch_kernel(spec, a_envs, q)
     only = fkcc_cuda.fkcc_batched(spec, c_envs, q) & ~a_ok
     ak["payload_only_invalid_share"] = float(only.float().mean())
@@ -1072,13 +1002,13 @@ def branch_phases(dev, spec, q, ss) -> list[dict]:
     scenes = mbm_shaped_problems(B, seed=7)
     for p in scenes:
         p.update(sphere=p["sphere"][:1], cylinder=p["cylinder"][:2], box=p["box"][:2])
-    hm, hd = terrain_tables(B, 8, dev)
+    hm, hd = scene_mod.terrain_tables(B, 8, dev)
     t_envs = mbm.build_batch(scenes, device=dev)[0]._replace(hf_meta=hm, hf_data=hd)
     hk, t_ok = branch_kernel(spec, t_envs, q)
     mspec = registry.sphere_spec(lows=(-5, -5, 0), highs=(5, 5, 5), radius=0.2)
     rng = np.random.default_rng(9)
-    grids = np.stack([maze(rng) for _ in range(B)])
-    meta = envmod.make_heightfield(*MAZE_META, grids[0])[0]
+    grids = np.stack([scene_mod.maze(rng) for _ in range(B)])
+    meta = envmod.make_heightfield(*scene_mod.MAZE_META, grids[0])[0]
     m_envs = envmod.broadcast_environment(envmod.empty_environment(dev), B)._replace(
         hf_meta=torch.as_tensor(meta, device=dev).expand(B, 1, 10).contiguous(),
         hf_data=torch.as_tensor(grids.reshape(B, 1, -1), device=dev))
@@ -1118,22 +1048,59 @@ def branch_phases(dev, spec, q, ss) -> list[dict]:
               and m["simplify_mega"]["cost_rtol_share"] >= MIN_SHARE,
               f"simplify_mega equals plain on the {name}")
 
-    att_src = "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:215-246"
-    hf_src = "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:459-505"
     branch = {"branch_source": "vamp_mvt_tpu_torch/csrc/fkcc_device.cuh"}
-    out = [
-        row("fkcc", ak["kernel_ms"], ak["plain_ms"], ak, ak["max_abs_err"], api_launches["panda"])
-        | branch | {"name": "fkcc_attach", "replaces": att_src},
-        row("fkcc", hk["kernel_ms"], hk["plain_ms"], hk, hk["max_abs_err"], api_launches["sphere"])
-        | branch | {"name": "fkcc_hf", "replaces": hf_src},
-    ]
-    for tag, m, src in (("attach", ma, att_src), ("hf", mh, hf_src)):
+    out = []
+    for tag, m, src in (("attach", ma, ATTACH_SRC), ("hf", mh, HF_SRC)):
         for k in ("rrtc_mega", "simplify_mega"):
             r = m[k]
             out.append(row(k, r["ms"], r["plain_ms"], r, r["max_abs_err"],
                            m["mega_path"]["launches"][k])
                        | branch | {"name": f"{k}_{tag}", "replaces": src})
-    return out
+    return out, api_launches, {"attach700": ak, "terrain700": hk}
+
+
+def fkcc_paths_phase(dev, api_launches, planner_calls, batches):
+    """fkcc at the launch shapes of the one-problem paths (the cases of
+    bench/time_fkcc.py): one lockstep step of panda.rrtc in the API's
+    payload cage and of sphere.rrtc over the API's maze (12 segments of 40
+    points), PRM's sample wave (64) and an edge wave of its largest size
+    (210 edges of 440 points), one FCIT edge (440 points); each against its
+    plain version (no validity mismatch outside the contact and cell
+    bands), with its time, bound and launch shape.  Returns the kernels
+    line's rows of the attachment and heightfield branches (at the API's
+    step, with the API's launches; the 700-problem batches of attach_kernel
+    and hf_kernel beside them) and of FCIT's edges."""
+    from vamp_mvt_tpu_torch.bench import time_fkcc
+
+    cases = time_fkcc.path_cases(dev, ("api_rrtc_step", "sphere_api_step", "prm_samples",
+                                       "prm_edges", "fcit_edge"))
+    held = {}
+    for name, (spec, envs, q, layout) in cases.items():
+        qr = q if layout == "rows" else q.transpose(1, 2).contiguous()
+        held[name] = branch_kernel(spec, envs, qr, layout)[0]
+    emit({"phase": "fkcc_paths", "cases": held})
+    for name, r in held.items():
+        check(r["mismatches_outside_bands"] == 0,
+              f"fkcc agrees with plain outside the bands at the {name} shape")
+    branch = {"branch_source": "vamp_mvt_tpu_torch/csrc/fkcc_device.cuh"}
+    rows = []
+    for name, case, batch, launches, src in (
+            ("fkcc_attach", "api_rrtc_step", "attach700", api_launches["panda"], ATTACH_SRC),
+            ("fkcc_hf", "sphere_api_step", "terrain700", api_launches["sphere"], HF_SRC)):
+        r, b = held[case], batches[batch]
+        rows.append(row("fkcc", r["kernel_ms"], r["plain_ms"], r, r["max_abs_err"], launches)
+                    | branch | {"name": name, "replaces": src, "occupancy": r["occupancy"],
+                                "ms_of": f"one launch at the API's step ({case}: 1 x "
+                                         f"{r['configs_per_problem']})",
+                                "batch_700_ms": b["kernel_ms"], "batch_700_bound_ms": b["bound_ms"],
+                                "batch_700_occupancy": b["occupancy"]})
+    r = held["fcit_edge"]
+    rows.append(row("fkcc", r["kernel_ms"], r["plain_ms"], r, r["max_abs_err"],
+                    planner_calls["fcit"]["fkcc_launches"])
+                | {"name": "fkcc_fcit", "replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
+                   "occupancy": r["occupancy"], "launches_of": "one panda.fcit call",
+                   "ms_of": "one popped edge (1 x 440), one launch"})
+    return rows, held
 
 
 def probe_mosaic_phase(dev) -> dict:
@@ -1141,10 +1108,15 @@ def probe_mosaic_phase(dev) -> dict:
     the probe entry point (`mosaic.run`, once each, launches counted),
     against its plain version and numpy, tile 0 against the probe file's
     constants; times, bounds and, where one PyTorch call computes the
-    probe's function, that call's time.  Returns the kernels line's row."""
+    probe's function, that call's time.  Each time is taken two ways: one
+    call between two events (`ms`, `library_ms`: the host's work included)
+    and ten calls replayed from one CUDA graph, over ten (`device_ms`,
+    `library_device_ms`: the card's time alone).  Returns the kernels line's
+    row."""
     import numpy as np
     import torch
 
+    from vamp_mvt_tpu_torch.bench.time_fkcc import graph_ms
     from vamp_mvt_tpu_torch.probes import mosaic
 
     ins = {p: mosaic.inputs(p, PROBE_TILES, seed=4, device=dev) for p in mosaic.PROBES}
@@ -1189,9 +1161,11 @@ def probe_mosaic_phase(dev) -> dict:
             "max_abs_err": max(float((g.double() - w.double()).abs().max())
                                for g, w in zip(got[p], plain)),
             "ms": time_cuda(lambda: mosaic.launch(p, *ins[p]), 3, 20),
+            "device_ms": graph_ms(lambda: mosaic.launch(p, *ins[p])),
             "plain_ms": time_cuda(lambda: mosaic.plain(p, *ins[p]), 1, 3),
             **bound(*mosaic.work(p, ins[p])),
-            "library_ms": None if lib is None else time_cuda(lambda: lib(*ins[p]), 3, 20)}
+            "library_ms": None if lib is None else time_cuda(lambda: lib(*ins[p]), 3, 20),
+            "library_device_ms": None if lib is None else graph_ms(lambda: lib(*ins[p]))}
     emit({"phase": "probe_mosaic", "tiles": PROBE_TILES, "launches": launches,
           "library_ms_null": library_ms_null, "probes": probes})
     check(launches == len(mosaic.PROBES), "the probe entry point launched every probe once")
@@ -1213,6 +1187,9 @@ def probe_mosaic_phase(dev) -> dict:
             "bound_by": max(by, key=by.get), "library_ms": None,
             "library_ms_by_probe": {p: r["library_ms"] for p, r in probes.items()
                                     if r["library_ms"] is not None},
+            "device_ms_by_probe": {p: r["device_ms"] for p, r in probes.items()},
+            "library_device_ms_by_probe": {p: r["library_device_ms"] for p, r in probes.items()
+                                           if r["library_device_ms"] is not None},
             "library_ms_null": f"the row sums all {len(probes)} probes; {len(library_ms_null)} "
                                "of them have no single PyTorch call (reasons in the phase line)",
             "ms_of": "the 15 probes, one launch each, summed (each probe in the phase line)",
@@ -1318,26 +1295,27 @@ class WaveRecorder:
         self.reset()
 
     def reset(self):
-        self.largest, self.max_configs = None, 0
+        self.largest, self.max_configs, self.edge_waves = None, 0, 0
 
     def __getattr__(self, name):
         return getattr(self._validate, name)
 
     def validate_motion_batch(self, spec, envs, starts, goals, num):
+        self.edge_waves += 1
         n = starts.shape[0] * starts.shape[1] * num
         if n > self.max_configs:
             self.largest, self.max_configs = (envs, starts, goals, num), n
         return self._validate.validate_motion_batch(spec, envs, starts, goals, num)
 
 
-def api_planners_phase(dev) -> dict:
+def api_planners_phase(dev):
     """This slice's entry path: panda.prm, panda.fcit and panda.roadmap at
     the API's default settings on the card, from VAMP's start A to goal B
     in the sphere cage; every path segment and roadmap edge revalidated by
     the plain version; the fkcc kernel against its plain version on the
     configurations of PRM's largest edge wave; card against device="cpu" on
     tests/test_planners.py's sphere-robot wall cases.  Returns the kernels
-    line's fkcc row of the PRM path."""
+    line's fkcc row of the PRM path and each call's line."""
     import numpy as np
     import torch
 
@@ -1368,6 +1346,7 @@ def api_planners_phase(dev) -> dict:
             torch.cuda.synchronize()
             calls[name] = {"ms": (time.perf_counter() - t0) * 1e3,
                            "fkcc_launches": fkcc_cuda.LAUNCHES,
+                           "edge_launches": rec.edge_waves,
                            "max_configs_per_launch": max(rec.max_configs, sample_size[name])}
             if name == "prm":
                 prm_wave = rec.largest
@@ -1434,10 +1413,10 @@ def api_planners_phase(dev) -> dict:
     return (row("fkcc", held["kernel_ms"], held["plain_ms"], held, held["max_abs_err"],
                 calls["prm"]["fkcc_launches"])
             | {"name": "fkcc_prm", "replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
-               "launches_of": "one panda.prm call",
-               "launches_fcit": calls["fcit"]["fkcc_launches"],
+               "occupancy": held["occupancy"], "launches_of": "one panda.prm call",
+               "launches_edge_waves": calls["prm"]["edge_launches"],
                "launches_roadmap": calls["roadmap"]["fkcc_launches"],
-               "ms_of": "PRM's largest edge wave, one launch"})
+               "ms_of": "PRM's largest edge wave, one launch"}), calls
 
 
 def main() -> int:
@@ -1511,6 +1490,7 @@ def main() -> int:
     max_abs_err = float((vk - vp).abs().max())
 
     kernel_ms = time_cuda(lambda: fkcc_cuda.fkcc_batched_lanes(spec, envs, q_d), 3, 30)
+    kernel_occupancy = dict(fkcc_cuda.LAST_LAUNCH)
     plain_ms = time_cuda(lambda: fkcc_cuda.fkcc_batched_plain(spec, envs, q), 1, 5)
     n_cfg = KERNEL_PROBLEMS * KERNEL_CONFIGS
     ops = fkcc_cuda.op_count(spec, live, KERNEL_CONFIGS)
@@ -1526,7 +1506,7 @@ def main() -> int:
         "valid_share": float((vk >= 0).float().mean()),
         "mismatches": int(mism.sum()), "mismatches_outside_band": int(outside.sum()),
         "band": CONTACT_BAND, "max_abs_err": max_abs_err,
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "kernel_ms": kernel_ms, "occupancy": kernel_occupancy, "plain_ms": plain_ms,
         "fp32_ops": ops, "bytes": n_bytes, "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -1784,6 +1764,7 @@ def main() -> int:
     p_out = p_mism & (pvp.abs() > CONTACT_BAND)
     p_err = float(p_out.float().max())  # validity, the kernel's output
     pk_ms = time_cuda(lambda: fkcc_cuda.fkcc_batched(spec, pk_envs, pq), 3, 20)
+    pk_occupancy = dict(fkcc_cuda.LAST_LAUNCH)
     pp_ms = time_cuda(lambda: fkcc_cuda.fkcc_vmin_plain(spec, pk_envs, pq), 1, 3)
     pk_bound = bound(
         int(pc_ops[:PC_CHECK].sum()) * KERNEL_CONFIGS + fkcc_cuda.pc_ops(pwork),
@@ -1797,7 +1778,8 @@ def main() -> int:
           "mismatches_inside_band": int((p_mism & ~p_out).sum()),
           "mismatches_outside_band": int(p_out.sum()), "band": CONTACT_BAND,
           "work": dict(zip(("gates", "chunks", "points"), pwork.tolist())),
-          "kernel_ms": pk_ms, "plain_ms": pp_ms, **pk_bound, "library_ms": None})
+          "kernel_ms": pk_ms, "occupancy": pk_occupancy, "plain_ms": pp_ms, **pk_bound,
+          "library_ms": None})
     check(int(p_out.sum()) == 0, "pointcloud kernel and plain agree outside the contact band")
     check(0.0 < pk_valid < 1.0, "both outcomes occur on the pointcloud scenes")
 
@@ -1944,12 +1926,16 @@ def main() -> int:
     check(g_launches == len(gather.PROBES), "the probe entry point launched every gather probe")
 
     # --- attachments and heightfields (this slice) ------------------------
-    branch_rows = branch_phases(dev, spec, q, ss)
+    branch_rows, api_launches, batches = branch_phases(dev, spec, q, ss)
 
     # --- the Mosaic probes, the other robots, the roadmap planners (this slice)
     mosaic_row = probe_mosaic_phase(dev)
     robot_rows = suite_robots_phase(dev, ss)
-    prm_row = api_planners_phase(dev)
+    prm_row, planner_calls = api_planners_phase(dev)
+
+    # --- fkcc at the one-problem paths' launch shapes (this slice) ---------
+    path_rows, path_lines = fkcc_paths_phase(dev, api_launches, planner_calls, batches)
+    prm_row["sample_wave_ms"] = path_lines["prm_samples"]["kernel_ms"]
 
     # --- bench: the port's bench entry on its default source (this slice) --
     bench_phase()
@@ -1957,6 +1943,8 @@ def main() -> int:
     emit({"kernels": [
         row("fkcc", kernel_ms, plain_ms, kernel, max_abs_err, mega_launches["fkcc"])
         | {"replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
+           "occupancy": kernel_occupancy, "ms_of": "700 x 1024 MBM-shaped configurations",
+           "launches_of": "suite_mega (its shapes: fkcc_bench_path)",
            "replaces_function": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py::_run",
            "launches_xla_suite": launches},
         bench_fkcc_row,
@@ -1975,6 +1963,7 @@ def main() -> int:
         # the pointcloud branch in each kernel, on this slice's path
         row("fkcc", pk_ms, pp_ms, pk_bound, p_err, pc_launches["fkcc"])
         | {"name": "fkcc_pc", "replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
+           "occupancy": pk_occupancy,
            "replaces_function": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py::tile_vmin "
                                 "pointcloud branch (248-457)",
            "max_abs_err_of": "validity outside the contact band"},
@@ -1989,6 +1978,7 @@ def main() -> int:
            "replaces_function": "vamp_mvt_tpu/planning/simplify_mega.py::_run on pck",
            "warps_per_sm": sp_launch["occupancy"]["warps_per_sm"],
            "phase_share": sp_launch["phase_share"]},
+        *path_rows,
         *branch_rows,
         gather_row,
         mosaic_row,

@@ -981,3 +981,99 @@ def test_megakernels_every_group_other_robots(cuda, monkeypatch, robot):
     s = dataclasses.replace(mbm.default_settings(robot, "mega"), max_iterations=1024,
                             max_samples=4096)
     _every_group(cuda, monkeypatch, spec, envs, starts, goals, masks, s)
+
+
+# ---------------------------------------------------------------------------
+# fkcc at every lane-group size and at the launch shapes of the paths
+# ---------------------------------------------------------------------------
+
+# (B, N): the bench path's start/goal validity, PRM's sample wave, one
+# lockstep step of the API's planner, a block of the kernel phase
+FKCC_PATH_SHAPES = [(700, 2), (1, 64), (1, 480), (64, 1024)]
+
+
+def _fkcc_tables(which, B, device):
+    """B problems of one branch: eight seeded scenes with every primitive
+    table, the two payload scenes, a Panda terrain of 250 x 250 cells with
+    a payload, or two Panda wall clouds of different sizes, repeated."""
+    spec = registry.load("panda")
+    if which == "primitives":
+        envs = _scenes(8, seed=40)
+    elif which == "attachment":
+        envs = _panda_attach_envs("cpu")
+    elif which == "heightfield":
+        rng = np.random.default_rng(41)
+        xy = (np.arange(250) - 125 + 0.5) * 0.01
+        grid = rng.uniform(0.2, 0.6, (250, 250)).astype(np.float32)
+        grid[np.hypot(*np.meshgrid(xy, xy)) < 0.25] = -0.1
+        meta, data = envmod.make_heightfield((0.0033, 0.0033, 0.0), (0.01, 0.01, 1.0), grid)
+        b = envmod.EnvironmentBuilder().add_heightfield(meta, data)
+        b.attach(envmod.make_attachment([[0.0, 0.0, 0.12, 0.06]]))
+        envs = envmod.broadcast_environment(b.build(device="cpu"), 1)
+    else:
+        pts = _wall_points()
+        pts = pts[pts[:, 2] < 1.5] * np.float32(0.4) + np.float32([0.45, 0, 0.2])
+        dense = _wall_points(40)
+        dense = dense[dense[:, 2] < 1.5] * np.float32(0.4) + np.float32([0.35, 0.1, 0.2])
+        envs = envmod.stack_environments([_pck_env(spec, p, spec.max_radius, "cpu")
+                                          for p in (pts, dense)])
+    idx = torch.arange(B) % envs.spheres.shape[0]
+    return spec, envs.map(lambda t: t[idx].contiguous()).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N", FKCC_PATH_SHAPES)
+@pytest.mark.parametrize("which", ["primitives", "attachment", "heightfield", "pointcloud"])
+def test_fkcc_every_group_matches_plain(cuda, which, B, N):
+    """fkcc at every G (the override (None, G)), in both layouts, against
+    its plain version: validity equal outside the contact band (and the
+    heightfield's cell band); vmin within 1e-4 of the plain value and equal
+    at every G (a min over the same values), except on a pointcloud, where
+    the kernel is sign-exact."""
+    spec, envs = _fkcc_tables(which, B, cuda)
+    q = torch.as_tensor(np.random.default_rng(42 + N).uniform(
+        spec.limits_low, spec.limits_high, (B, N, 7)).astype(np.float32), device=cuda)
+    q_d = q.transpose(1, 2).contiguous()
+    vp = fkcc_cuda.fkcc_vmin_plain(spec, envs, q)
+    skip = vp.abs() <= BAND
+    if which == "heightfield":
+        skip |= _cell_band(spec, envs, q)
+    first = None
+    for G in fkcc_cuda.MEGA_GROUPS:
+        vk = fkcc_cuda.fkcc_vmin(spec, envs, q, shape=(None, G))
+        assert fkcc_cuda.LAST_LAUNCH["group"] == G
+        rows = fkcc_cuda.fkcc_batched(spec, envs, q, shape=(None, G))
+        lanes = fkcc_cuda.fkcc_batched_lanes(spec, envs, q_d, shape=(None, G))
+        torch.cuda.synchronize()
+        assert torch.equal(rows, vk >= 0) and torch.equal(lanes, rows), G
+        mism = ((vk >= 0) != (vp >= 0)) & ~skip
+        assert not mism.any(), f"G {G}: {int(mism.sum())} validity mismatches outside the bands"
+        if which != "pointcloud":
+            assert float((vk - vp).abs()[~skip].max()) < 1e-4, G
+            first = vk if first is None else first
+            assert torch.equal(vk, first), f"vmin at G {G} differs from G 1"
+    shape = fkcc_cuda.fkcc_shape(spec, envs, B, N)
+    fkcc_cuda.fkcc_batched(spec, envs, q)
+    assert {k: fkcc_cuda.LAST_LAUNCH[k] for k in ("threads", "group", "smem_bytes")} == {
+        k: shape[k] for k in ("threads", "group", "smem_bytes")}
+    assert fkcc_cuda.LAST_LAUNCH["blocks_per_sm"] >= shape["blocks_per_sm"]
+
+
+@pytest.mark.gpu
+def test_fkcc_sees_tables_changed_in_place(cuda):
+    """The wrapper reuses an Environment's packed table arguments: a payload
+    grown in place, and a shape row moved in place, still reach the kernel,
+    which keeps matching its plain version."""
+    spec = registry.load("panda")
+    envs = _panda_attach_envs(cuda)
+    q = torch.as_tensor(np.random.default_rng(43).uniform(
+        spec.limits_low, spec.limits_high, (2, 2048, 7)).astype(np.float32), device=cuda)
+    before = fkcc_cuda.fkcc_batched(spec, envs, q)
+    for change in (lambda: envs.attachment.spheres[..., 3].mul_(1.5),
+                   lambda: envs.spheres[:, 0, 2].sub_(0.2)):
+        change()
+        vk = fkcc_cuda.fkcc_vmin(spec, envs, q)
+        vp = fkcc_cuda.fkcc_vmin_plain(spec, envs, q)
+        torch.cuda.synchronize()
+        assert not (((vk >= 0) != (vp >= 0)) & (vp.abs() > BAND)).any()
+    assert not torch.equal(fkcc_cuda.fkcc_batched(spec, envs, q), before)

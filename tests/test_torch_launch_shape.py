@@ -133,3 +133,126 @@ def test_nothing_fits_raises():
     big = dataclasses.replace(mbm.default_settings("panda", "mega"), max_path=70000)
     with pytest.raises(ValueError, match="no launch shape fits"):
         rrtc_mega_cuda.launch_shape(spec, envs, big)
+
+
+# ---------------------------------------------------------------------------
+# fkcc's launch shape (fkcc_cuda.fkcc_shape), sized to each path's B x N
+# ---------------------------------------------------------------------------
+
+FKCC_ROBOTS = ("panda", "ur5", "fetch", "baxter", "sphere")
+# bench/time_fkcc.py's cases: the tables' kind, B, N
+FKCC_CASES = {
+    "bench_validity": ("cages", 700, 2), "bench_direct": ("cages", 700, 440),
+    "primitives": ("mbm", 700, 1024), "api_rrtc_step": ("payload", 1, 480),
+    "prm_samples": ("cages", 1, 64), "prm_edges": ("cages", 1, 92400),
+    "fcit_edge": ("cages", 1, 440), "clouds64": ("cloud", 64, 1024),
+    "attach700": ("payload", 700, 1024), "terrain700": ("terrain", 700, 1024),
+    "sphere_api_step": ("terrain", 1, 480),
+}
+
+
+def _fkcc_spec(robot):
+    if robot == "sphere":
+        return registry.sphere_spec(lows=(-5, -5, 0), highs=(5, 5, 5), radius=0.2)
+    return registry.load(robot)
+
+
+def _fkcc_tables(which):
+    """Tables of the sizes the cases launch on: `_tables`' kinds, two
+    MBM-shaped scenes, and those with a terrain of 250 x 250 cells."""
+    if which in ("cages", "payload", "cloud"):
+        return _tables(which)
+    envs = mbm.build_batch(scenes.mbm_shaped_problems(2, seed=1), device="cpu")[0]
+    if which == "mbm":
+        return envs
+    hm, hd = scenes.terrain_tables(2, 8, "cpu")
+    return envs._replace(hf_meta=hm, hf_data=hd)
+
+
+@pytest.mark.parametrize("case", sorted(FKCC_CASES))
+@pytest.mark.parametrize("robot", FKCC_ROBOTS)
+def test_fkcc_shape_fits_and_sizes_to_the_batch(robot, case):
+    """The shape fits a block's 227 KB as the kernel lays it out; a cloud
+    takes at least MEGA_PC_MIN_GROUP lanes; at 700 x 2 at least half of a
+    block's threads hold a configuration; at 1 x 64 the launch reaches at
+    least 16 SMs; at 700 (or 64) x 1024 an SM holds at least 16 warps where
+    the picked G's shared memory allows it (16 for the Panda)."""
+    spec, (which, B, N) = _fkcc_spec(robot), FKCC_CASES[case]
+    envs = _fkcc_tables(which)
+    got = fkcc_cuda.fkcc_shape(spec, envs, B, N)
+    T, G, per = got["threads"], got["group"], got["configs_per_block"]
+    tab = fkcc_cuda.table_floats(spec, envs, G)
+    assert got["smem_bytes"] == 4 * (tab["env"] + tab["robot"] + per * tab["group"])
+    assert got["smem_bytes"] <= fkcc_cuda.MAX_SMEM
+    assert per == T // G and got["blocks"] == B * -(-N // per)
+    assert got["warps_per_sm"] == got["blocks_per_sm"] * T // 32
+    if which == "cloud":
+        assert G >= fkcc_cuda.MEGA_PC_MIN_GROUP
+    if (B, N) == (700, 2):
+        assert min(N, per) * G >= T // 2
+    if (B, N) == (1, 64):
+        assert got["blocks"] >= 16
+    if N == 1024:  # as many warps an SM as the picked G's scratch allows, up to 16
+        most, pick = 0, fkcc_cuda.FKCC_PC_MAX_PICK if which == "cloud" else fkcc_cuda.FKCC_MAX_PICK
+        for T_ in (t for t in fkcc_cuda.MEGA_THREADS if t <= pick):
+            try:
+                most = max(most, fkcc_cuda.fkcc_shape(spec, envs, B, N, shape=(T_, G))[
+                    "warps_per_sm"])
+            except ValueError:
+                continue
+        assert got["warps_per_sm"] >= min(16, most)
+        if robot == "panda":  # the per-thread design held 4 to 8
+            assert got["warps_per_sm"] >= 16
+
+
+@pytest.mark.parametrize("robot", FKCC_ROBOTS)
+def test_fkcc_shape_override_picks_each_group(robot):
+    """shape = (None, G) takes G with the best T for it, (T, G) that shape;
+    a shape that does not fit, or that the kernel does not run, raises."""
+    spec, envs = _fkcc_spec(robot), _fkcc_tables("mbm")
+    for G in fkcc_cuda.MEGA_GROUPS:
+        got = fkcc_cuda.fkcc_shape(spec, envs, 700, 1024, shape=(None, G))
+        assert got["group"] == G and got["threads"] in fkcc_cuda.MEGA_THREADS
+        T = got["threads"]
+        got = fkcc_cuda.fkcc_shape(spec, envs, 1, 64, shape=(T, G))
+        assert (got["threads"], got["group"], got["configs_per_block"]) == (T, G, T // G)
+    assert fkcc_cuda.fkcc_shape(spec, envs, 1, 64, shape=(512, 32))["threads"] == 512
+    for bad in ((512, 3), (96, 4), (32, 64)):
+        with pytest.raises(ValueError, match="does not fit"):
+            fkcc_cuda.fkcc_shape(spec, envs, 1, 64, shape=bad)
+
+
+def test_fkcc_shape_refuses_what_does_not_fit():
+    """1.4 KB of FK scratch a Panda configuration: 512 groups of one lane
+    pass a block's 227 KB; a table whose rows alone pass it leaves no
+    shape."""
+    spec, envs = registry.load("panda"), _fkcc_tables("mbm")
+    with pytest.raises(ValueError, match="does not fit"):
+        fkcc_cuda.fkcc_shape(spec, envs, 700, 1024, shape=(512, 1))
+    huge = envs._replace(spheres=torch.zeros((2, 15000, 4)))
+    with pytest.raises(ValueError, match="no launch shape fits"):
+        fkcc_cuda.fkcc_shape(spec, huge, 700, 1024)
+
+
+def test_fkcc_table_pack_reused_until_a_table_changes():
+    """The wrapper packs an Environment's table arguments once: the same
+    object on the same device and batch reuses the pack; a payload changed
+    in place is packed anew (its rows are derived on the host side); tables
+    of another batch are checked and refused."""
+    spec = registry.load("panda")
+    cages = _tables("cages")
+    att = envmod.make_attachment([[0.0, 0.0, 0.05 * k, 0.04] for k in range(4)])
+    envs = cages._replace(attachment=att._replace(
+        **{f: torch.as_tensor(getattr(att, f))[None].repeat(2, *[1] * getattr(att, f).ndim)
+           for f in att._fields}))
+    q = torch.zeros((2, 8, 7))
+    tab, keep = fkcc_cuda._table_pack(spec, envs, q, 2)
+    again, _ = fkcc_cuda._table_pack(spec, envs, q, 2)
+    assert again is tab
+    envs.attachment.spheres[..., 3] *= 2.0
+    fresh, fresh_keep = fkcc_cuda._table_pack(spec, envs, q, 2)
+    assert fresh is not tab
+    rows = next(t for t in fresh_keep if t.shape[-2:] == (4, 4) and t.data_ptr() == fresh[18])
+    assert torch.equal(rows[..., 3], envs.attachment.spheres[..., 3])
+    with pytest.raises(ValueError, match="batch"):
+        fkcc_cuda._table_pack(spec, envs, torch.zeros((3, 8, 7)), 3)

@@ -7,9 +7,9 @@
 //
 // A block first copies its problem's shape rows, heightfield meta rows and
 // payload rows into shared memory and counts the live prefix of every shape
-// table (rows with |x0| < 1e7, the _live_counts rule): load_env().  Then each
-// thread evaluates one configuration at a time with config_vmin(), which
-// returns
+// table (rows with |x0| < 1e7, the _live_counts rule): load_env(), and the
+// robot tables: load_robot().  Then G lanes of a warp (a group) evaluate
+// one configuration at a time with config_vmin_group<G>(), which returns
 //
 //   vmin = min( min over robot spheres x live shape rows of the signed value,
 //               min over the self-collision pair table of d^2 - (ri + rj)^2,
@@ -18,10 +18,9 @@
 //
 // and the configuration is valid iff vmin >= 0.  The robot arrives as small
 // device tables built from its RobotSpec (frame chain, sphere placement, pair
-// table).  FK walks the frames in order, keeping the previous frame's pose in
-// registers; only frames that parent a non-adjacent frame are kept in shared
-// memory (s_pose), and every sphere centre is stored there too (s_ctr, SoA,
-// one float per thread per coordinate) for the pair loop.
+// table).  FK walks the frames in order and stores every frame's pose and
+// every sphere centre in the group's scratch (group_floats) for the pair
+// loop and the branches below.
 //
 // Numerics.  Built with --fmad=false and without --use_fast_math, using
 // cosf/sinf, with every sum taken in the index order of ops/smat.dot_terms
@@ -32,7 +31,7 @@
 // payload spheres: as FK reaches the robot's EE frame, each payload row (its
 // centre in the EE frame, tf_rot @ xyz + tf_pos, composed on the host) is
 // posed as R_ee @ c + t_ee, checked against the live shape rows like a
-// robot sphere, and stored in s_ctr after the S robot spheres; after the
+// robot sphere, and stored after the S robot spheres' centres; after the
 // pair table each payload sphere is checked against the robot's
 // attachment-check spheres.  The heightfield and pointcloud branches then
 // run over all S + A spheres.
@@ -60,21 +59,18 @@
 // The bitmap, chunks and points stay in global memory, read through the
 // read-only path.
 //
-// Two forms.  config_vmin checks one configuration per thread with its FK
-// scratch in shared memory, (n_slots * 12 + (S + A) * 3) floats a thread
-// (scratch_floats); fkcc.cu runs it over 700 x 1024 configurations, enough
-// to fill the card at one warp a scheduler.  config_vmin_group (below)
-// checks one configuration with G lanes of a warp and a scratch a group;
-// the megakernels run it, since a planner step has only a few hundred
-// configurations and the per-thread scratch (90,624 bytes of sphere centres
-// alone for the Panda at 128 threads) left them one block of 4 warps an SM.
+// Why a group: every kernel (fkcc.cu and both megakernels) checks a
+// configuration with G lanes and one FK scratch a group, because a scratch
+// a thread, (n_slots * 12 + (S + A) * 3) floats, takes 90,624 bytes of
+// sphere centres alone for the Panda at 128 threads and leaves an SM one or
+// two blocks of 4 warps.
 //
 // What bounds it.  FP32 arithmetic (some 18k-30k operations a Panda
 // configuration) and the shared-memory loads that feed it (rows, poses,
-// centres).  The grouped form reads each environment row once for 4
-// spheres, pads each group's scratch so that the lanes of a warp meet 32
-// distinct banks on the pair table's centre reads, and runs FK by rows
-// (3 lanes of a group).
+// centres).  The group reads each environment row once for 4 spheres, pads
+// each group's scratch so that the lanes of a warp meet 32 distinct banks
+// on the pair table's centre reads, and runs FK by rows (3 lanes of a
+// group).
 
 #pragma once
 
@@ -177,12 +173,6 @@ __host__ __device__ inline int env_floats(const EnvTables& e) {
   return e.ns * 4 + (e.nc + e.nzc) * 8 + (e.nb + e.nzb) * 15 + e.nh * 10 + e.A * 8;
 }
 
-// Floats of shared memory the FK scratch of T threads takes: the slot
-// poses and the centres of the robot's and the payload's spheres.
-__host__ __device__ inline int scratch_floats(const Robot& r, const EnvTables& e, int T) {
-  return (r.n_slots * 12 + (r.S + e.A) * 3) * T;
-}
-
 __device__ __forceinline__ void load_rows(float* dst, const float* src, int count) {
   for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
 }
@@ -258,268 +248,8 @@ __device__ inline Env load_env(const EnvTables& e, int b, float* smem) {
   return env;
 }
 
-// The pointcloud branch (see the top of this file) for the S + A sphere
-// centres in s_ctr, from a vmin >= 0; returns the new vmin.  No barrier
-// inside.
-__device__ inline float pc_vmin(const Env& env, const Robot& r, const float* s_ctr, int T,
-                                int tid, float vmin, Work& w) {
-  for (int k = 0; k < r.S + env.A; ++k) {
-    const float cx = s_ctr[(k * 3 + 0) * T + tid];
-    const float cy = s_ctr[(k * 3 + 1) * T + tid];
-    const float cz = s_ctr[(k * 3 + 2) * T + tid];
-    const float* sp = k < r.S ? r.sphere_pc + 4 * k : env.att_pc + 4 * (k - r.S);
-    const float rk = sp[0];
-    const int cls = (int)sp[1];
-    const bool chit_ok = sp[2] > 0.0f;
-    const bool gate_ok = sp[3] > 0.0f;
-    ++w.gates;
-    const float fx = floorf((cx - env.wsx) * env.inv);
-    const float fy = floorf((cy - env.wsy) * env.inv);
-    const float fz = floorf((cz - env.wsz) * env.inv);
-    const bool ing = fx >= 0.0f && fx < env.Wf && fy >= 0.0f && fy < env.Wf &&
-                     fz >= 0.0f && fz < env.Wf;
-    bool maybe = !ing || !gate_ok;
-    if (ing) {
-      const int widx = (int)fx * env.W + (int)fy;
-      const unsigned zs = (unsigned)(int)fz;
-      const unsigned hit = (unsigned)__ldg(env.bm + (kMaxClasses + cls) * env.plane + widx);
-      if (chit_ok && ((hit >> zs) & 1u)) return fminf(vmin, -1.0f);
-      const unsigned free_word = (unsigned)__ldg(env.bm + cls * env.plane + widx);
-      maybe = maybe || ((free_word >> zs) & 1u);
-    }
-    if (!maybe) continue;
-    const float thr = rk + env.pr;
-    const float thr2 = thr * thr;
-    for (int c = 0; c < env.nlive; ++c) {
-      const float4 bnd = __ldg(env.ch + 2 * c);
-      ++w.chunks;
-      const float m = thr + bnd.w + kChunkMargin;
-      if (sq(cx - bnd.x) + sq(cy - bnd.y) + sq(cz - bnd.z) > m * m) continue;
-      const float* p = env.pt + (long long)c * 3 * kChunkPoints;
-      w.points += kChunkPoints;
-      for (int s = 0; s < kChunkPoints; ++s) {
-        const float d2 = sq(cx - __ldg(p + s)) + sq(cy - __ldg(p + kChunkPoints + s)) +
-                         sq(cz - __ldg(p + 2 * kChunkPoints + s));
-        vmin = fminf(vmin, d2 - thr2);
-      }
-      if (vmin < 0.0f) return vmin;
-    }
-  }
-  return vmin;
-}
-
-// vmin over the live shape rows of one sphere (centre px, py, pz, radius
-// rad), from `vmin`.
-__device__ __forceinline__ float prim_vmin(const Env& env, float px, float py, float pz,
-                                           float rad, float vmin) {
-  for (int m = 0; m < env.ls; ++m) {
-    const float* o = env.sph + m * 4;
-    const float d2 = sq(px - o[0]) + sq(py - o[1]) + sq(pz - o[2]);
-    const float rs = rad + o[3];
-    vmin = fminf(vmin, d2 - rs * rs);
-  }
-  for (int m = 0; m < env.lc; ++m) {
-    const float* o = env.cap + m * 8;
-    const float dot = (px - o[0]) * o[3] + (py - o[1]) * o[4] + (pz - o[2]) * o[5];
-    const float u = fminf(fmaxf(dot * o[7], 0.0f), 1.0f);
-    const float d2 = sq(px - (o[0] + o[3] * u)) + sq(py - (o[1] + o[4] * u)) +
-                     sq(pz - (o[2] + o[5] * u));
-    const float rs = rad + o[6];
-    vmin = fminf(vmin, d2 - rs * rs);
-  }
-  for (int m = 0; m < env.lzc; ++m) {
-    const float* o = env.zcap + m * 8;
-    const float u = fminf(fmaxf((pz - o[2]) * o[5] * o[7], 0.0f), 1.0f);
-    const float d2 = sq(px - o[0]) + sq(py - o[1]) + sq(pz - (o[2] + o[5] * u));
-    const float rs = rad + o[6];
-    vmin = fminf(vmin, d2 - rs * rs);
-  }
-  for (int m = 0; m < env.lb; ++m) {
-    const float* o = env.cub + m * 15;
-    const float xs = px - o[0], ys = py - o[1], zs = pz - o[2];
-    const float a1 = fmaxf(fabsf(o[3] * xs + o[4] * ys + o[5] * zs) - o[12], 0.0f);
-    const float a2 = fmaxf(fabsf(o[6] * xs + o[7] * ys + o[8] * zs) - o[13], 0.0f);
-    const float a3 = fmaxf(fabsf(o[9] * xs + o[10] * ys + o[11] * zs) - o[14], 0.0f);
-    vmin = fminf(vmin, a1 * a1 + a2 * a2 + a3 * a3 - rad * rad);
-  }
-  for (int m = 0; m < env.lzb; ++m) {
-    const float* o = env.zcub + m * 15;
-    const float xs = px - o[0], ys = py - o[1], zs = pz - o[2];
-    const float a1 = fmaxf(fabsf(o[3] * xs + o[4] * ys) - o[12], 0.0f);
-    const float a2 = fmaxf(fabsf(o[6] * xs + o[7] * ys) - o[13], 0.0f);
-    const float a3 = fmaxf(fabsf(zs) - o[14], 0.0f);
-    vmin = fminf(vmin, a1 * a1 + a2 * a2 + a3 * a3 - rad * rad);
-  }
-  return vmin;
-}
-
-// The heightfield branch (see the top of this file) for the S + A sphere
-// centres in s_ctr; returns the new vmin.  No barrier inside.
-__device__ inline float hf_vmin(const Env& env, const Robot& r, const float* s_ctr, int T,
-                                int tid, float vmin) {
-  for (int k = 0; k < r.S + env.A; ++k) {
-    const float cx = s_ctr[(k * 3 + 0) * T + tid];
-    const float cy = s_ctr[(k * 3 + 1) * T + tid];
-    const float cz = s_ctr[(k * 3 + 2) * T + tid];
-    const float rk = k < r.S ? r.sphere_f[k * 4 + 3] : env.att[(k - r.S) * 4 + 3];
-    for (int n = 0; n < env.nh; ++n) {
-      const float* m = env.hfm + n * 10;
-      const float xo = m[0] - cx;
-      const float yo = m[1] - cy;
-      const float ccx = floorf(fminf(fmaxf(m[3] * xo + m[8], 0.0f), m[6]));
-      const float ccy = floorf(fminf(fmaxf(m[4] * yo + m[9], 0.0f), m[7]));
-      const int idx = min(max((int)(ccy * m[6] + ccx), 0), env.C - 1);
-      const float zh = __ldg(env.hfd + (long long)n * env.C + idx);
-      vmin = fminf(vmin, cz - rk - (m[5] * zh + m[2]));
-    }
-  }
-  return vmin;
-}
-
-// vmin of the configuration qp[j * q_sd] (j = joint index) for thread `tid`
-// of a block of T threads; s_pose and s_ctr are the block's FK scratch
-// (scratch_floats(r, e, T) floats, s_pose first).  Pointcloud work goes to `w`.
-// No barrier inside.
-__device__ inline float config_vmin(const Env& env, const Robot& r, float* s_pose,
-                                    int T, int tid, const float* qp, long long q_sd,
-                                    Work& w) {
-  float* s_ctr = s_pose + r.n_slots * 12 * T;  // (S + A) x 3 x T
-  float vmin = __int_as_float(0x7f800000);  // +inf
-  float R[9], t[3];
-  for (int f = 0; f < r.F; ++f) {
-    const int* fi = r.frame_i + f * kFrameInts;
-    const float* ff = r.frame_f + f * kFrameFloats;
-    const int parent = fi[0];
-    if (parent < 0) {
-      for (int e = 0; e < 9; ++e) R[e] = ff[e];
-      for (int e = 0; e < 3; ++e) t[e] = ff[9 + e];
-    } else {
-      float Rp[9], tp[3];
-      if (parent == f - 1) {
-        for (int e = 0; e < 9; ++e) Rp[e] = R[e];
-        for (int e = 0; e < 3; ++e) tp[e] = t[e];
-      } else {
-        const float* src = s_pose + r.frame_i[parent * kFrameInts + 3] * 12 * T + tid;
-        for (int e = 0; e < 9; ++e) Rp[e] = src[e * T];
-        for (int e = 0; e < 3; ++e) tp[e] = src[(9 + e) * T];
-      }
-      // R = Rp @ origin_rot;  t = Rp @ origin_xyz + tp
-      for (int i = 0; i < 3; ++i) {
-        for (int j = 0; j < 3; ++j) {
-          float acc = Rp[i * 3 + 0] * ff[0 * 3 + j];
-          acc = acc + Rp[i * 3 + 1] * ff[1 * 3 + j];
-          acc = acc + Rp[i * 3 + 2] * ff[2 * 3 + j];
-          R[i * 3 + j] = acc;
-        }
-        float acc = Rp[i * 3 + 0] * ff[9];
-        acc = acc + Rp[i * 3 + 1] * ff[10];
-        acc = acc + Rp[i * 3 + 2] * ff[11];
-        t[i] = acc + tp[i];
-      }
-    }
-    const int jt = fi[1];
-    if (jt == kRevolute) {
-      const float x = qp[fi[2] * q_sd];
-      const float c = cosf(x);
-      const float s = sinf(x);
-      float Q[9];
-      for (int e = 0; e < 9; ++e) Q[e] = (ff[15 + e] + ff[24 + e] * c) + ff[33 + e] * s;
-      float Rn[9];
-      for (int i = 0; i < 3; ++i) {
-        for (int j = 0; j < 3; ++j) {
-          float acc = R[i * 3 + 0] * Q[0 * 3 + j];
-          acc = acc + R[i * 3 + 1] * Q[1 * 3 + j];
-          acc = acc + R[i * 3 + 2] * Q[2 * 3 + j];
-          Rn[i * 3 + j] = acc;
-        }
-      }
-      for (int e = 0; e < 9; ++e) R[e] = Rn[e];
-    } else if (jt == kPrismatic) {
-      const float x = qp[fi[2] * q_sd];
-      for (int i = 0; i < 3; ++i) {
-        float acc = R[i * 3 + 0] * ff[12];
-        acc = acc + R[i * 3 + 1] * ff[13];
-        acc = acc + R[i * 3 + 2] * ff[14];
-        t[i] = t[i] + x * acc;
-      }
-    }
-    if (fi[3] >= 0) {
-      float* dst = s_pose + fi[3] * 12 * T + tid;
-      for (int e = 0; e < 9; ++e) dst[e * T] = R[e];
-      for (int e = 0; e < 3; ++e) dst[(9 + e) * T] = t[e];
-    }
-
-    // Spheres carried by this frame: centre, environment checks, store.
-    for (int idx = fi[4]; idx < fi[5]; ++idx) {
-      const int k = r.sphere_order[idx];
-      const float* sf = r.sphere_f + k * 4;
-      float p[3];
-      for (int i = 0; i < 3; ++i) {
-        float acc = R[i * 3 + 0] * sf[0];
-        acc = acc + R[i * 3 + 1] * sf[1];
-        acc = acc + R[i * 3 + 2] * sf[2];
-        p[i] = acc + t[i];
-      }
-      const float px = p[0], py = p[1], pz = p[2], rad = sf[3];
-      s_ctr[(k * 3 + 0) * T + tid] = px;
-      s_ctr[(k * 3 + 1) * T + tid] = py;
-      s_ctr[(k * 3 + 2) * T + tid] = pz;
-      vmin = prim_vmin(env, px, py, pz, rad, vmin);
-    }
-
-    // Payload spheres carried by the EE frame: pose, environment checks,
-    // store after the robot's spheres.
-    if (f == r.ee_frame) {
-      for (int a = 0; a < env.A; ++a) {
-        const float* la = env.att + a * 4;
-        float p[3];
-        for (int i = 0; i < 3; ++i) {
-          float acc = R[i * 3 + 0] * la[0];
-          acc = acc + R[i * 3 + 1] * la[1];
-          acc = acc + R[i * 3 + 2] * la[2];
-          p[i] = acc + t[i];
-        }
-        const int k = r.S + a;
-        s_ctr[(k * 3 + 0) * T + tid] = p[0];
-        s_ctr[(k * 3 + 1) * T + tid] = p[1];
-        s_ctr[(k * 3 + 2) * T + tid] = p[2];
-        vmin = prim_vmin(env, p[0], p[1], p[2], la[3], vmin);
-      }
-    }
-  }
-
-  // Self-collision pair table.
-  for (int m = 0; m < r.P; ++m) {
-    const int i = r.pairs[2 * m], j = r.pairs[2 * m + 1];
-    const float dx = s_ctr[(i * 3 + 0) * T + tid] - s_ctr[(j * 3 + 0) * T + tid];
-    const float dy = s_ctr[(i * 3 + 1) * T + tid] - s_ctr[(j * 3 + 1) * T + tid];
-    const float dz = s_ctr[(i * 3 + 2) * T + tid] - s_ctr[(j * 3 + 2) * T + tid];
-    vmin = fminf(vmin, dx * dx + dy * dy + dz * dz - r.pair_thr[m]);
-  }
-
-  // Payload spheres against the robot's attachment-check spheres.
-  for (int a = 0; a < env.A; ++a) {
-    const int ka = r.S + a;
-    const float ax = s_ctr[(ka * 3 + 0) * T + tid];
-    const float ay = s_ctr[(ka * 3 + 1) * T + tid];
-    const float az = s_ctr[(ka * 3 + 2) * T + tid];
-    const float ra = env.att[a * 4 + 3];
-    for (int m = 0; m < r.n_att_check; ++m) {
-      const int k = r.att_check[m];
-      const float dx = ax - s_ctr[(k * 3 + 0) * T + tid];
-      const float dy = ay - s_ctr[(k * 3 + 1) * T + tid];
-      const float dz = az - s_ctr[(k * 3 + 2) * T + tid];
-      const float rs = ra + r.sphere_f[k * 4 + 3];
-      vmin = fminf(vmin, dx * dx + dy * dy + dz * dz - rs * rs);
-    }
-  }
-  if (env.nh > 0) vmin = hf_vmin(env, r, s_ctr, T, tid, vmin);
-  if (env.bm != nullptr && vmin >= 0.0f) vmin = pc_vmin(env, r, s_ctr, T, tid, vmin, w);
-  return vmin;
-}
-
 // ---------------------------------------------------------------------------
-// The lane-group check of the megakernels (rrtc_mega.cu, simplify_mega.cu).
+// The lane-group check (fkcc.cu, rrtc_mega.cu, simplify_mega.cu).
 //
 // G lanes of one warp (a group; G a power of two, 1..32, fixed at compile
 // time) check one configuration together, so the FK scratch is paid per
@@ -539,13 +269,14 @@ __device__ inline float config_vmin(const Env& env, const Robot& r, float* s_pos
 //     undecided sphere's live chunks split across the lanes, and stops for
 //     the whole group as soon as one lane holds vmin < 0 (sign-exact).
 // Every value is computed by the same expression, in the same order, as in
-// config_vmin, and a min is exact in any order, so the validity equals the
-// per-thread routine's (config_vmin, which fkcc.cu keeps using).
+// the plain version (ops/fkcc.py, collision/primitives.py), and a min is
+// exact in any order, so vmin does not depend on G (on a pointcloud, its
+// sign does not).
 // ---------------------------------------------------------------------------
 
 // vmin over the live shape rows of U spheres (centres px, py, pz, radii
-// rad), from `vmin`: prim_vmin's expressions, each row read once for all U
-// (U independent chains of mins).
+// rad), from `vmin`: collision/primitives.py's expressions, each row read
+// once for all U (U independent chains of mins).
 template <int U>
 __device__ __forceinline__ float prim_vmin_n(const Env& env, const float* px, const float* py,
                                              const float* pz, const float* rad, float vmin) {

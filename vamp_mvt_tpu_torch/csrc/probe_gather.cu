@@ -3,7 +3,7 @@
 // Replace the TPU probe kernels of tools/probe_gather.py (each a
 // pl.pallas_call on one (8, 128) tile), which asked whether Mosaic can
 // gather per lane from a small table: the construct behind the pointcloud
-// branch's bitmap lookup (fkcc_device.cuh::pc_vmin reads one word of a
+// branch's bitmap lookup (fkcc_device.cuh::pc_vmin_group reads one word of a
 // (W * W)-word table per sphere and configuration).  Six probes:
 //
 //   0 lane      out[r, c] = t[r, idx[r, c]]             t (8, 128) float32

@@ -6,8 +6,8 @@
 // rows written at a runtime index, scalar scratch, in-kernel dots and
 // argmins, a grid whose steps share scratch, cross-lane reductions, integer
 // division, a lane cumsum.  Each probe here computes the TPU probe's
-// function on a leading axis of tiles, one block per tile (the probes and
-// their layouts are listed in vamp_mvt_tpu_torch/probes/mosaic.py):
+// function on a leading axis of tiles (the probes and their layouts are
+// listed in vamp_mvt_tpu_torch/probes/mosaic.py):
 //
 //    0 while_carry     8 reduce_while
 //    1 dyn_sublane     9 halton_digits
@@ -22,14 +22,21 @@
 // scratch become shared memory (one static buffer of 20 KB, reinterpreted
 // per probe), a scalar carried by the TPU's scalar core becomes a scalar of
 // thread 0 in shared memory, and a row update becomes one thread a lane.
+// Four probes need no shared memory and read a few KB a tile, so a block
+// per tile would spend their time on block scheduling: group32_sum,
+// reduce_while and cumsum_first run one warp a tile and transpose one
+// thread a 16-byte piece, in a grid of a few blocks an SM that strides over
+// the tiles (probe_tiles_kernel), reading with 128-bit loads and reducing
+// with warp shuffles.
 // Two TPU constructs have no Hopper counterpart and are translated:
 //   - grid_carry: the TPU grid runs its steps in order and lets them share
 //     scratch; CUDA blocks run in no order and share nothing, so one block
 //     loops over the steps and carries the accumulator in shared memory
 //     (a persistent block), never blocks racing on a global counter;
 //   - the cross-lane group-of-32 sum, a (128, 4) matmul on the TPU, is one
-//     warp per group reduced with __shfl_xor_sync; the lane cumsum (roll and
-//     mask on the TPU) is a __ballot_sync + __popc scan.
+//     lane per group summing its 32 values in index order; the lane cumsum
+//     (roll and mask on the TPU) is a warp scan (__shfl_up_sync) of each
+//     lane's four counts.
 // dot_argmin sums its 8-term dots in index order (--fmad=false, no cuBLAS),
 // as the plain version does; ties go to the lowest row.
 //
@@ -43,6 +50,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileBlocksPerSm = 4;        // probe_tiles_kernel's grid, per SM
 constexpr int kLanes = 128;
 constexpr int kTile = 8 * kLanes;          // (8, 128)
 constexpr int kTallTile = 16 * kLanes;     // (16, 128)
@@ -192,17 +201,6 @@ __device__ void grid_carry(const Args& a, int b, int tid, int* s_int) {
   }
 }
 
-// 6: (8, 128) -> (8, 4) sums of 32-lane groups, one warp a group.
-__device__ void group32_sum(const Args& a, int b, int tid) {
-  const float* x = static_cast<const float*>(a.in0) + (long long)b * kTile;
-  float* out = static_cast<float*>(a.out0) + (long long)b * 32;
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int grp = warp; grp < 32; grp += kThreads / 32) {  // row grp / 4, group grp % 4
-    const float v = warp_sum(x[grp * 32 + lane]);
-    if (lane == 0) out[grp] = v;
-  }
-}
-
 // 7: scratch = 3 x; out = sum over i < 8 of int(scratch[i, i]).
 __device__ void scratch_diag(const Args& a, int b, int tid, float* s) {
   const float* x = static_cast<const float*>(a.in0) + (long long)b * kTile;
@@ -212,36 +210,6 @@ __device__ void scratch_diag(const Args& a, int b, int tid, float* s) {
     int total = 0;
     for (int i = 0; i < 8; ++i) total += __float2int_rz(s[i * kLanes + i]);
     static_cast<int*>(a.out0)[b] = total;
-  }
-}
-
-// 8: n = int(sum x) + 2 int(max x[0]); c = 0; while c < 10 n: c += n.
-__device__ void reduce_while(const Args& a, int b, int tid, float* s) {
-  const float* x = static_cast<const float*>(a.in0) + (long long)b * kTile;
-  const int warp = tid >> 5, lane = tid & 31;
-  float v = 0.0f;
-  for (int e = tid; e < kTile; e += kThreads) v += x[e];
-  v = warp_sum(v);
-  float m = warp < kLanes / 32 ? warp_max(x[tid]) : 0.0f;
-  if (lane == 0) {
-    s[warp] = v;
-    s[8 + warp] = m;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float total = s[0];
-    for (int w = 1; w < kThreads / 32; ++w) total += s[w];
-    float mx = s[8];
-    for (int w = 1; w < kLanes / 32; ++w) mx = fmaxf(mx, s[8 + w]);
-    const int n = __float2int_rz(total) + __float2int_rz(mx) * 2;
-    // For n <= 0 the loop takes no step (0 < 10 n is false), so the guard
-    // changes no result.  Without it a launch on 4096 seeded tiles, about
-    // half of them with n <= 0, took 14.6 s on an H100 (results exact).
-    int c = 0;
-    if (n > 0) {
-      while (c < 10 * n) c += n;
-    }
-    static_cast<int*>(a.out0)[b] = c;
   }
 }
 
@@ -258,38 +226,6 @@ __device__ void halton_digits(const Args& a, int b, int tid) {
     }
     out[e] = (float)n * kInvHalton;
   }
-}
-
-// 10: inclusive cumsum of the 0/1 row x[0]; s = the lane of its third 1, or 1e9.
-__device__ void cumsum_first(const Args& a, int b, int tid, int* s_int) {
-  const float* x = static_cast<const float*>(a.in0) + (long long)b * kTile;
-  const int warp = tid >> 5, lane = tid & 31;
-  if (tid == 0) s_int[4] = kNone;
-  bool on = false;
-  int count = 0;
-  if (warp < kLanes / 32) {
-    on = x[tid] > 0.0f;
-    const unsigned bits = __ballot_sync(0xffffffffu, on);
-    count = __popc(bits & (0xffffffffu >> (31 - lane)));  // lanes <= this one
-    if (lane == 31) s_int[warp] = count;
-  }
-  __syncthreads();
-  if (warp < kLanes / 32) {
-    for (int w = 0; w < warp; ++w) count += s_int[w];
-    static_cast<float*>(a.out1)[(long long)b * kLanes + tid] = (float)count;
-    if (on && count == 3) atomicMin(&s_int[4], tid);
-  }
-  __syncthreads();
-  if (tid == 0) static_cast<int*>(a.out0)[b] = s_int[4];
-}
-
-// 11: the row x[0, :64] written as a column (64, 1), through shared memory.
-__device__ void transpose(const Args& a, int b, int tid, float* s) {
-  const float* x = static_cast<const float*>(a.in0) + (long long)b * kTile;
-  if (tid < kTransposed) s[tid] = x[tid];
-  __syncthreads();
-  if (tid < kTransposed)  // thread t writes row t of the column from the shared row
-    static_cast<float*>(a.out0)[(long long)b * kTransposed + tid] = s[tid];
 }
 
 // 12: scratch = 2 x; s = (int(scratch[3, 5]), int(scratch[7, 127])).
@@ -330,6 +266,112 @@ __device__ void smem_int_out(const Args& a, int b, int tid) {
   for (int i = 0; i < kScalarWrites; ++i) out[i] = i * 3 + off;
 }
 
+// ---------------------------------------------------------------------------
+// The probes of probe_tiles_kernel: one warp a tile (lane `lane` of the warp
+// on tile b), or for transpose one thread a 16-byte piece.
+
+__device__ __forceinline__ const float4* tile4(const void* base, long long b) {
+  return reinterpret_cast<const float4*>(static_cast<const float*>(base) + b * kTile);
+}
+
+// 6: (8, 128) -> (8, 4) sums of 32-lane groups: lane l sums group l (row
+// l / 4, lanes 32 (l % 4) ..), its 32 floats read as 8 float4, in index
+// order.
+__device__ void group32_sum(const Args& a, long long b, int lane) {
+  const float4* x = tile4(a.in0, b) + lane * 8;
+  float4 v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = __ldg(x + k);
+  float acc = v[0].x;
+  acc = acc + v[0].y;
+  acc = acc + v[0].z;
+  acc = acc + v[0].w;
+#pragma unroll
+  for (int k = 1; k < 8; ++k) {
+    acc = acc + v[k].x;
+    acc = acc + v[k].y;
+    acc = acc + v[k].z;
+    acc = acc + v[k].w;
+  }
+  static_cast<float*>(a.out0)[b * 32 + lane] = acc;
+}
+
+// 8: n = int(sum x) + 2 int(max x[0]); c = 0; while c < 10 n: c += n.  The
+// warp reads the tile as 8 coalesced rows of float4 (the first is row 0).
+__device__ void reduce_while(const Args& a, long long b, int lane) {
+  const float4* x = tile4(a.in0, b);
+  float4 v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = __ldg(x + k * 32 + lane);
+  float sum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) sum += (v[k].x + v[k].y) + (v[k].z + v[k].w);
+  sum = warp_sum(sum);
+  const float mx = warp_max(fmaxf(fmaxf(v[0].x, v[0].y), fmaxf(v[0].z, v[0].w)));
+  if (lane == 0) {
+    const int n = __float2int_rz(sum) + __float2int_rz(mx) * 2;
+    // For n <= 0 the loop takes no step (0 < 10 n is false), so the guard
+    // changes no result.  Without it a launch on 4096 seeded tiles, about
+    // half of them with n <= 0, took 14.6 s on an H100 (results exact).
+    int c = 0;
+    if (n > 0) {
+      while (c < 10 * n) c += n;
+    }
+    static_cast<int*>(a.out0)[b] = c;
+  }
+}
+
+// 10: inclusive cumsum of the 0/1 row x[0]; s = the lane of its third 1, or
+// 1e9.  Lane l takes x[0, 4 l .. 4 l + 3] as one float4 and counts its 1s;
+// a warp scan of the counts gives each lane its offset.
+__device__ void cumsum_first(const Args& a, long long b, int lane) {
+  const float4 v = __ldg(tile4(a.in0, b) + lane);
+  const int c0 = v.x > 0.0f, c1 = c0 + (v.y > 0.0f), c2 = c1 + (v.z > 0.0f);
+  const int c3 = c2 + (v.w > 0.0f);
+  int incl = c3;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  const int base = incl - c3;
+  reinterpret_cast<float4*>(a.out1)[b * 32 + lane] =
+      make_float4((float)(base + c0), (float)(base + c1), (float)(base + c2),
+                  (float)(base + c3));
+  int third = kNone;  // at most one lane of the tile holds the third 1
+  if (v.x > 0.0f && base + c0 == 3) third = 4 * lane;
+  else if (v.y > 0.0f && base + c1 == 3) third = 4 * lane + 1;
+  else if (v.z > 0.0f && base + c2 == 3) third = 4 * lane + 2;
+  else if (v.w > 0.0f && base + c3 == 3) third = 4 * lane + 3;
+  third = __reduce_min_sync(0xffffffffu, third);
+  if (lane == 0) static_cast<int*>(a.out0)[b] = third;
+}
+
+// 11: the row x[0, :64] written as a column (64, 1): piece i copies float4
+// i % 16 of tile i / 16's row (a tile's column is 64 contiguous floats).
+__device__ void transpose(const Args& a, long long i) {
+  reinterpret_cast<float4*>(a.out0)[i] = __ldg(tile4(a.in0, i / 16) + i % 16);
+}
+
+// The probes above over `tiles` tiles: every warp strides over the tiles
+// (transpose: every thread over the pieces).
+__global__ void __launch_bounds__(kThreads) probe_tiles_kernel(int which, Args a, int tiles) {
+  if (which == 11) {
+    const long long pieces = (long long)tiles * (kTransposed / 4);
+    for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < pieces;
+         i += (long long)gridDim.x * kThreads)
+      transpose(a, i);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  for (long long b = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); b < tiles;
+       b += (long long)gridDim.x * kWarps) {
+    if (which == 6) group32_sum(a, b, lane);
+    else if (which == 8) reduce_while(a, b, lane);
+    else cumsum_first(a, b, lane);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) probe_kernel(int which, Args a) {
   __shared__ float s[kSmemFloats];
   __shared__ int s_int[kScalarWrites];
@@ -341,12 +383,8 @@ __global__ void __launch_bounds__(kThreads) probe_kernel(int which, Args a) {
     case 3: dot_argmin(a, b, tid, s); break;
     case 4: nested_loops(a, b, tid, s, s_int); break;
     case 5: grid_carry(a, b, tid, s_int); break;
-    case 6: group32_sum(a, b, tid); break;
     case 7: scratch_diag(a, b, tid, s); break;
-    case 8: reduce_while(a, b, tid, s); break;
     case 9: halton_digits(a, b, tid); break;
-    case 10: cumsum_first(a, b, tid, s_int); break;
-    case 11: transpose(a, b, tid, s); break;
     case 12: static_reads(a, b, tid, s); break;
     case 13: dyn_rows_while(a, b, tid, s); break;
     default: smem_int_out(a, b, tid);
@@ -355,12 +393,27 @@ __global__ void __launch_bounds__(kThreads) probe_kernel(int which, Args a) {
 
 }  // namespace
 
-// Launch probe `which` over `tiles` tiles, one block of 256 threads each, on
-// `stream`; returns the CUDA error code of the launch (0 = ok), or -1 for an
-// unknown probe.  Inputs must lie in the ranges the wrapper checks.
+// Launch probe `which` over `tiles` tiles on `stream`: group32_sum,
+// reduce_while, cumsum_first and transpose as probe_tiles_kernel (at most
+// kTileBlocksPerSm blocks of 256 threads an SM), the others one block of 256
+// threads a tile.  Returns the CUDA error code of the launch (0 = ok), or -1
+// for an unknown probe.  Inputs must lie in the ranges the wrapper checks.
 extern "C" int probe_mosaic_launch(int which, const void* in0, const void* in1, void* out0,
                                    void* out1, int tiles, void* stream) {
   if (which < 0 || which > 14) return -1;
-  probe_kernel<<<tiles, kThreads, 0, (cudaStream_t)stream>>>(which, Args{in0, in1, out0, out1});
+  const Args args{in0, in1, out0, out1};
+  if (which == 6 || which == 8 || which == 10 || which == 11) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    const long long threads = (long long)tiles * (which == 11 ? kTransposed / 4 : 32);
+    const long long blocks = (threads + kThreads - 1) / kThreads;
+    const long long cap = (long long)sms * kTileBlocksPerSm;
+    probe_tiles_kernel<<<(int)(blocks < cap ? blocks : cap), kThreads, 0,
+                         (cudaStream_t)stream>>>(which, args, tiles);
+  } else {
+    probe_kernel<<<tiles, kThreads, 0, (cudaStream_t)stream>>>(which, args);
+  }
   return (int)cudaGetLastError();
 }

@@ -19,7 +19,17 @@ kernel's form (an MVT or CAPT structure alone is refused on the card:
 `supports` is false, and `planning/validate.py::fkcc_valid` takes the plain
 version there).  With a pointcloud the kernel's vmin is sign-exact, not
 value-exact: it stops at the first negative value and writes -1 for a
-certain hit; each launch on a pointcloud adds its work to `PC_WORK`.  A CUDA
+certain hit; each launch on a pointcloud adds its work to `PC_WORK`.  G
+lanes check a configuration together, so the counters count what the group
+did: the spheres gated G at a time (a group gates all G before it acts on a
+certain hit among them), and the chunk bounds and points of each round of G
+chunks that any lane of the group reached before one lane found a negative
+value; at G = 1 they equal the per-configuration counts of a serial scan.
+
+The launch shape, T threads a block and G lanes of a warp a configuration,
+comes from `fkcc_shape` (a pure function of the robot, the tables' sizes and
+B x N); each entry point takes `shape=(T, G)` or `(None, G)` to override it,
+and `LAST_LAUNCH` records the last launch's shape and occupancy.  A CUDA
 tensor launches the kernel; a CPU tensor takes the plain version
 (`fkcc_batched_plain` / `fkcc_vmin_plain`).  There is no fallback: a failed
 build, load or launch raises.
@@ -28,6 +38,8 @@ build, load or launch raises.
 from __future__ import annotations
 
 import ctypes
+import math
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -39,10 +51,8 @@ from vamp_mvt_tpu_torch.ops import smat
 from vamp_mvt_tpu_torch.ops.kernels import build
 from vamp_mvt_tpu_torch.robots.spec import PRISMATIC, REVOLUTE, RobotSpec
 
-# Shared memory one block may use on an H100 (227 KB).  fkcc's launcher sizes
-# its blocks itself (fkcc_device.cuh::env_floats, scratch_floats: the largest
-# of 128, 64, 32 threads that fits); the megakernels' shapes come from
-# choose_shape below.
+# Shared memory one block may use on an H100 (227 KB).  fkcc's launch shape
+# comes from fkcc_shape, the megakernels' from choose_shape (both below).
 MAX_SMEM = 232448
 
 # Kernel launches made by this process; callers reset it to 0 around a run.
@@ -51,7 +61,17 @@ LAUNCHES = 0
 # set it to None: (3,) int64 on the card (spheres gated, chunk bounds tested,
 # points evaluated).
 PC_WORK = None
+# The last launch's threads a block, lanes a configuration (group),
+# configurations a block, dynamic shared memory (bytes), the blocks and warps
+# the card keeps resident on one SM, the kernel's registers a thread, and
+# the blocks and waves over the card's SMs.
+LAST_LAUNCH: dict = {}
 _LIB = None
+_SHAPES: dict = {}
+# The packed table arguments of the last few Environments launched on
+# (_table_pack), most recent last, each with the Environment it describes.
+_PACKS: OrderedDict = OrderedDict()
+_PACK_ENTRIES = 8
 _TABLES: dict = {}
 _HOST_TABLES: dict = {}
 
@@ -66,14 +86,10 @@ def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = build.library("fkcc")
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fkcc_launch.argtypes = [
-            *ENV_ARGTYPES,                        # env tables, rows, batched
-            P, L, L, L, I, I,                     # q, strides, B, N
-            *ROBOT_ARGTYPES,                      # frame, sphere, pair tables
-            P, P, P,                              # validity, vmin, work outputs
-            I, P,                                 # max shared memory, stream
-        ]
+        L = ctypes.POINTER(ctypes.c_longlong)
+        # the table arguments (ENV_ARGTYPES then ROBOT_ARGTYPES, as 64-bit
+        # integers), the call's (_CALL), the launch info out
+        lib.fkcc_launch.argtypes = [L, L, ctypes.POINTER(ctypes.c_int)]
         lib.fkcc_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -295,8 +311,9 @@ def tally_pc_work(total, work: torch.Tensor):
 
 # What one H100 SM holds (CUDA occupancy rules for sm_90): shared memory for
 # its blocks, of which each block also takes 1 KB for the system, 64K
-# registers, 2048 threads and 32 blocks.  The megakernels are built with
+# registers, 2048 threads and 32 blocks.  All three kernels are built with
 # __launch_bounds__(512, 1), so a thread has at most 128 registers.
+SMS = 132
 SM_SMEM = 233472
 BLOCK_SMEM_RESERVED = 1024
 SM_REGISTERS = 65536
@@ -330,7 +347,7 @@ def table_floats(spec: RobotSpec, envs: Environment, G: int) -> dict:
 
 def blocks_per_sm(T: int, smem_bytes: int, static_bytes: int) -> int:
     """Blocks of T threads with this shared memory that one SM keeps
-    resident, at the megakernels' register cap."""
+    resident, at the kernels' register cap."""
     by_smem = SM_SMEM // (smem_bytes + static_bytes + BLOCK_SMEM_RESERVED)
     by_regs = SM_REGISTERS // (MEGA_MAX_REGISTERS * T)
     return min(by_smem, by_regs, SM_THREADS // T, SM_BLOCKS)
@@ -368,6 +385,149 @@ def choose_shape(smem_bytes, static_bytes: int, max_smem: int, points: int,
                                      -points * c["group"] // c["threads"], c["group"]))
 
 
+# ---------------------------------------------------------------------------
+# fkcc's launch shape, sized to the launch's B x N
+# ---------------------------------------------------------------------------
+
+# Spheres and pairs a lane takes at a time (fkcc_device.cuh::kUnroll).
+UNROLL = 4
+# The largest block fkcc_shape picks, and on a pointcloud.  The kernel runs
+# blocks of up to 512 threads (the override and the sweeps take them), but
+# in bench/time_fkcc.py's sweep on the H100 no case ran fastest at 512: one
+# block an SM leaves it idle while the block's last groups drain and the
+# next block loads its tables, where two blocks of 256 overlap (700 x 1024
+# primitives: 1.72 ms at (256, 4), 1.86 at (512, 4)).  A pointcloud's chunk
+# scans end early or late by configuration, and its blocks of 128 came out
+# 7% ahead of 256 (64 clouds x 1024: 2.16 ms at (128, 8), 2.31 at (256, 8)).
+FKCC_MAX_PICK = 256
+FKCC_PC_MAX_PICK = 128
+# The fewest blocks fkcc_shape lets a launch run on, where it has that many
+# configurations: one problem of 64 checked 16 blocks of 128 threads in
+# 0.0207 ms, 8 blocks of 256 in 0.0219 (the same sweep).
+FKCC_MIN_BLOCKS = 16
+# The cost model of fkcc_shape, in SM cycles (see there), fitted to that
+# sweep's device times over its fourteen cases (each case's pick within 5%
+# of its fastest shape): a warp's cycles per operation
+# of one lane while the SM has issue slots to spare, the warp instructions
+# an SM issues a cycle once its warps contend, the contention's growth with
+# log2(G) (a group's lanes read its one scratch at scattered addresses),
+# and a thread's cycles per table float it copies into shared memory.
+CYCLES_PER_OP = 3
+ISSUE_PER_CYCLE = 6
+CONTENTION_PER_LOG2_G = 0.1
+CYCLES_PER_LOAD = 50
+
+
+def fk_ops(spec: RobotSpec) -> int:
+    """FP32 operations of one configuration's FK (all three rows of every
+    frame's pose; sin and cos count as one operation each)."""
+    fk = 0
+    for f in spec.frames:
+        if f.parent >= 0:
+            fk += 45 + 18  # R = Rp @ C; t = Rp @ xyz + tp
+        if f.joint_type == REVOLUTE:
+            fk += 2 + 36 + 45  # sin, cos; Rodrigues; R @ Q
+        elif f.joint_type == PRISMATIC:
+            fk += 21
+    return fk
+
+
+def lane_ops(spec: RobotSpec, envs: Environment, G: int) -> int:
+    """FP32 operations that one lane of a group of G does for one
+    configuration in config_vmin_group (csrc/fkcc_device.cuh), with every
+    row of the shape tables counted live (the chooser reads nothing back
+    from the card): FK by rows (3 rows over min(G, 3) lanes), the spheres
+    and pairs UNROLL at a time (a lane's last round padded to UNROLL), the
+    payload checks and heightfields split by index, the min over the
+    group.  The pointcloud branch depends on the data and is not counted."""
+    A = 0 if envs.attachment is None else envs.attachment.spheres.shape[-2]
+    nh = envs.hf_meta.shape[1]
+    S, P, SA = spec.n_spheres, len(spec.self_collision_pairs), spec.n_spheres + A
+    per_sphere = 18 + sum(OPS_PER_ROW[n] * getattr(envs, n).shape[1] for n in TABLES)
+    rounds = lambda n: math.ceil(n / (G * UNROLL)) * UNROLL  # noqa: E731
+    return (fk_ops(spec) * math.ceil(3 / G) // 3 + 2 * math.ceil(spec.dimension / G)
+            + rounds(SA) * per_sphere + rounds(P) * OPS_PER_PAIR
+            + math.ceil(A * len(spec.attachment_check_spheres) / G) * OPS_PER_ATT_CHECK
+            + math.ceil(SA / G) * nh * OPS_PER_HF + int(math.log2(G)))
+
+
+def _table_key(envs: Environment) -> tuple:
+    return (tuple(getattr(envs, n).shape[1] for n in TABLES),
+            None if envs.attachment is None else envs.attachment.spheres.shape[-2],
+            envs.hf_meta.shape[1], envs.pck is not None)
+
+
+def fkcc_shape(spec: RobotSpec, envs: Environment, B: int, N: int, shape=None) -> dict:
+    """The fkcc kernel's launch shape for B problems of N configurations:
+    T threads a block (MEGA_THREADS) and G lanes a configuration
+    (MEGA_GROUPS), T / G configurations a block, one problem a block.
+
+    Of the shapes of at most FKCC_MAX_PICK threads (FKCC_PC_MAX_PICK on a
+    pointcloud) whose shared memory (the problem's rows, the robot tables
+    and T / G group scratches: `table_floats`, mirrored from
+    csrc/fkcc_device.cuh) fits MAX_SMEM and which hold no more
+    configurations a block than N rounded up to a power of two and run at
+    least min(FKCC_MIN_BLOCKS, B N) blocks, take G at least
+    MEGA_PC_MIN_GROUP on a pointcloud where one fits, then the least
+    estimated time, then the most blocks (more SMs), then the fewest lanes.
+    The estimate, in SM cycles: waves x a lane's operations (`lane_ops`) x
+    max(CYCLES_PER_OP, W / ISSUE_PER_CYCLE x (1 + CONTENTION_PER_LOG2_G x
+    log2 G)) + the table floats a thread copies x CYCLES_PER_LOAD, where
+    waves = the blocks over SMS x the blocks an SM keeps resident
+    (`blocks_per_sm`) and W = the warps on a busy SM.  So a launch of a few
+    configurations spreads each over many lanes (a lane's share of a check
+    shrinks with G), and a large one keeps many configurations resident on
+    few lanes each (a group's scratch is paid once; its idle FK lanes,
+    padded rounds and scattered scratch reads grow with G).
+
+    `shape` = (T, G) takes that shape instead, if it fits, and (None, G) the
+    best T for that G.  Returns threads, group, configs_per_block,
+    smem_bytes, blocks_per_sm, warps_per_sm, blocks and waves; raises
+    ValueError when no shape fits."""
+    key = (id(spec), _table_key(envs), B, N, None if shape is None else tuple(shape))
+    hit = _SHAPES.get(key)
+    if hit is not None:
+        return dict(hit[1])
+    min_group = MEGA_PC_MIN_GROUP if envs.pck is not None else 1
+    pick = FKCC_PC_MAX_PICK if envs.pck is not None else FKCC_MAX_PICK
+    cap = 1 << max(N - 1, 0).bit_length()  # N rounded up to a power of two
+    cands = []
+    for G in MEGA_GROUPS:
+        if shape is not None and G != shape[1]:
+            continue
+        tab = table_floats(spec, envs, G)
+        ops = lane_ops(spec, envs, G)
+        for T in MEGA_THREADS:
+            per = T // G
+            if G > T or (shape is None and (per > cap or T > pick)) or (
+                    shape is not None and shape[0] not in (None, T)):
+                continue
+            nbytes = 4 * (tab["env"] + tab["robot"] + tab["group"] * per)
+            if nbytes > MAX_SMEM:
+                continue
+            bps = blocks_per_sm(T, nbytes, 0)
+            blocks = B * -(-N // per)
+            if shape is None and blocks < min(FKCC_MIN_BLOCKS, B * N):
+                continue
+            waves = -(-blocks // (SMS * bps))
+            busy = min(bps, -(-blocks // SMS)) * T // 32
+            contend = busy / ISSUE_PER_CYCLE * (1 + CONTENTION_PER_LOG2_G * math.log2(G))
+            est = (waves * ops * max(CYCLES_PER_OP, contend)
+                   + (tab["env"] + tab["robot"]) / T * CYCLES_PER_LOAD)
+            cands.append(dict(threads=T, group=G, configs_per_block=per, smem_bytes=nbytes,
+                              blocks_per_sm=bps, warps_per_sm=bps * T // 32, blocks=blocks,
+                              waves=waves, est_cycles=est))
+    if not cands:
+        raise ValueError("fkcc: no launch shape fits" if shape is None
+                         else f"fkcc: launch shape {tuple(shape)} does not fit")
+    best = min(cands, key=lambda c: (c["group"] < min_group, c["est_cycles"], -c["blocks"],
+                                     c["group"]))
+    if len(_SHAPES) > 4096:
+        _SHAPES.clear()
+    _SHAPES[key] = (spec, best)  # spec pins the id
+    return dict(best)
+
+
 def phase_split(work: torch.Tensor, first: int, names) -> dict:
     """The phase clocks of a megakernel launch, columns `first..` of its
     `work` (B, first + len(names)): each phase's cycles summed over the
@@ -378,48 +538,93 @@ def phase_split(work: torch.Tensor, first: int, names) -> dict:
             "share": {n: (c / total if total else 0.0) for n, c in zip(names, cyc)}}
 
 
-def _launch(spec, envs, q, q_strides, B, N, want_vmin):
+def _leaves(envs: Environment) -> list:
+    out = [getattr(envs, n) for n in TABLES] + [envs.hf_meta, envs.hf_data]
+    for part in (envs.attachment, envs.pck):
+        if part is not None:
+            out += list(part)
+    return out
+
+
+def _table_pack(spec: RobotSpec, envs: Environment, q: torch.Tensor, B: int):
+    """fkcc_launch's table arguments for `envs` (`table_args`, as 64-bit
+    integers) and the tensors they point into, after `_check_inputs`.  A
+    launch on the same Environment object, device and batch, none of whose
+    tensors has changed in place since, reuses them: the lockstep planner and
+    the roadmap planners launch on one Environment hundreds of times, and
+    deriving its payload rows costs more host time than the launch itself.
+    The last _PACK_ENTRIES packs are kept, each holding its Environment;
+    tables that table_args had to copy (not contiguous) are packed anew at
+    every launch."""
+    leaves = _leaves(envs)
+    key = (id(envs), id(spec), q.device, B, tuple(t._version for t in leaves))
+    pack = _PACKS.get(key)
+    if pack is not None:
+        _PACKS.move_to_end(key)
+        return pack[1:]
+    _check_inputs(spec, envs, q, B)
+    env, robot, keep = table_args(spec, envs, q.device)
+    vals = [0 if v is None else int(v) for v in env + robot]
+    tab = (ctypes.c_longlong * len(vals))(*vals)
+    if all(t.is_contiguous() for t in leaves):
+        _PACKS[key] = (envs, tab, keep)  # envs pins the id, keep the derived tables
+        while len(_PACKS) > _PACK_ENTRIES:
+            _PACKS.popitem(last=False)
+    return tab, keep
+
+
+def _launch(spec, envs, q, q_strides, B, N, want_vmin, shape=None):
     global LAUNCHES, PC_WORK
     if not q.is_cuda:
         raise ValueError("fkcc kernel launch needs CUDA tensors")
-    _check_inputs(spec, envs, q, B)
+    if q.dtype != torch.float32:
+        raise TypeError(f"fkcc: q must be float32, got {q.dtype}")
     if B > 65535:
         raise ValueError(f"fkcc: batch {B} exceeds the grid's 65535 problems")
-    valid =torch.empty((B, N), dtype=torch.int8, device=q.device)
+    tab, _keep = _table_pack(spec, envs, q, B)
+    valid = torch.empty((B, N), dtype=torch.int8, device=q.device)
     vmin = torch.empty((B, N), dtype=torch.float32, device=q.device) if want_vmin else None
     has_pc = envs.pck is not None
     work = torch.zeros((B, 3), dtype=torch.int64, device=q.device) if has_pc else None
     if N == 0:
         return valid, vmin
+    ls = fkcc_shape(spec, envs, B, N, shape)
     lib = library()
-    env, robot, _keep = table_args(spec, envs, q.device)
-    err = lib.fkcc_launch(
-        *env, q.data_ptr(), *q_strides, B, N, *robot, valid.data_ptr(), _ptr(vmin),
-        _ptr(work), MAX_SMEM, torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    call = (ctypes.c_longlong * 14)(
+        q.data_ptr(), *q_strides, B, N, spec.dimension, valid.data_ptr(), _ptr(vmin) or 0,
+        _ptr(work) or 0, ls["threads"], ls["group"], MAX_SMEM, build.stream_handle(q.device))
+    info = (ctypes.c_int * 3)()
+    err = lib.fkcc_launch(tab, call, info)
     if err == -1:
-        raise ValueError(f"fkcc: {spec.name} with these tables does not fit a block's "
-                         f"{MAX_SMEM} bytes of shared memory")
+        raise ValueError(f"fkcc: launch shape {ls} refused by the kernel")
     if err != 0:
         raise RuntimeError(f"fkcc kernel launch failed with CUDA error {err}")
+    if info[0] != ls["smem_bytes"]:
+        raise RuntimeError(f"fkcc: the kernel's layout takes {info[0]} bytes, "
+                           f"table_floats mirrors {ls['smem_bytes']}")
     LAUNCHES += 1
     if has_pc:
         PC_WORK = tally_pc_work(PC_WORK, work)
+    LAST_LAUNCH.update(threads=ls["threads"], group=ls["group"],
+                       configs_per_block=ls["configs_per_block"], smem_bytes=info[0],
+                       blocks_per_sm=info[1], warps_per_sm=info[1] * ls["threads"] // 32,
+                       registers=info[2], blocks=ls["blocks"],
+                       waves=-(-ls["blocks"] // (SMS * max(info[1], 1))))
     return valid, vmin
 
 
-def _kernel(spec, envs, q, want_vmin):
+def _kernel(spec, envs, q, want_vmin, shape=None):
     """q (B, N, d) -> int8 validity (B, N) and optionally vmin."""
     q = q.contiguous()
     B, N, d = q.shape
-    return _launch(spec, envs, q, (N * d, 1, d), B, N, want_vmin)
+    return _launch(spec, envs, q, (N * d, 1, d), B, N, want_vmin, shape)
 
 
-def _kernel_lanes(spec, envs, q_d, want_vmin):
+def _kernel_lanes(spec, envs, q_d, want_vmin, shape=None):
     """q_d (B, d, N) -> int8 validity (B, N) and optionally vmin."""
     q_d = q_d.contiguous()
     B, d, N = q_d.shape
-    return _launch(spec, envs, q_d, (d * N, N, 1), B, N, want_vmin)
+    return _launch(spec, envs, q_d, (d * N, N, 1), B, N, want_vmin, shape)
 
 
 # ---------------------------------------------------------------------------
@@ -457,29 +662,32 @@ def fkcc_batched_plain(spec: RobotSpec, envs: Environment, q: torch.Tensor) -> t
 # ---------------------------------------------------------------------------
 
 
-def fkcc_batched(spec: RobotSpec, envs: Environment, q: torch.Tensor) -> torch.Tensor:
+def fkcc_batched(spec: RobotSpec, envs: Environment, q: torch.Tensor,
+                 shape=None) -> torch.Tensor:
     """q (B, ..., d) with per-problem envs -> (B, ...) bool validity."""
     B, inner = q.shape[0], q.shape[1:-1]
     qf = q.reshape(B, -1, spec.dimension)
     if qf.is_cuda:
-        out = _kernel(spec, envs, qf, False)[0].bool()
+        out = _kernel(spec, envs, qf, False, shape)[0].bool()
     else:
         out = fkcc_batched_plain(spec, envs, qf)
     return out.reshape((B,) + tuple(inner))
 
 
-def fkcc_batched_lanes(spec: RobotSpec, envs: Environment, q_d: torch.Tensor) -> torch.Tensor:
+def fkcc_batched_lanes(spec: RobotSpec, envs: Environment, q_d: torch.Tensor,
+                       shape=None) -> torch.Tensor:
     """Lanes layout: q_d (B, d, N) -> (B, N) bool validity."""
     if q_d.is_cuda:
-        return _kernel_lanes(spec, envs, q_d, False)[0].bool()
+        return _kernel_lanes(spec, envs, q_d, False, shape)[0].bool()
     return fkcc_batched_plain(spec, envs, q_d.transpose(1, 2))
 
 
-def fkcc_vmin(spec: RobotSpec, envs: Environment, q: torch.Tensor) -> torch.Tensor:
+def fkcc_vmin(spec: RobotSpec, envs: Environment, q: torch.Tensor,
+              shape=None) -> torch.Tensor:
     """q (B, N, d) -> (B, N) float32 minimum signed value (valid iff >= 0;
     with a pointcloud the kernel's value is sign-exact only)."""
     if q.is_cuda:
-        return _kernel(spec, envs, q, True)[1]
+        return _kernel(spec, envs, q, True, shape)[1]
     return fkcc_vmin_plain(spec, envs, q)
 
 
@@ -524,15 +732,7 @@ def ops_per_config(spec: RobotSpec, live: dict[str, np.ndarray], n_attach=0,
     counts (arrays of shape (B,)), its live payload spheres (an int, or an
     array of shape (B,)) and its heightfields (those outside the pointcloud
     branch); shared by all three kernels."""
-    fk = 0
-    for f in spec.frames:
-        if f.parent >= 0:
-            fk += 45 + 18  # R = Rp @ C; t = Rp @ xyz + tp
-        if f.joint_type == REVOLUTE:
-            fk += 2 + 36 + 45  # sin, cos; Rodrigues; R @ Q
-        elif f.joint_type == PRISMATIC:
-            fk += 21
-    fk += 18 * spec.n_spheres + OPS_PER_PAIR * len(spec.self_collision_pairs) + 1
+    fk = fk_ops(spec) + 18 * spec.n_spheres + OPS_PER_PAIR * len(spec.self_collision_pairs) + 1
     fk += n_attach * (OPS_PER_POSE + OPS_PER_ATT_CHECK * len(spec.attachment_check_spheres))
     fk += (spec.n_spheres + n_attach) * n_heightfields * OPS_PER_HF
     return fk + sum(

@@ -180,7 +180,7 @@ def plan(spec: RobotSpec, envs: Environment, ctl: torch.Tensor, nodes0: torch.Te
         *env, *robot, ip.ctypes.data, fp.ctypes.data, ctl.data_ptr(), nodes0.data_ptr(),
         nodes.data_ptr(), path.data_ptr(), scal.data_ptr(), work.data_ptr(),
         ls["threads"], ls["group"], fkcc_cuda.MAX_SMEM - _STATIC_SMEM, info,
-        torch.cuda.current_stream(dev).cuda_stream,
+        build.stream_handle(dev),
     )
     if err == -1:
         raise ValueError(f"rrtc_mega: launch shape {ls} refused by the kernel")

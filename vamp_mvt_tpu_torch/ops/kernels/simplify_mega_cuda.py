@@ -131,7 +131,7 @@ def simplify(spec: RobotSpec, envs: Environment, paths: torch.Tensor,
         *env, *robot, ip.ctypes.data, fp.ctypes.data, paths.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), scal.data_ptr(), work.data_ptr(),
         ls["threads"], ls["group"], fkcc_cuda.MAX_SMEM - _STATIC_SMEM, info,
-        torch.cuda.current_stream(dev).cuda_stream,
+        build.stream_handle(dev),
     )
     if err == -1:
         raise ValueError(f"simplify_mega: launch shape {ls} refused by the kernel")

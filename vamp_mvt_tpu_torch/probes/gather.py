@@ -26,6 +26,8 @@ import ctypes
 import numpy as np
 import torch
 
+from vamp_mvt_tpu_torch.ops.kernels import build
+
 PROBES = ("lane", "row", "bits", "two_level", "sublane", "timing")
 _TABLE_ROWS = {"lane": 8, "row": 1, "bits": 1, "two_level": 16, "sublane": 8, "timing": 1}
 _IDX_RANGE = {"lane": 128, "row": 128, "bits": 128 * 32, "two_level": 16, "sublane": 8,
@@ -40,8 +42,6 @@ _LIB = None
 def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        from vamp_mvt_tpu_torch.ops.kernels import build
-
         lib = build.library("probe_gather")
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.probe_gather_launch.argtypes = [I, P, P, P, P, I, P]
@@ -147,7 +147,7 @@ def launch(name: str, table: torch.Tensor, idx: torch.Tensor, idx2=None) -> torc
     err = library().probe_gather_launch(
         PROBES.index(name), table.data_ptr(), idx.data_ptr(),
         None if idx2 is None else idx2.data_ptr(), out.data_ptr(), idx.shape[0],
-        torch.cuda.current_stream(idx.device).cuda_stream)
+        build.stream_handle(idx.device))
     if err != 0:
         raise RuntimeError(f"probe_gather kernel launch failed with error {err}")
     LAUNCHES += 1

@@ -4,7 +4,9 @@ their plain versions.
 Port of the TPU probes `tools/probe_mosaic.py` (P2, eight probes) and
 `tools/probe_mosaic2.py` (P3, seven), which tested which constructs Mosaic
 compiles for the planner megakernel.  Each probe computes its TPU probe's
-function over a leading axis of tiles (one CUDA block a tile).  Tile 0 holds
+function over a leading axis of tiles (one CUDA block a tile; group32_sum,
+reduce_while, cumsum_first and transpose: one warp a tile, or a thread a
+16-byte piece, in a grid that strides over the tiles).  Tile 0 holds
 the TPU probe's own input, so its outputs equal the constants the probe file
 asserts (`tile0_ok`); the other tiles are seeded.
 
@@ -64,6 +66,7 @@ import ctypes
 import numpy as np
 import torch
 
+from vamp_mvt_tpu_torch.ops.kernels import build
 from vamp_mvt_tpu_torch.planning.validate import sum_last
 
 PROBES = ("while_carry", "dyn_sublane", "smem_writes", "dot_argmin", "nested_loops",
@@ -91,6 +94,7 @@ _OUTPUTS = {
     "static_reads": ((I32, (2,)),), "dyn_rows_while": ((F32, (16, 128)), (I32, ())),
     "smem_int_out": ((I32, (1, 512)),),
 }
+_INDEX = {name: i for i, name in enumerate(PROBES)}
 NONE = 10**9                # cumsum_first's "no third 1"
 INV_HALTON = np.float32(1.0 / 3**8)
 
@@ -102,8 +106,6 @@ _LIB = None
 def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        from vamp_mvt_tpu_torch.ops.kernels import build
-
         lib = build.library("probe_mosaic")
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.probe_mosaic_launch.argtypes = [I, P, P, P, P, I, P]
@@ -437,18 +439,19 @@ def run(name: str, *ins: torch.Tensor) -> tuple[torch.Tensor, ...]:
 def launch(name: str, *ins: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """Launch the kernel of probe `name` on CUDA tensors that `run` has
     checked (the range check reads inputs back to the host, so timing loops
-    call this)."""
+    call this).  Kept to the few host calls a launch needs: its host time is
+    most of a probe's time at 4096 tiles."""
     global LAUNCHES
-    ins = tuple(t.contiguous() for t in ins)
-    n, dev = ins[0].shape[0], ins[0].device
-    outs = tuple(torch.empty((n,) + shape, dtype=dtype, device=dev)
-                 for dtype, shape in _OUTPUTS[name])
+    ins = [t if t.is_contiguous() else t.contiguous() for t in ins]
+    x = ins[0]
+    n = x.shape[0]
+    outs = tuple(x.new_empty((n,) + shape, dtype=dtype) for dtype, shape in _OUTPUTS[name])
     if n == 0:
         return outs
-    ptrs = [t.data_ptr() for t in ins] + [None] * (2 - len(ins))
-    optrs = [t.data_ptr() for t in outs] + [None] * (2 - len(outs))
-    err = library().probe_mosaic_launch(PROBES.index(name), *ptrs, *optrs, n,
-                                        torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = ([t.data_ptr() for t in ins] + [None] * (2 - len(ins))
+            + [t.data_ptr() for t in outs] + [None] * (2 - len(outs)))
+    err = (_LIB or library()).probe_mosaic_launch(_INDEX[name], *ptrs, n,
+                                                  build.stream_handle(x.device))
     if err != 0:
         raise RuntimeError(f"probe_mosaic kernel launch failed with error {err}")
     LAUNCHES += 1
