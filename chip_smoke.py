@@ -142,6 +142,18 @@ or an exception exits non-zero):
                  largest size, one FCIT edge; each against its plain
                  version (no validity mismatch outside the contact and cell
                  bands), with its time, bound and launch shape
+  aorrtc         panda.aorrtc at the API's defaults on the card from VAMP's
+                 start A to goal B in the sphere cage: every returned segment
+                 revalidated by the plain version, the cost against the
+                 initial plan's and the straight line, ms, fkcc launches (in
+                 all and in its AOX searches) and host syncs; bench/aorrtc.py's
+                 solve_batch on AORRTC_PROBLEMS cages (per-round median cost,
+                 wall); a REDUCE + SHORTCUT + PERTURB + BSPLINE pass on
+                 REDUCE_PATHS cage paths on the card, the first
+                 REDUCE_CPU_CHECK repeated on the CPU; fkcc at the
+                 AOX step's (1 x 40), a solve_batch round's (32 x 40) and a
+                 REDUCE pass's (64 x 440) launch shapes against its plain
+                 version, with its time, device time and bound
   bench          the port's bench entry (python -m vamp_mvt_tpu_torch.bench)
                  in this process on the 700 cages: its JSON line
 
@@ -158,7 +170,9 @@ then the kernels line (the pointcloud, attachment and heightfield branches of
 each kernel, the megakernels on each other robot and fkcc on the PRM and
 FCIT paths as rows of their own, with the launches of the path that runs
 them; fkcc's attachment and heightfield rows at the API's step; the probes'
-rows with the launches of their entry point) and, last, {"ok": true, "device": {...}}.  The script imports nothing of JAX or of the JAX package.  Without a
+rows with the launches of their entry point; fkcc at the AORRTC shapes with
+the launches of panda.aorrtc's AOX searches, of solve_batch's and of the
+REDUCE/PERTURB pass) and, last, {"ok": true, "device": {...}}.  The script imports nothing of JAX or of the JAX package.  Without a
 GPU it exits 1.
 """
 
@@ -200,6 +214,10 @@ ROBOT_SCENES = 256     # problems of suite_robots, per robot: scenes with two va
 ROBOT_POOL = 2048      # MBM-shaped scenes drawn for them (placed for the Panda, most block Fetch)
 ROBOTS_CHECK = 64      # of their problems, the megakernels are compared on
 UNSOLVED_LISTED = 8    # of their unsolved problems, listed (scene row, start, goal)
+AORRTC_PROBLEMS = 32   # cages of bench/aorrtc.py's solve_batch
+AORRTC_BATCH_ITERATIONS = 32768  # its anytime budget (bench/aorrtc.py's default)
+REDUCE_PATHS = 64      # cage paths of the REDUCE + SHORTCUT + PERTURB + BSPLINE pass
+REDUCE_CPU_CHECK = 8   # of them, the CPU repeats (its plain SHORTCUT takes ~10 s a path)
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -1419,6 +1437,158 @@ def api_planners_phase(dev):
                "ms_of": "PRM's largest edge wave, one launch"}), calls
 
 
+class LaunchTally:
+    """Counts the fkcc launches made inside calls of `mod.name` (and the
+    calls), passing every call through."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name, self.real = mod, name, getattr(mod, name)
+        self.launches = self.calls = 0
+
+    def __enter__(self):
+        from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
+
+        def counted(*args, **kw):
+            before = fkcc_cuda.LAUNCHES
+            try:
+                return self.real(*args, **kw)
+            finally:
+                self.calls += 1
+                self.launches += fkcc_cuda.LAUNCHES - before
+
+        setattr(self.mod, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+
+
+def aorrtc_phase(dev):
+    """This slice's path: panda.aorrtc at the API's defaults on the card from
+    VAMP's start A to goal B in the sphere cage (ms, fkcc launches in all and
+    in its AOX searches, host syncs; the cost against the initial plan's and
+    the straight line; every segment revalidated by the plain version);
+    `bench/aorrtc.py`'s solve_batch on AORRTC_PROBLEMS cages (the per-round
+    median cost and the wall); a REDUCE + SHORTCUT + PERTURB + BSPLINE pass
+    on REDUCE_PATHS cage paths, the first REDUCE_CPU_CHECK against the CPU;
+    fkcc at the AOX step's
+    and the REDUCE pass's launch shapes against its plain version.  Returns
+    the kernels line's fkcc rows."""
+    import numpy as np
+    import torch
+
+    import vamp_mvt_tpu_torch as vmt
+    from vamp_mvt_tpu_torch.bench import aorrtc as bench_aorrtc
+    from vamp_mvt_tpu_torch.bench import mbm, time_fkcc
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
+    from vamp_mvt_tpu_torch.planning import aox, rrtc_mega, simplify
+
+    env = vmt.Environment()
+    for c in mbm.CAGE_CENTERS:
+        env.add_sphere(vmt.Sphere(c, mbm.CAGE_RADIUS))
+    A, B = mbm.PANDA_START, mbm.PANDA_GOAL
+    spec = vmt.panda.spec
+    envs1 = env.build(dev).map(lambda t: t[None])
+
+    # --- the main path of this slice: panda.aorrtc at the API's defaults
+    first = vmt.panda.rrtc(A, B, env)   # the initial plan panda.aorrtc starts from
+    fkcc_cuda.LAUNCHES = 0
+    aox.HOST_SYNCS = 0
+    with LaunchTally(aox, "solve_batch") as tally:
+        t0 = time.perf_counter()
+        res = vmt.panda.aorrtc(A, B, env)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    L = int(res.path_length)
+    ok = paths_revalidate_plain(spec, envs1, res.path[None], [L])
+    straight = float(np.linalg.norm(np.subtract(B, A)))
+    api = {"ms": ms, "fkcc_launches": fkcc_cuda.LAUNCHES, "aox_searches": tally.calls,
+           "aox_fkcc_launches": tally.launches, "host_syncs": aox.HOST_SYNCS,
+           "cost": float(res.cost), "initial_cost": float(first.cost), "straight_line": straight,
+           "path_vertices": L, "revalidated_plain": bool(ok[0]),
+           "settings": "the API's defaults (AORRTCSettings(rrtc=default_rrtc_settings()))"}
+    check(L >= 2 and bool(ok[0]), "every segment of panda.aorrtc's path revalidates (plain)")
+    check(fkcc_cuda.LAUNCHES > 0 and tally.launches > 0,
+          "panda.aorrtc launched the fkcc kernel, its AOX searches too")
+    check(float(res.cost) <= float(first.cost) + 1e-5,
+          "panda.aorrtc's cost is no worse than the initial plan's")
+    check(float(res.cost) >= straight - 1e-4, "panda.aorrtc's cost is at least the straight line")
+
+    # --- bench/aorrtc.py's solve_batch on the cages
+    with LaunchTally(aox, "solve_batch") as tally:
+        batch = bench_aorrtc.run(AORRTC_PROBLEMS, dev, AORRTC_BATCH_ITERATIONS)
+    batch |= {"aox_searches": tally.calls, "aox_fkcc_launches": tally.launches}
+    check(batch["solved"] == batch["valid"] == AORRTC_PROBLEMS, "solve_batch solves every cage")
+    costs = [r["median_cost"] for r in batch["rounds"]]
+    check(all(b <= a + 1e-5 for a, b in zip(costs, costs[1:])),
+          "solve_batch's median cost never rises")
+
+    # --- REDUCE + SHORTCUT + PERTURB + BSPLINE on cage paths, card against CPU
+    c_envs, c_st, c_gl, c_mk = mbm.build_batch(mbm.cage_suite(REDUCE_PATHS)["problems"]["cage"],
+                                               device=dev)
+    plan = rrtc_mega.plan_batch_mega(spec, c_envs, c_st, c_gl, c_mk,
+                                     mbm.default_settings("panda", "mega"), device=dev)
+    check(bool(plan.solved.all()), "the cage paths for the simplifier pass are solved")
+    ss = simplify.SimplifySettings(operations=("reduce", "shortcut", "perturb", "bspline"))
+    keys = simplify.default_keys(REDUCE_PATHS, dev)
+    fkcc_cuda.LAUNCHES = 0
+    with LaunchTally(simplify, "_reduce") as red, LaunchTally(simplify, "_perturb") as per:
+        t0 = time.perf_counter()
+        card = simplify.simplify_batch(spec, c_envs, plan.path, plan.path_length, ss, keys)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+    pass_launches = fkcc_cuda.LAUNCHES
+    # the CPU repeats the first paths with their keys: a problem's pass does
+    # not depend on the others in its batch
+    n = REDUCE_CPU_CHECK
+    t0 = time.perf_counter()
+    cpu = simplify.simplify_batch(spec, c_envs.map(lambda t: t[:n]).to("cpu"),
+                                  plan.path[:n].cpu(), plan.path_length[:n].cpu(), ss,
+                                  keys[:n].cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    same_len = card.path_length[:n].cpu() == cpu.path_length
+    path_err = float((card.path[:n].cpu() - cpu.path).abs().max())
+    ok = paths_revalidate_plain(spec, c_envs, card.path, card.path_length.cpu())
+    passes = {"paths": REDUCE_PATHS, "cpu_paths": n, "ops": list(ss.operations),
+              "card_ms": card_ms, "cpu_ms": cpu_ms, "fkcc_launches": pass_launches,
+              "reduce_fkcc_launches": red.launches, "perturb_fkcc_launches": per.launches,
+              "equal_length_share": float(same_len.float().mean()),
+              "max_abs_path_diff": path_err,
+              "median_cost_card": median(card.cost), "median_cost_cpu_paths": median(cpu.cost),
+              "median_cost_planned": median(plan.cost), "revalidated_plain": int(ok.sum())}
+    check(bool(same_len.all()) and path_err <= 1e-4,
+          "REDUCE/PERTURB on the card equal the CPU's")
+    check(bool(ok.all()), "every simplified cage path revalidates (plain)")
+
+    # --- fkcc at the AORRTC path's launch shapes against its plain version
+    cases = time_fkcc.path_cases(dev, ("aox_step", "aox_batch", "simplify_reduce"))
+    held = {}
+    for name, (cspec, cenvs, q, layout) in cases.items():
+        qr = q if layout == "rows" else q.transpose(1, 2).contiguous()
+        held[name] = branch_kernel(cspec, cenvs, qr, layout)[0]
+        held[name]["device_ms"] = time_fkcc.graph_ms(time_fkcc.launcher(cspec, cenvs, q, layout))
+        check(held[name]["mismatches_outside_bands"] == 0,
+              f"fkcc agrees with plain outside the contact band at the {name} shape")
+    emit({"phase": "aorrtc", "api": api, "solve_batch": batch, "simplify_pass": passes,
+          "fkcc_cases": held})
+    rows = []
+    for name, case, launches, of in (
+            ("fkcc_aox", "aox_step", api["aox_fkcc_launches"],
+             "the AOX searches of one panda.aorrtc call"),
+            ("fkcc_aox_batch", "aox_batch", batch["aox_fkcc_launches"],
+             f"the AOX searches of solve_batch on {AORRTC_PROBLEMS} cages"),
+            ("fkcc_reduce", "simplify_reduce", red.launches + per.launches,
+             f"REDUCE and PERTURB of one pass over {REDUCE_PATHS} cage paths")):
+        r = held[case]
+        rows.append(row("fkcc", r["kernel_ms"], r["plain_ms"], r, r["max_abs_err"], launches)
+                    | {"name": name, "replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
+                       "occupancy": r["occupancy"], "device_ms": r["device_ms"],
+                       "launches_of": of,
+                       "ms_of": f"one launch at {case}'s shape ({r['problems']} x "
+                                f"{r['configs_per_problem']}, {r['layout']})"})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1937,7 +2107,10 @@ def main() -> int:
     path_rows, path_lines = fkcc_paths_phase(dev, api_launches, planner_calls, batches)
     prm_row["sample_wave_ms"] = path_lines["prm_samples"]["kernel_ms"]
 
-    # --- bench: the port's bench entry on its default source (this slice) --
+    # --- AORRTC, REDUCE and PERTURB (this slice) ---------------------------
+    aorrtc_rows = aorrtc_phase(dev)
+
+    # --- bench: the port's bench entry on its default source ----------------
     bench_phase()
 
     emit({"kernels": [
@@ -1984,6 +2157,7 @@ def main() -> int:
         mosaic_row,
         *robot_rows,
         prm_row,
+        *aorrtc_rows,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -148,13 +148,31 @@ def test_png_to_heightfield_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("planner", ["prm", "fcit", "aorrtc", "roadmap"])
 def test_unported_planners_raise(planner):
-    """aorrtc is not ported yet and raises (ROADMAP queue 1, item 16); prm,
-    fcit and roadmap, ported since, plan on the CPU (one small wave or batch
-    here; tests/test_torch_prm.py holds them against the JAX package)."""
+    """The planners that raised before they were ported.  aorrtc: panda's
+    AORRTC in the cage at small budgets (one initial RRT-Connect, two AOX
+    rounds with PHS sampling) equals the JAX API's: path length, cost within
+    rtol 1e-5, path within atol 1e-5, every segment valid, the cost no worse
+    than the initial plan's.  prm, fcit and roadmap plan on the CPU (one
+    small wave or batch here; tests/test_torch_prm.py holds them against the
+    JAX package)."""
     env = _cage_env()
     if planner == "aorrtc":
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 16"):
-            vmt.panda.aorrtc(PANDA_START, PANDA_GOAL, env, device=CPU)
+        # the initial plan takes 688 samples: two AOX rounds of up to 128 follow
+        rrtc_kw = dict(SETTINGS, max_samples=1024)
+        budget = dict(max_iterations=944, max_internal_iterations=128)
+        settings = vmt.AORRTCSettings(rrtc=vmt.panda.default_rrtc_settings(**rrtc_kw), **budget)
+        res = vmt.panda.aorrtc(PANDA_START, PANDA_GOAL, env, settings, device=CPU)
+        jset = jvmt.AORRTCSettings(rrtc=jvmt.panda.default_rrtc_settings(**rrtc_kw), **budget)
+        ref = jvmt.panda.aorrtc(PANDA_START, PANDA_GOAL, _cage_env(jvmt), jset)
+        L = int(ref.path_length)
+        assert int(res.path_length) == L > 0
+        np.testing.assert_allclose(float(res.cost), float(ref.cost), rtol=1e-5)
+        np.testing.assert_allclose(res.path.numpy()[:L], np.asarray(ref.path)[:L], atol=1e-5)
+        first = vmt.panda.rrtc(PANDA_START, PANDA_GOAL, env, settings.rrtc, device=CPU)
+        assert float(res.cost) <= float(first.cost) + 1e-5
+        path = res.path.numpy()
+        for i in range(L - 1):
+            assert vmt.panda.validate_motion(path[i], path[i + 1], env, device=CPU)
         return
     small = (vmt.FCITSettings(max_iterations=1, batch_size=8) if planner == "fcit"
              else vmt.PRMSettings(wave=8, max_iterations=8))

@@ -988,8 +988,10 @@ def test_megakernels_every_group_other_robots(cuda, monkeypatch, robot):
 # ---------------------------------------------------------------------------
 
 # (B, N): the bench path's start/goal validity, PRM's sample wave, one
-# lockstep step of the API's planner, a block of the kernel phase
-FKCC_PATH_SHAPES = [(700, 2), (1, 64), (1, 480), (64, 1024)]
+# lockstep step of the API's planner, a block of the kernel phase, an AOX
+# segment check of panda.aorrtc and of a 32-problem solve_batch round, one
+# REDUCE pass over 64 paths
+FKCC_PATH_SHAPES = [(700, 2), (1, 64), (1, 480), (64, 1024), (1, 40), (32, 40), (64, 440)]
 
 
 def _fkcc_tables(which, B, device):
@@ -1077,3 +1079,108 @@ def test_fkcc_sees_tables_changed_in_place(cuda):
         torch.cuda.synchronize()
         assert not (((vk >= 0) != (vp >= 0)) & (vp.abs() > BAND)).any()
     assert not torch.equal(fkcc_cuda.fkcc_batched(spec, envs, q), before)
+
+
+def _wall_problem(device, B=3):
+    """tests/test_planners.py's sphere-robot wall for B problems (goals
+    0.05 apart), on `device`."""
+    b = envmod.EnvironmentBuilder()
+    for y in np.linspace(-3, 3, 13):
+        for z in np.linspace(0, 3, 7):
+            if not (y > 2.0 and z > 2.0):
+                b.add_sphere([0.0, y, z], 0.3)
+    envs = envmod.broadcast_environment(b.build(device=device), B)
+    starts = torch.tensor([[-2.0, 0.0, 1.0]] * B, device=device)
+    goals = torch.tensor([[[2.0, 0.0, 1.0]]] * B, device=device) \
+        + torch.arange(B, device=device, dtype=torch.float32)[:, None, None] * 0.05
+    return (registry.sphere_spec(lows=(-3, -3, 0), highs=(3, 3, 3), radius=0.1), envs, starts,
+            goals, torch.ones((B, 1), dtype=torch.bool, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["aox_step", "aox_batch", "simplify_reduce"])
+def test_fkcc_at_aorrtc_shapes_matches_plain(cuda, case):
+    """fkcc at the AORRTC path's launch shapes (bench/time_fkcc.py's cases:
+    an AOX segment check in the sphere cage, 1 x 40; a solve_batch round on
+    32 cages, 32 x 40; a REDUCE pass over 64 cages, 64 x 440 lanes), at the
+    chooser's shape: no validity mismatch outside the contact band."""
+    from vamp_mvt_tpu_torch.bench import time_fkcc
+
+    spec, envs, q, layout = time_fkcc.path_cases(cuda, (case,))[case]
+    qr = q if layout == "rows" else q.transpose(1, 2).contiguous()
+    before = fkcc_cuda.LAUNCHES
+    ok = time_fkcc.launcher(spec, envs, q, layout)()
+    torch.cuda.synchronize()
+    assert fkcc_cuda.LAUNCHES == before + 1
+    vp = fkcc_cuda.fkcc_vmin_plain(spec, envs, qr)
+    mism = (ok != (vp >= 0)) & (vp.abs() > BAND)
+    print(f"{case}: {tuple(qr.shape)} {dict(fkcc_cuda.LAST_LAUNCH)}, valid share "
+          f"{float(ok.float().mean()):.3f}")
+    assert not mism.any()
+
+
+@pytest.mark.gpu
+def test_aox_and_solve_batch_card_match_cpu(cuda):
+    """AOX searches and AORRTC's solve_batch on the wall problem without PHS
+    sampling: the card (the fkcc kernel) and the CPU (its plain version)
+    give the same searches and results (integer Halton and threefry draws,
+    the same float32 sums); with PHS every solved path of the card
+    validates."""
+    from vamp_mvt_tpu_torch.planning import aorrtc, aox, rrtc, validate
+
+    base = dict(range=1.0, max_iterations=512, max_samples=512, max_path=64)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        spec, envs, st, gl, mk = _wall_problem(dev)
+        before = fkcc_cuda.LAUNCHES
+        a = aox.solve_batch(spec, envs, st, gl, mk, rrtc.RRTCSettings(**base),
+                            torch.tensor([9.0, 7.5, 8.2]),
+                            torch.arange(3) * 100, device=dev)
+        s = aorrtc.AORRTCSettings(rrtc=rrtc.RRTCSettings(**base), max_iterations=1536,
+                                  max_internal_iterations=512, use_phs=False)
+        b = aorrtc.solve_batch(spec, envs, st, gl, mk, s, history=True, device=dev)
+        out.append((a, b))
+        if dev == cuda:
+            assert fkcc_cuda.LAUNCHES > before
+    (ka, kb), (pa, pb) = out
+    for f in ("solved", "iterations", "size_start", "size_goal", "sample_count", "path_length"):
+        assert torch.equal(getattr(ka, f).cpu(), getattr(pa, f)), f
+    torch.testing.assert_close(ka.cost.cpu(), pa.cost, rtol=1e-5, atol=0)
+    assert torch.equal(kb[0].path_length.cpu(), pb[0].path_length)
+    assert torch.equal(kb[1].cpu(), pb[1])
+    np.testing.assert_allclose(kb[2], pb[2], rtol=1e-5)
+    spec, envs, st, gl, mk = _wall_problem(cuda)
+    s = aorrtc.AORRTCSettings(rrtc=rrtc.RRTCSettings(**base), max_iterations=1536,
+                              max_internal_iterations=512)
+    res, _ = aorrtc.solve_batch(spec, envs, st, gl, mk, s, device=cuda)
+    num = validate.n_points_bound(spec, float(np.linalg.norm(spec.limits_high - spec.limits_low)))
+    for i in range(3):
+        L = int(res.path_length[i])
+        if L:
+            p = res.path[i : i + 1, :L].cpu()
+            assert bool(validate.validate_motion_batch(
+                spec, envs.map(lambda t: t[i : i + 1]).to("cpu"), p[:, :-1], p[:, 1:], num).all())
+
+
+@pytest.mark.gpu
+def test_reduce_perturb_card_match_cpu(cuda):
+    """REDUCE and PERTURB (with SHORTCUT and BSPLINE) on the wall problem's
+    planned paths: the card and the CPU give the same lengths, iterations
+    and paths."""
+    from vamp_mvt_tpu_torch.planning import rrtc, simplify
+
+    spec, envs, st, gl, mk = _wall_problem("cpu")
+    plan = rrtc.plan_batch(spec, envs, st, gl, mk, rrtc.RRTCSettings(
+        range=1.0, max_iterations=1024, max_samples=512, max_path=64, samples_per_step=4,
+        connect_segments=2, sample_window=2))
+    assert bool(plan.solved.all())
+    ss = simplify.SimplifySettings(operations=("reduce", "shortcut", "perturb", "bspline"))
+    cpu = simplify.simplify_batch(spec, envs, plan.path, plan.path_length, ss)
+    before = fkcc_cuda.LAUNCHES
+    card = simplify.simplify_batch(spec, envs.to(cuda), plan.path.to(cuda),
+                                   plan.path_length.to(cuda), ss)
+    torch.cuda.synchronize()
+    assert fkcc_cuda.LAUNCHES > before
+    assert torch.equal(card.path_length.cpu(), cpu.path_length)
+    assert torch.equal(card.iterations.cpu(), cpu.iterations)
+    torch.testing.assert_close(card.path.cpu(), cpu.path, rtol=1e-6, atol=1e-6)

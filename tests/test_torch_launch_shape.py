@@ -147,7 +147,8 @@ FKCC_CASES = {
     "prm_samples": ("cages", 1, 64), "prm_edges": ("cages", 1, 92400),
     "fcit_edge": ("cages", 1, 440), "clouds64": ("cloud", 64, 1024),
     "attach700": ("payload", 700, 1024), "terrain700": ("terrain", 700, 1024),
-    "sphere_api_step": ("terrain", 1, 480),
+    "sphere_api_step": ("terrain", 1, 480), "aox_step": ("cages", 1, 40),
+    "aox_batch": ("cages", 32, 40), "simplify_reduce": ("cages", 64, 440),
 }
 
 
@@ -175,7 +176,8 @@ def test_fkcc_shape_fits_and_sizes_to_the_batch(robot, case):
     """The shape fits a block's 227 KB as the kernel lays it out; a cloud
     takes at least MEGA_PC_MIN_GROUP lanes; at 700 x 2 at least half of a
     block's threads hold a configuration; at 1 x 64 the launch reaches at
-    least 16 SMs; at 700 (or 64) x 1024 an SM holds at least 16 warps where
+    least 16 SMs, at 1 x 40 (an AOX segment check) 10 with 4 configurations
+    a block; at 700 (or 64) x 1024 an SM holds at least 16 warps where
     the picked G's shared memory allows it (16 for the Panda)."""
     spec, (which, B, N) = _fkcc_spec(robot), FKCC_CASES[case]
     envs = _fkcc_tables(which)
@@ -192,6 +194,8 @@ def test_fkcc_shape_fits_and_sizes_to_the_batch(robot, case):
         assert min(N, per) * G >= T // 2
     if (B, N) == (1, 64):
         assert got["blocks"] >= 16
+    if (B, N) == (1, 40):  # a few configurations: at least 4 a block, 10 blocks
+        assert got["configs_per_block"] >= 4 and got["blocks"] >= 10
     if N == 1024:  # as many warps an SM as the picked G's scratch allows, up to 16
         most, pick = 0, fkcc_cuda.FKCC_PC_MAX_PICK if which == "cloud" else fkcc_cuda.FKCC_MAX_PICK
         for T_ in (t for t in fkcc_cuda.MEGA_THREADS if t <= pick):

@@ -150,10 +150,29 @@ def test_chains_past_the_path_buffer_count_as_unsolved():
 
 
 def test_unported_sampler_raises():
-    jspec, spec, _, envs_t, starts, goals, masks = sphere_problem(1)
-    with pytest.raises(NotImplementedError):
-        rrtc.plan_batch(spec, envs_t, torch.as_tensor(starts), torch.as_tensor(goals),
-                        torch.as_tensor(masks), rrtc.RRTCSettings(sampler="threefry"))
+    """The threefry sampler, which raised before it was ported: samples
+    keyed by their absolute index through `sampling/threefry.py` equal
+    `jax.random`'s, so plan_batch equals the JAX planner exactly on the wall
+    problem, compacted or not; an unknown sampler raises."""
+    jspec, spec, envs_j, envs_t, starts, goals, masks = sphere_problem()
+    kw = dict(range=1.0, max_iterations=384, max_samples=512, max_path=64,
+              samples_per_step=4, connect_segments=2, sample_window=2, sampler="threefry")
+    offs = np.arange(3, dtype=np.int32) * 100
+    ref = jax.jit(lambda e, s, g, m, o: jrrtc.plan_batch(
+        jspec, e, s, g, m, jrrtc.RRTCSettings(**kw), o
+    ))(envs_j, jnp.asarray(starts), jnp.asarray(goals), jnp.asarray(masks), jnp.asarray(offs))
+    args = (spec, envs_t, torch.as_tensor(starts), torch.as_tensor(goals),
+            torch.as_tensor(masks), rrtc.RRTCSettings(**kw))
+    got = rrtc.plan_batch(*args, torch.as_tensor(offs))
+    assert bool(got.solved.any())
+    assert_same_plan(ref, got, 3)
+    np.testing.assert_array_equal(got.sample_count.numpy(), np.asarray(ref.sample_count))
+    compact = rrtc.plan_batch_compact(
+        *args, torch.as_tensor(offs), segment_steps=16, min_batch=1, device="cpu")
+    for f in got._fields:
+        assert torch.equal(getattr(compact, f), getattr(got, f)), f
+    with pytest.raises(ValueError, match="unknown sampler"):
+        rrtc.plan_batch(*args[:-1], rrtc.RRTCSettings(sampler="mt19937"))
 
 
 def test_panda_cage_solves_with_valid_path():

@@ -73,14 +73,40 @@ def test_simplify_batch_compact_matches_jax(planned):
     _assert_same(ref, got)
 
 
-def test_unported_ops_raise(planned):
+@pytest.mark.parametrize("ops", [("reduce",), ("perturb",), ("shortcut", "reduce"),
+                                 ("reduce", "shortcut", "perturb", "bspline")])
+def test_unported_ops_raise(planned, ops):
+    """REDUCE and PERTURB, which raised before they were ported, against
+    the JAX package's simplify_batch (keys split(PRNGKey(0), B), each
+    problem's own): equal path lengths and iterations, paths within rtol
+    1e-6 (on the wall paths the largest difference is 2.4e-7: PERTURB's
+    proposals cur + (target - cur) * range round apart where XLA contracts
+    them into an FMA); the compacting driver keeps each problem's key, so it
+    equals simplify_batch; an unknown op raises."""
+    from vamp_mvt_tpu.robots import registry as jregistry
+
     spec, envs_t, paths, lengths, _ = planned
-    for op in ("reduce", "perturb"):
-        with pytest.raises(NotImplementedError):
-            simplify.simplify_batch(
-                spec, envs_t, torch.as_tensor(paths), torch.as_tensor(lengths),
-                simplify.SimplifySettings(operations=("shortcut", op)),
-            )
+    jspec, _, envs_j, _, _, _, _ = sphere_problem()
+    assert jspec.dimension == spec.dimension
+    ref = jax.jit(lambda e, p, n: jsimplify.simplify_batch(
+        jregistry.sphere_spec(lows=(-3, -3, 0), highs=(3, 3, 3), radius=0.1), e, p, n,
+        jsimplify.SimplifySettings(operations=ops)))(
+        envs_j, jnp.asarray(paths), jnp.asarray(lengths))
+    settings = simplify.SimplifySettings(operations=ops)
+    got = simplify.simplify_batch(spec, envs_t, torch.as_tensor(paths), torch.as_tensor(lengths),
+                                  settings)
+    np.testing.assert_array_equal(got.path_length.numpy(), np.asarray(ref.path_length))
+    np.testing.assert_array_equal(got.iterations.numpy(), np.asarray(ref.iterations))
+    np.testing.assert_allclose(got.path.numpy(), np.asarray(ref.path), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(got.cost.numpy(), np.asarray(ref.cost), rtol=1e-6)
+    compact = simplify.simplify_batch_compact(
+        spec, envs_t, torch.as_tensor(paths), torch.as_tensor(lengths), settings, min_batch=1,
+        device="cpu")
+    for a, b in zip(compact, got):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="unknown op"):
+        simplify.simplify_batch(spec, envs_t, torch.as_tensor(paths), torch.as_tensor(lengths),
+                                simplify.SimplifySettings(operations=("shortcut", "smooth")))
 
 
 def test_bspline_checks_subdivided_halves():

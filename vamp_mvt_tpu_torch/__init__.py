@@ -11,6 +11,7 @@ or `vamp_mvt_tpu`.
 
 from vamp_mvt_tpu_torch.api import (  # noqa: F401
     ROBOTS,
+    AORRTCSettings,
     Attachment,
     Capsule,
     Cuboid,

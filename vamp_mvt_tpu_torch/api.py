@@ -18,7 +18,8 @@ Every method that touches tensors takes `device=None`, which means the GPU
 ::plan`), as the JAX API does, and its results are tensors on that device.
 `prm`, `fcit` and `roadmap` keep their graphs on the host
 (`planning/prm.py`, `planning/fcit.py`) and return numpy results, as the JAX
-API's do.
+API's do; `aorrtc` refines with lockstep AOX searches on the device
+(`planning/aorrtc.py::solve`).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from vamp_mvt_tpu_torch.collision import environment as envmod
 from vamp_mvt_tpu_torch.device import resolve_device
 from vamp_mvt_tpu_torch.ops import fk as fk_mod
 from vamp_mvt_tpu_torch.ops import fkcc as fkcc_mod
+from vamp_mvt_tpu_torch.planning import aorrtc as aorrtc_mod
 from vamp_mvt_tpu_torch.planning import fcit as fcit_mod
 from vamp_mvt_tpu_torch.planning import prm as prm_mod
 from vamp_mvt_tpu_torch.planning import rrtc as rrtc_mod
@@ -42,6 +44,7 @@ SimplifySettings = simplify_mod.SimplifySettings
 PRMSettings = prm_mod.PRMSettings
 PRMNeighborParams = prm_mod.PRMStarNeighborParams
 FCITSettings = fcit_mod.FCITSettings
+AORRTCSettings = aorrtc_mod.AORRTCSettings
 Attachment = envmod.make_attachment
 
 
@@ -296,8 +299,16 @@ class RobotModule:
                                      offset, device=dev)
 
     def aorrtc(self, start, goals, env, settings=None, sampler=None, device=None):
-        raise NotImplementedError(
-            f"{self.name}.aorrtc is not ported yet (ROADMAP queue 1, item 16)")
+        """AORRTC from `start` to any of `goals`: RRT-Connect, then AOX
+        cost-bounded refinement (planning/aorrtc.py::solve); the best
+        SimplifyResult, tensors on the device."""
+        dev = resolve_device(device)
+        start, goals, offset = self._plan_args(start, goals, sampler)
+        if settings is None:
+            settings = AORRTCSettings(rrtc=self.default_rrtc_settings())
+        res, _ = aorrtc_mod.solve(self.spec, _as_env(env, dev), start, goals, settings, offset,
+                                  device=dev)
+        return res
 
 
 def png_to_heightfield(filename, center, scaling):

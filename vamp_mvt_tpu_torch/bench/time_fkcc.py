@@ -2,7 +2,7 @@
 path of the port launches it with.
 
     python vamp_mvt_tpu_torch/bench/time_fkcc.py [--tree DIR] [--label NAME]
-        [--shape T,G ...] [--sweep]
+        [--shape T,G ...] [--sweep] [--cases NAME,...]
 
 Imports `vamp_mvt_tpu_torch` from `--tree` (default: the checkout holding
 this file), so that an older tree unpacked beside it (`git archive`) can be
@@ -36,6 +36,15 @@ warm-ups, on these cases (B problems x N configurations):
                    chip_smoke.py's suite_robots draw: 2048 MBM-shaped scenes
                    (seed 10) x 1024 configurations (seeds 20, 21, 22), rows
                    layout
+  aox_step         one segment check of panda.aorrtc's AOX search (the grow
+                   or connect segment, or a resample round) in the sphere
+                   cage: one segment of up to `range` at rrtc.py's point
+                   count, rows layout, 1 x 40
+  aox_batch        the same check of a 32-problem solve_batch round on the
+                   first 32 seeded sphere cages, rows layout, 32 x 40
+  simplify_reduce  one REDUCE (or PERTURB) pass of the lockstep simplifier on
+                   64 seeded cages: one seeded segment a problem at the
+                   full-span point count, lanes layout, 64 x 440
 
 `ms` includes the wrapper's host work between the two events (checks,
 table arguments, output allocation, the launch call), as a caller sees it;
@@ -46,8 +55,8 @@ case carries the launch's shape and occupancy (`LAST_LAUNCH`, where the
 tree has it).  `--shape T,G` also times every case at that launch shape,
 and `--sweep` at every shape that fits (where the tree's wrappers take
 one); a shape's validity must equal the default's (on a pointcloud, outside
-the contact band).  Prints one JSON line with the card's name and power
-limit.
+the contact band).  `--cases` times only the named cases.  Prints one JSON
+line with the card's name and power limit.
 """
 
 import argparse
@@ -62,6 +71,8 @@ CONTACT_BAND = 1e-5
 PRM_EDGES = 210        # the largest edge wave of panda.prm in the sphere cage
 STEP_SEGMENTS = 12     # K + C of the API's lockstep planner (8 + 4)
 ROBOT_DRAWS = ("ur5_draw", "fetch_draw", "baxter_draw")
+AOX_BATCH = 32         # problems of bench/aorrtc.py's solve_batch
+REDUCE_BATCH = 64      # cage paths of chip_smoke.py's aorrtc simplifier pass
 
 
 def load_scenes():
@@ -74,11 +85,12 @@ def load_scenes():
     return mod
 
 
-def _step_block(spec, rng, lo, hi, rrt_range, device):
-    """One lockstep step's block of configurations: STEP_SEGMENTS seeded
-    segments from points between lo and hi (plus up to 0.1 of noise), each
-    of length up to rrt_range, at rrtc.py's point count for that range,
-    (1, STEP_SEGMENTS * num, d) in the rows layout the planner launches."""
+def _step_block(spec, rng, lo, hi, rrt_range, device, segments=STEP_SEGMENTS, problems=1):
+    """One lockstep step's block of configurations: `segments` seeded
+    segments a problem from points between lo and hi (plus up to 0.1 of
+    noise), each of length up to rrt_range, at rrtc.py's point count for
+    that range, (problems, segments * num, d) in the rows layout the
+    planners launch."""
     import numpy as np
     import torch
 
@@ -86,14 +98,15 @@ def _step_block(spec, rng, lo, hi, rrt_range, device):
 
     num = validate.n_points_bound(spec, rrt_range)
     d = spec.dimension
-    u = rng.uniform(0.0, 1.0, (STEP_SEGMENTS, 1))
+    shape = (problems, segments)
+    u = rng.uniform(0.0, 1.0, shape + (1,))
     starts = np.asarray(lo) + (np.asarray(hi) - np.asarray(lo)) * u + rng.uniform(
-        -0.1, 0.1, (STEP_SEGMENTS, d))
-    dirs = rng.standard_normal((STEP_SEGMENTS, d))
-    dirs *= rng.uniform(0.2, 1.0, (STEP_SEGMENTS, 1)) * rrt_range / np.linalg.norm(
-        dirs, axis=1, keepdims=True)
-    s = torch.as_tensor(starts.astype(np.float32), device=device)[None]
-    g = torch.as_tensor((starts + dirs).astype(np.float32), device=device)[None]
+        -0.1, 0.1, shape + (d,))
+    dirs = rng.standard_normal(shape + (d,))
+    dirs *= rng.uniform(0.2, 1.0, shape + (1,)) * rrt_range / np.linalg.norm(
+        dirs, axis=-1, keepdims=True)
+    s = torch.as_tensor(starts.astype(np.float32), device=device)
+    g = torch.as_tensor((starts + dirs).astype(np.float32), device=device)
     return validate.motion_configs(spec, s, g, num).transpose(1, 2).contiguous()
 
 
@@ -113,7 +126,8 @@ def path_cases(dev, names=None) -> dict:
     scenes = load_scenes()
     names = set(names or ("bench_validity", "bench_direct", "primitives", "api_rrtc_step",
                           "prm_samples", "prm_edges", "fcit_edge", "clouds64", "attach700",
-                          "terrain700", "sphere_api_step") + ROBOT_DRAWS)
+                          "terrain700", "sphere_api_step", "aox_step", "aox_batch",
+                          "simplify_reduce") + ROBOT_DRAWS)
     spec = registry.load("panda")
     span = float(np.linalg.norm(spec.limits_high - spec.limits_low))
     num_long = validate.n_points_bound(spec, span)
@@ -131,6 +145,24 @@ def path_cases(dev, names=None) -> dict:
     if "primitives" in names:
         envs = mbm.build_batch(scenes.mbm_shaped_problems(700, seed=1), device=dev)[0]
         out["primitives"] = (spec, envs, q1024.transpose(1, 2).contiguous(), "lanes")
+    if names & {"aox_step", "aox_batch", "simplify_reduce"}:
+        rrt_range = vmt.panda.default_rrtc_settings().range
+        plain = vmt.Environment()
+        for c in mbm.CAGE_CENTERS:
+            plain.add_sphere(vmt.Sphere(c, mbm.CAGE_RADIUS))
+        rng = np.random.default_rng(13)
+        A, B = mbm.PANDA_START, mbm.PANDA_GOAL
+        out["aox_step"] = (spec, plain.build(dev).map(lambda t: t[None]),
+                           _step_block(spec, rng, A, B, rrt_range, dev, segments=1), "rows")
+        n = max(AOX_BATCH, REDUCE_BATCH)
+        cages = mbm.build_batch(mbm.cage_suite(n)["problems"]["cage"], device=dev)[0]
+        out["aox_batch"] = (spec, cages.map(lambda t: t[:AOX_BATCH]), _step_block(
+            spec, rng, A, B, rrt_range, dev, segments=1, problems=AOX_BATCH), "rows")
+        ends = [torch.as_tensor(rng.uniform(spec.limits_low, spec.limits_high, (
+            REDUCE_BATCH, 1, spec.dimension)).astype(np.float32), device=dev) for _ in "ab"]
+        out["simplify_reduce"] = (spec, cages.map(lambda t: t[:REDUCE_BATCH]),
+                                  validate.motion_configs(spec, *ends, num_long).contiguous(),
+                                  "lanes")
     if names & {"api_rrtc_step", "prm_samples", "prm_edges", "fcit_edge"}:
         cage, A, B = profile_suite.api_cage()
         rng = np.random.default_rng(11)
@@ -235,6 +267,7 @@ def main(argv=None) -> dict:
                     help="T,G: also time every case at this launch shape")
     ap.add_argument("--sweep", action="store_true",
                     help="also time every case at every launch shape that fits")
+    ap.add_argument("--cases", default=None, help="NAME,...: time only these cases")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
@@ -256,7 +289,8 @@ def main(argv=None) -> dict:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     out = {"label": args.label, "tree": args.tree, "device": torch.cuda.get_device_name(0),
            "nvidia_smi": smi, "cases": {}}
-    for name, (spec, envs, q, layout) in path_cases(dev).items():
+    names = args.cases.split(",") if args.cases else None
+    for name, (spec, envs, q, layout) in path_cases(dev, names).items():
         fn = launcher(spec, envs, q, layout)
         ref = fn()
         torch.cuda.synchronize()

@@ -403,8 +403,13 @@ FKCC_MAX_PICK = 256
 FKCC_PC_MAX_PICK = 128
 # The fewest blocks fkcc_shape lets a launch run on, where it has that many
 # configurations: one problem of 64 checked 16 blocks of 128 threads in
-# 0.0207 ms, 8 blocks of 256 in 0.0219 (the same sweep).
+# 0.0207 ms, 8 blocks of 256 in 0.0219 (the same sweep).  A launch of fewer
+# than 16 x FKCC_MIN_PER_BLOCK configurations keeps at least that many a
+# block: an AOX segment check of 40 took 0.0198 ms on 20 blocks of 64
+# threads, 0.0156 on 10 blocks of 128 and 0.0151 on 5 of 256 (a later sweep,
+# H100 80GB HBM3, 700.00 W): a block's table copy outweighs its share there.
 FKCC_MIN_BLOCKS = 16
+FKCC_MIN_PER_BLOCK = 4
 # The cost model of fkcc_shape, in SM cycles (see there), fitted to that
 # sweep's device times over its fourteen cases (each case's pick within 5%
 # of its fastest shape): a warp's cycles per operation
@@ -467,7 +472,7 @@ def fkcc_shape(spec: RobotSpec, envs: Environment, B: int, N: int, shape=None) -
     and T / G group scratches: `table_floats`, mirrored from
     csrc/fkcc_device.cuh) fits MAX_SMEM and which hold no more
     configurations a block than N rounded up to a power of two and run at
-    least min(FKCC_MIN_BLOCKS, B N) blocks, take G at least
+    least min(FKCC_MIN_BLOCKS, B N / FKCC_MIN_PER_BLOCK) blocks, take G at least
     MEGA_PC_MIN_GROUP on a pointcloud where one fits, then the least
     estimated time, then the most blocks (more SMs), then the fewest lanes.
     The estimate, in SM cycles: waves x a lane's operations (`lane_ops`) x
@@ -491,6 +496,7 @@ def fkcc_shape(spec: RobotSpec, envs: Environment, B: int, N: int, shape=None) -
     min_group = MEGA_PC_MIN_GROUP if envs.pck is not None else 1
     pick = FKCC_PC_MAX_PICK if envs.pck is not None else FKCC_MAX_PICK
     cap = 1 << max(N - 1, 0).bit_length()  # N rounded up to a power of two
+    min_blocks = min(FKCC_MIN_BLOCKS, -(-B * N // FKCC_MIN_PER_BLOCK))
     cands = []
     for G in MEGA_GROUPS:
         if shape is not None and G != shape[1]:
@@ -507,7 +513,7 @@ def fkcc_shape(spec: RobotSpec, envs: Environment, B: int, N: int, shape=None) -
                 continue
             bps = blocks_per_sm(T, nbytes, 0)
             blocks = B * -(-N // per)
-            if shape is None and blocks < min(FKCC_MIN_BLOCKS, B * N):
+            if shape is None and blocks < min_blocks:
                 continue
             waves = -(-blocks // (SMS * bps))
             busy = min(bps, -(-blocks // SMS)) * T // 32
@@ -588,6 +594,8 @@ def _launch(spec, envs, q, q_strides, B, N, want_vmin, shape=None):
     work = torch.zeros((B, 3), dtype=torch.int64, device=q.device) if has_pc else None
     if N == 0:
         return valid, vmin
+    if has_pc and torch.cuda.is_current_stream_capturing():
+        raise ValueError("fkcc: a launch on a pointcloud cannot be captured (PC_WORK)")
     ls = fkcc_shape(spec, envs, B, N, shape)
     lib = library()
     call = (ctypes.c_longlong * 14)(
@@ -611,6 +619,33 @@ def _launch(spec, envs, q, q_strides, B, N, want_vmin, shape=None):
                        registers=info[2], blocks=ls["blocks"],
                        waves=-(-ls["blocks"] // (SMS * max(info[1], 1))))
     return valid, vmin
+
+
+def capture(fn):
+    """`fn`'s work captured as a CUDA graph on the current device: returns
+    (graph, the fkcc launches inside it, the packed tables they read, which
+    the graph's launches keep pointing into).  Capturing runs nothing, so
+    LAUNCHES is left as it was; `replay` counts the graph's launches each
+    time it runs them.  Tables on a pointcloud are refused: a launch there
+    sums its work into PC_WORK on the host's side of the capture."""
+    global LAUNCHES
+    before = LAUNCHES
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+        launches = LAUNCHES - before
+    finally:
+        LAUNCHES = before
+    return graph, launches, list(_PACKS.values())
+
+
+def replay(captured) -> None:
+    """Run a graph from `capture`; its fkcc launches count here."""
+    global LAUNCHES
+    graph, launches, _keep = captured
+    graph.replay()
+    LAUNCHES += launches
 
 
 def _kernel(spec, envs, q, want_vmin, shape=None):

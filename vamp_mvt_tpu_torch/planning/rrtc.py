@@ -12,6 +12,11 @@ of M + 1 rows here: row M is a trash row that no read ever reaches.
 
 Nearest neighbours use the dot form |n|^2 + |s|^2 - 2 n.s at full float32,
 as the JAX package does with Precision.HIGHEST.
+
+Samples come from the Halton sequence or (sampler="threefry") from
+`sampling/threefry.py`, whose streams are `jax.random`'s bit for bit; with a
+PHS (AORRTC's informed sampling) they are mapped into the prolate
+hyperspheroid of each problem.
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ import torch
 from vamp_mvt_tpu_torch.collision.environment import Environment
 from vamp_mvt_tpu_torch.device import resolve_device
 from vamp_mvt_tpu_torch.planning import validate as validate_mod
+from vamp_mvt_tpu_torch.planning.phs import PHS, phs_samples
 from vamp_mvt_tpu_torch.planning.validate import norm_last, sum_last
 from vamp_mvt_tpu_torch.robots.spec import RobotSpec
+from vamp_mvt_tpu_torch.sampling import threefry
 from vamp_mvt_tpu_torch.sampling.halton import halton
 
 # The nearest-neighbour dot products must be full float32: TF32 keeps ~10
@@ -119,12 +126,12 @@ class _State(NamedTuple):
     a_start_at_join: torch.Tensor  # (B,) bool
 
 
+SAMPLERS = ("halton", "threefry")
+
+
 def _check_settings(s: RRTCSettings) -> None:
-    if s.sampler != "halton":
-        raise NotImplementedError(
-            f"sampler={s.sampler!r} is not ported yet (ROADMAP queue 1); "
-            "only 'halton' runs"
-        )
+    if s.sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {s.sampler!r}; one of {SAMPLERS}")
 
 
 def _select(mask: torch.Tensor, new, old):
@@ -165,8 +172,41 @@ def _scatter_rows(buf: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     return out
 
 
+def _make_sampler(spec: RobotSpec, s: RRTCSettings, dev, phs: PHS | None = None):
+    """draw(idx0 (B,)) -> the KW samples (B, KW, d) at the absolute indices
+    idx0 .. idx0 + KW - 1 (vamp_mvt_tpu/planning/rrtc.py::draw_samples).
+
+    Threefry keys each sample by its absolute index, fold_in(PRNGKey(8), i),
+    so a partly consumed window replays the same values next step, as the
+    stateless Halton sequence does.  With a PHS (one a problem) the unit
+    samples go through phs_samples with radius uniforms keyed by the
+    window's first index, fold_in(PRNGKey(17), idx0), and are clamped to the
+    joint limits."""
+    KW = s.samples_per_step * s.sample_window
+    d = spec.dimension
+    lows = torch.as_tensor(spec.limits_low, device=dev)
+    highs = torch.as_tensor(spec.limits_high, device=dev)
+    spans = highs - lows
+    arange_kw = torch.arange(KW, device=dev)
+    key8, key17 = threefry.prng_key(8, dev), threefry.prng_key(17, dev)
+
+    def draw(idx0: torch.Tensor) -> torch.Tensor:
+        idx = idx0[:, None] + arange_kw
+        if s.sampler == "threefry":
+            unit = threefry.uniform(threefry.fold_in(key8, idx), d)
+        else:
+            unit = halton(idx, d)
+        if phs is None:
+            return unit * spans + lows
+        radius_u = threefry.uniform(threefry.fold_in(key17, idx0), KW)
+        return torch.clamp(phs_samples(phs, unit, radius_u), lows, highs)
+
+    return draw
+
+
 def _make_step(spec: RobotSpec, s: RRTCSettings, envs: Environment,
-               num_points: int, nn_prefix: int | None = None, interleave: bool = False):
+               num_points: int, nn_prefix: int | None = None, interleave: bool = False,
+               phs: PHS | None = None):
     """One step of the batch.  interleave=True is the planner megakernel's
     other cadence (vamp_mvt_tpu/planning/rrtc_mega.py, INTER): the grow part
     runs every step and an active connect chain advances in the same step;
@@ -177,12 +217,9 @@ def _make_step(spec: RobotSpec, s: RRTCSettings, envs: Environment,
     M, K, C = s.max_samples, s.samples_per_step, s.connect_segments
     NP = M if nn_prefix is None else min(nn_prefix, M)
     KW = K * s.sample_window
-    d = spec.dimension
     dev = envs.device
-    lows = torch.as_tensor(spec.limits_low, device=dev)
-    spans = torch.as_tensor(spec.limits_high, device=dev) - lows
+    draw = _make_sampler(spec, s, dev, phs)
     arange_np = torch.arange(NP, device=dev)
-    arange_kw = torch.arange(KW, device=dev)
     j_seg = torch.arange(C, dtype=torch.float32, device=dev)
     c_order = torch.arange(C, device=dev)
     kk = torch.arange(1, num_points + 1, dtype=torch.float32, device=dev)
@@ -202,7 +239,7 @@ def _make_step(spec: RobotSpec, s: RRTCSettings, envs: Environment,
         a_is_start = torch.where(do_swap, ~st.a_is_start, st.a_is_start)
 
         # =============================== GROW ===============================
-        samples = halton(st.sample_idx[:, None] + arange_kw, d) * spans + lows  # (B, KW, d)
+        samples = draw(st.sample_idx)                                   # (B, KW, d)
 
         cfg_nn = st.configs[:, :NP]
         node_mask = arange_np[None] < st.n_nodes[:, None]
@@ -472,10 +509,8 @@ def result_from_chains(path, total, a_start_at_join, solved, iterations, size_st
 
 def _init_state(spec, envs, starts, goals, goal_masks, settings, sample_offsets):
     """Initial planner state + direct-connection info (rrtc.hh:60-96)."""
-    s = settings
-    M, d = s.max_samples, spec.dimension
     B, G = goals.shape[:2]
-    dev = starts.device
+    d = spec.dimension
 
     # --- straight-line goal check (rrtc.hh:60-73)
     span = float(np.linalg.norm(spec.limits_high - spec.limits_low))
@@ -486,9 +521,18 @@ def _init_state(spec, envs, starts, goals, goal_masks, settings, sample_offsets)
     direct = direct & goal_masks
     any_direct = direct.any(1)
     first_direct = torch.argmax(direct.to(torch.int32), dim=1)
+    st = initial_state(spec, starts, goals, goal_masks, settings, sample_offsets, any_direct)
+    return st, any_direct, first_direct
 
-    # --- node 0 = start; nodes 1..G = goals.  Masked-out goals are parked
-    # far outside the workspace so NN never selects them.
+
+def initial_state(spec, starts, goals, goal_masks, settings, sample_offsets, done) -> _State:
+    """The trees before the first step: node 0 = start; nodes 1..G = goals,
+    masked-out goals parked far outside the workspace so NN never selects
+    them; `done` (B,) marks problems that need no search."""
+    s = settings
+    M, d = s.max_samples, spec.dimension
+    B, G = goals.shape[:2]
+    dev = starts.device
     configs = torch.zeros((B, M + 1, d), dtype=torch.float32, device=dev)
     configs[:, 0] = starts
     far = torch.where(goal_masks[..., None], 0.0, 1e8)
@@ -502,7 +546,7 @@ def _init_state(spec, envs, starts, goals, goal_masks, settings, sample_offsets)
     def full(v, dtype=torch.long):
         return torch.full((B,), v, dtype=dtype, device=dev)
 
-    st = _State(
+    return _State(
         configs=configs,
         parents=parents,
         radii=torch.full((B, M + 1), _INF, device=dev),
@@ -519,12 +563,11 @@ def _init_state(spec, envs, starts, goals, goal_masks, settings, sample_offsets)
         c_inc_len=full(1.0, torch.float32),
         c_remaining=full(0),
         c_other=full(0),
-        done=any_direct,
+        done=done,
         junction_a=full(0),
         junction_b=full(0),
         a_start_at_join=full(True, torch.bool),
     )
-    return st, any_direct, first_direct
 
 
 def _cond(s: RRTCSettings):
@@ -538,7 +581,7 @@ def _cond(s: RRTCSettings):
 
 
 def _run_steps(spec, s, envs, st, num_points, max_steps=None, nn_prefix=None,
-               interleave=False):
+               interleave=False, phs=None):
     """Advance every problem until done/budget (or for at most max_steps).
 
     Each step runs on the whole batch and is kept only where `_cond` holds,
@@ -549,7 +592,8 @@ def _run_steps(spec, s, envs, st, num_points, max_steps=None, nn_prefix=None,
     inserts at most K + C nodes in either cadence (the interleaved one at
     most K grow and C connect nodes together), so the bound holds for both.
     """
-    step = _make_step(spec, s, envs, num_points, nn_prefix=nn_prefix, interleave=interleave)
+    step = _make_step(spec, s, envs, num_points, nn_prefix=nn_prefix, interleave=interleave,
+                      phs=phs)
     cond = _cond(s)
     if max_steps is not None:
         for _ in range(max_steps):
@@ -579,23 +623,29 @@ def plan_batch(
     goal_masks: torch.Tensor,          # (B, G) bool
     settings: RRTCSettings,
     sample_offsets: torch.Tensor | None = None,  # (B,)
+    phs: PHS | None = None,            # one transform a problem (leading axis B)
 ) -> RRTCResult:
-    """Solve a batch of problems in lockstep; tensors stay on their device."""
+    """Solve a batch of problems in lockstep; tensors stay on their device.
+    phs: informed sampling (AORRTC's anytime loop, reference
+    aorrtc.hh:450-459), as the JAX package's vmapped plan(phs=) takes it."""
     _check_settings(settings)
     if sample_offsets is None:
         sample_offsets = torch.zeros(starts.shape[0], dtype=torch.long, device=starts.device)
     num_points = validate_mod.n_points_bound(spec, settings.range)
     st, ad, fd = _init_state(spec, envs, starts, goals, goal_masks, settings, sample_offsets)
-    st = _run_steps(spec, settings, envs, st, num_points)
+    st = _run_steps(spec, settings, envs, st, num_points, phs=phs)
     return _finalize(spec, settings, st, starts, goals, ad, fd)
 
 
-def plan(spec, env, start, goals, goal_mask, settings, sample_offset=0) -> RRTCResult:
-    """Solve one problem: env tables (n, f), start (d,), goals (G, d)."""
+def plan(spec, env, start, goals, goal_mask, settings, sample_offset=0,
+         phs: PHS | None = None) -> RRTCResult:
+    """Solve one problem: env tables (n, f), start (d,), goals (G, d), and
+    optionally one PHS."""
     res = plan_batch(
         spec, env.map(lambda t: t[None]), start[None], goals[None], goal_mask[None],
         settings,
         torch.full((1,), int(sample_offset), dtype=torch.long, device=start.device),
+        phs=None if phs is None else PHS(*(t[None] for t in phs)),
     )
     return RRTCResult(*(t[0] for t in res))
 

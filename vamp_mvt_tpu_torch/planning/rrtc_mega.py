@@ -63,6 +63,9 @@ def _kernel_config(spec: RobotSpec, s: RRTCSettings, G: int) -> dict:
 def _check_settings(s: RRTCSettings) -> None:
     """Raise for settings the megakernel does not run."""
     rrtc._check_settings(s)
+    if s.sampler != "halton":
+        # the JAX megakernel has no sampler branch: it would plan with Halton
+        raise NotImplementedError(f"the planner kernel samples Halton only, not {s.sampler!r}")
     if s.profile_mask != -1:
         raise NotImplementedError("profile_mask is a profiling-only switch, not ported")
     if s.pc_phase != 2:

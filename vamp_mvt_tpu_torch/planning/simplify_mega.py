@@ -108,6 +108,7 @@ def _plain_chunk(spec, envs, paths, lengths, s: SimplifySettings) -> SimplifyRes
     path, length = paths, lengths
     changed = torch.ones_like(straight)
     iters = torch.zeros_like(lengths)
+    keys = simplify.default_keys(paths.shape[0], paths.device)
     while True:
         act = changed & (iters < s.max_iterations) & ~straight
         if not bool(act.any()):
@@ -116,7 +117,8 @@ def _plain_chunk(spec, envs, paths, lengths, s: SimplifySettings) -> SimplifyRes
         body = simplify._driver_iteration(
             spec, envs, dataclasses.replace(s, bspline_jobs=bspline), pairs, jobs
         )
-        new_path, new_len, new_changed = body(path, length)
+        # the kernel's ops draw no random numbers: the keys are never read
+        new_path, new_len, new_changed, _ = body(path, length, keys)
         path = torch.where(act[:, None, None], new_path, path)
         length = torch.where(act, new_len, length)
         changed = torch.where(act, new_changed, changed)
