@@ -83,8 +83,9 @@ or an exception exits non-zero):
                  PC_CHECK pointcloud scenes at the budget: at least MIN_SHARE
                  identical, times, work counters and the bound
   probe_gather   the six gather probes (csrc/probe_gather.cu, off the main
-                 path) against numpy, with ns per gather and the launches of
-                 the probe entry point
+                 path) against numpy, with ns per gather, the launches of
+                 the probe entry point and the time of the PyTorch call that
+                 computes the probe where one does (GATHER_LIBRARY)
   attach_kernel  700 seeded sphere cages, each with a seeded payload (1-4
                  spheres along the EE axis, one payload in ten above every
                  radius class) x the kernel phase's 1024 configurations: the
@@ -139,7 +140,8 @@ or an exception exits non-zero):
                  paths (bench/time_fkcc.py's cases): a panda.rrtc lockstep
                  step in the API's payload cage, a sphere.rrtc step over the
                  API's maze, PRM's sample wave and an edge wave of its
-                 largest size, one FCIT edge; each against its plain
+                 largest size, one FCIT edge, suite_robots' 2048 x 1024 draws
+                 for UR5, Fetch and Baxter; each against its plain
                  version (no validity mismatch outside the contact and cell
                  bands), with its time, bound and launch shape
   aorrtc         panda.aorrtc at the API's defaults on the card from VAMP's
@@ -154,6 +156,29 @@ or an exception exits non-zero):
                  AOX step's (1 x 40), a solve_batch round's (32 x 40) and a
                  REDUCE pass's (64 x 440) launch shapes against its plain
                  version, with its time, device time and bound
+  mpnet          plan_with_mpnet for the Panda at MPNet's published widths
+                 (random weights from the seed) in the sphere cage, its
+                 pointcloud sampled from the cage spheres: MPNET_REQUESTS
+                 seeded requests on the card (method, ms, fkcc launches,
+                 planner forwards; every path revalidated by the plain
+                 version), the encoder's and a planner forward's ms against
+                 their bounds, the rollouts of MPNET_CPU_CHECK requests on
+                 the card against device="cpu" at a cut budget (same method,
+                 vertex count and vertices), one request's rollouts untraced
+                 and again under utils/profiling.py's trace (top
+                 op_breakdown rows, the card's busy share), fkcc at MPNet's
+                 motion check (1 x 440 lanes) against its plain version
+  mesh           parallel/mesh.py under a world-size-1 NCCL group:
+                 plan_batch_mega_sharded on the 700 cages against
+                 plan_batch_mega, plan_batch_sharded on MESH_LOCKSTEP cages
+                 against rrtc.plan_batch (both identical),
+                 aorrtc_restarts_sharded at rounds=2 (history; its
+                 all_reduce(MIN) held to the host minimum)
+  examples       each vamp_mvt_tpu_torch/examples module's main on the card
+                 at the JAX scripts' defaults: solved counts, walls, launches;
+                 sphere_cage_example's paths revalidated by the plain version
+                 and its first EXAMPLE_PLAIN_CHECK trials held against both
+                 megakernels' plain versions
   bench          the port's bench entry (python -m vamp_mvt_tpu_torch.bench)
                  in this process on the 700 cages: its JSON line
 
@@ -172,7 +197,9 @@ FCIT paths as rows of their own, with the launches of the path that runs
 them; fkcc's attachment and heightfield rows at the API's step; the probes'
 rows with the launches of their entry point; fkcc at the AORRTC shapes with
 the launches of panda.aorrtc's AOX searches, of solve_batch's and of the
-REDUCE/PERTURB pass) and, last, {"ok": true, "device": {...}}.  The script imports nothing of JAX or of the JAX package.  Without a
+REDUCE/PERTURB pass; fkcc at MPNet's motion check with the launches of the
+mpnet phase's rollouts; each gather probe a row) and, last, {"ok": true,
+"device": {...}}.  The script imports nothing of JAX or of the JAX package.  Without a
 GPU it exits 1.
 """
 
@@ -218,6 +245,26 @@ AORRTC_PROBLEMS = 32   # cages of bench/aorrtc.py's solve_batch
 AORRTC_BATCH_ITERATIONS = 32768  # its anytime budget (bench/aorrtc.py's default)
 REDUCE_PATHS = 64      # cage paths of the REDUCE + SHORTCUT + PERTURB + BSPLINE pass
 REDUCE_CPU_CHECK = 8   # of them, the CPU repeats (its plain SHORTCUT takes ~10 s a path)
+# The one PyTorch call that computes each gather probe (table, int64 index,
+# int64 second index), or None and why there is none.
+GATHER_LIBRARY = {
+    "lane": (lambda t, i, i2: t.expand(i.shape[0], 8, 128).gather(2, i), "torch.gather"),
+    "row": (lambda t, i, i2: t[0][i], "table[0][idx]"),
+    "bits": (None, "a gather, a shift and a mask: three calls, no one call"),
+    "two_level": (lambda t, i, i2: t[i, i2], "table[idx, idx2]"),
+    "sublane": (lambda t, i, i2: t.expand(i.shape[0], 8, 128).gather(1, i),
+                "torch.gather(dim=1)"),
+    "timing": (None, "64 gathers of shifted indices summed: no one call"),
+}
+GATHER_LINES = {"lane": 32, "row": 47, "bits": 62, "two_level": 85, "sublane": 99,
+                "timing": 121}
+MPNET_REQUESTS = 8     # plan_with_mpnet requests in the sphere cage
+MPNET_CPU_CHECK = 2    # of them, rerun on the card and on the CPU at a cut budget
+MPNET_CPU_ITERATIONS = 2  # MPNetPlanner.plan's max_iterations of those reruns (the default is 50)
+MPNET_VERTEX_ATOL = 1e-4  # card against CPU rollout vertices (the port against JAX on the CPU)
+EXAMPLE_PLAIN_CHECK = 32  # sphere_cage_example trials held against the plain versions
+MPNET_CLOUD = 1000     # surface points a cage sphere (14,000 in all, subsampled to 11,978)
+MESH_LOCKSTEP = 64     # cages of the sharded lockstep planner
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -410,13 +457,14 @@ def heights_at_most(spec, envs, checks, n_att) -> int:
     return 4 * int(np.sum(per))
 
 
-def branch_kernel(spec, envs, q, layout="lanes"):
+def branch_kernel(spec, envs, q, layout="lanes", plain_reps=3):
     """The fkcc kernel against its plain version on `envs` (payload and/or
     heightfield tables): validity outside the contact band and the cell
     band, both outcomes, times (of the launch in `layout`, rows or lanes)
     with its launch shape and occupancy, and the bound (the live payload
     spheres' operations; the heights read, not the whole table); and the
-    kernel's validity."""
+    kernel's validity.  The plain version is timed over `plain_reps` calls
+    after one to warm up."""
     import numpy as np
     import torch
 
@@ -440,7 +488,7 @@ def branch_kernel(spec, envs, q, layout="lanes"):
         else (lambda: fkcc_cuda.fkcc_batched(spec, envs, q))
     k_ms = time_cuda(launch, 3, 20)
     occupancy = dict(fkcc_cuda.LAST_LAUNCH)
-    p_ms = time_cuda(lambda: fkcc_cuda.fkcc_batched_plain(spec, envs, q), 1, 3)
+    p_ms = time_cuda(lambda: fkcc_cuda.fkcc_batched_plain(spec, envs, q), 1, plain_reps)
     tabs = fkcc_cuda.robot_tables(spec)
     extra = [] if envs.attachment is None else list(envs.attachment)
     b = bound(fkcc_cuda.op_count(spec, live, N, live_payload(envs), n_hf),
@@ -1082,20 +1130,23 @@ def fkcc_paths_phase(dev, api_launches, planner_calls, batches):
     bench/time_fkcc.py): one lockstep step of panda.rrtc in the API's
     payload cage and of sphere.rrtc over the API's maze (12 segments of 40
     points), PRM's sample wave (64) and an edge wave of its largest size
-    (210 edges of 440 points), one FCIT edge (440 points); each against its
-    plain version (no validity mismatch outside the contact and cell
-    bands), with its time, bound and launch shape.  Returns the kernels
+    (210 edges of 440 points), one FCIT edge (440 points), and suite_robots'
+    draw of 2048 x 1024 configurations for UR5, Fetch and Baxter; each
+    against its plain version (no validity mismatch outside the contact and
+    cell bands), with its time, bound and launch shape.  Returns the kernels
     line's rows of the attachment and heightfield branches (at the API's
     step, with the API's launches; the 700-problem batches of attach_kernel
-    and hf_kernel beside them) and of FCIT's edges."""
+    and hf_kernel beside them), of FCIT's edges and of the draws."""
     from vamp_mvt_tpu_torch.bench import time_fkcc
 
     cases = time_fkcc.path_cases(dev, ("api_rrtc_step", "sphere_api_step", "prm_samples",
-                                       "prm_edges", "fcit_edge"))
+                                       "prm_edges", "fcit_edge") + time_fkcc.ROBOT_DRAWS)
     held = {}
     for name, (spec, envs, q, layout) in cases.items():
         qr = q if layout == "rows" else q.transpose(1, 2).contiguous()
-        held[name] = branch_kernel(spec, envs, qr, layout)[0]
+        # the plain version takes 1-7 s a draw: timed once
+        held[name] = branch_kernel(spec, envs, qr, layout,
+                                   1 if name in time_fkcc.ROBOT_DRAWS else 3)[0]
     emit({"phase": "fkcc_paths", "cases": held})
     for name, r in held.items():
         check(r["mismatches_outside_bands"] == 0,
@@ -1118,6 +1169,14 @@ def fkcc_paths_phase(dev, api_launches, planner_calls, batches):
                 | {"name": "fkcc_fcit", "replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
                    "occupancy": r["occupancy"], "launches_of": "one panda.fcit call",
                    "ms_of": "one popped edge (1 x 440), one launch"})
+    for case in time_fkcc.ROBOT_DRAWS:
+        r = held[case]
+        rows.append(row("fkcc", r["kernel_ms"], r["plain_ms"], r, r["max_abs_err"], 1)
+                    | {"name": f"fkcc_{case}",
+                       "replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
+                       "occupancy": r["occupancy"],
+                       "launches_of": "suite_robots' draw of the robot's endpoints",
+                       "ms_of": f"one launch, {r['problems']} x {r['configs_per_problem']} rows"})
     return rows, held
 
 
@@ -1587,6 +1646,364 @@ def aorrtc_phase(dev):
                        "ms_of": f"one launch at {case}'s shape ({r['problems']} x "
                                 f"{r['configs_per_problem']}, {r['layout']})"})
     return rows
+
+
+def trace_kernel_us(log_dir) -> float:
+    """Microseconds of CUDA kernels in a profiling.trace directory."""
+    from vamp_mvt_tpu_torch.utils import profiling
+
+    with open(os.path.join(log_dir, profiling.TRACE_FILE)) as fh:
+        events = json.load(fh)["traceEvents"]
+    return float(sum(e.get("dur", 0) for e in events
+                     if e.get("ph") == "X" and e.get("cat") == "kernel"))
+
+
+def mpnet_phase(dev):
+    """This slice's path: plan_with_mpnet for the Panda at the published
+    widths (encoder 35,934 -> 512-256-128-28, planner 42 -> 1280-...-32 -> 7,
+    random weights from the seed as MPNetPlanner draws them) in the sphere
+    cage, its pointcloud from pointcloud/sampling.py; MPNET_REQUESTS seeded
+    start/goal pairs valid in the cage: method, ms, fkcc launches (in all
+    and in the MPNet rollouts), planner forwards; every returned path
+    revalidated by the plain version; the encoder's and a planner forward's
+    ms against their bounds; the rollouts (MPNetPlanner.plan) of
+    MPNET_CPU_CHECK requests on the card against device="cpu" at a cut
+    budget (the same method and vertex count, vertices within
+    MPNET_VERTEX_ATOL); one request's rollouts untraced (the step's ms),
+    then the same draws under profiling.trace (the top op_breakdown rows,
+    the card's busy share, both marked profiled); the fkcc kernel at
+    MPNet's launch shape (1 x 440 lanes) against its plain version.
+    Returns the kernels line's row."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import vamp_mvt_tpu_torch as vmt
+    from vamp_mvt_tpu_torch.bench import mbm, scenes, time_fkcc
+    from vamp_mvt_tpu_torch.collision import environment as envmod
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
+    from vamp_mvt_tpu_torch.planning import mpnet, validate
+    from vamp_mvt_tpu_torch.utils import profiling
+
+    spec = vmt.panda.spec
+    env = vmt.Environment()
+    for c in mbm.CAGE_CENTERS:
+        env.add_sphere(vmt.Sphere(c, mbm.CAGE_RADIUS))
+    envs1 = env.build(dev).map(lambda t: t[None])
+    cloud = scenes.cage_cloud(MPNET_CLOUD)
+    requests = scenes.cage_requests(spec, MPNET_REQUESTS, device=dev)
+
+    def request(start, goal, device):
+        fkcc_cuda.LAUNCHES = 0
+        mpnet.FORWARDS = mpnet.VALIDATIONS = 0
+        with LaunchTally(mpnet.MPNetPlanner, "plan") as tally:
+            t0 = time.perf_counter()
+            path, method = mpnet.plan_with_mpnet("panda", start, goal, env, cloud,
+                                                 device=device)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        rec = {"method": method, "ms": ms, "fkcc_launches": fkcc_cuda.LAUNCHES,
+               "mpnet_fkcc_launches": tally.launches, "planner_forwards": mpnet.FORWARDS,
+               "motion_checks": mpnet.VALIDATIONS, "path_vertices": 0 if path is None else len(path)}
+        return path, rec
+
+    # --- the main path: MPNET_REQUESTS plan_with_mpnet calls on the card
+    recs, mpnet_launches = [], 0
+    for i, (start, goal) in enumerate(requests):
+        path, rec = request(start, goal, dev)
+        check(path is not None and len(path) >= 2, "plan_with_mpnet returned a path")
+        P = torch.as_tensor(np.stack(path).astype(np.float32), device=dev)
+        rec["revalidated_plain"] = bool(paths_revalidate_plain(spec, envs1, P[None], [len(path)])[0])
+        rec["reaches_goal"] = bool(np.linalg.norm(path[-1] - goal) < 1e-5)
+        if not rec["revalidated_plain"]:
+            segs = paths_revalidate_plain(spec, envs1.map(lambda t: t.expand(len(path) - 1,
+                                                                              *t.shape[1:])),
+                                          torch.stack([P[:-1], P[1:]], 1), [2] * (len(path) - 1))
+            rec["invalid_segments"] = torch.nonzero(~segs).flatten().tolist()
+        # a "partial" answer is the best rollout, not a solution: as the JAX
+        # function's, it may hold the rollouts' unchecked segments
+        check(rec["revalidated_plain"] or rec["method"] == "partial",
+              f"every plan_with_mpnet solution revalidates (plain): request {i}: "
+              f"{json.dumps(rec)}")
+        check(rec["mpnet_fkcc_launches"] == rec["motion_checks"] > 0,
+              "each MPNet motion check is one fkcc launch")
+        mpnet_launches += rec["mpnet_fkcc_launches"]
+        recs.append(rec)
+
+    # --- the networks alone: the encoder and one planner forward
+    mp = mpnet.MPNetPlanner(spec, env.build(dev), device=dev)
+    x_enc = torch.as_tensor(cloud[: mpnet.MAX_POINTCLOUD_SIZE].reshape(-1),
+                            dtype=torch.float32, device=dev)
+    x_plan = torch.zeros(mpnet.LATENT + 2 * spec.dimension, device=dev)
+    nets = {}
+    for tag, net, x in (("encoder", mp.encoder_params, x_enc),
+                        ("planner", mp.planner_params, x_plan)):
+        with torch.no_grad():
+            n_ms = time_cuda(lambda: net(x), 3, 50)
+            graph = time_fkcc.graph_ms(lambda: net(x))
+        sizes = net.sizes
+        params = sum(p.numel() for p in net.parameters())
+        nets[tag] = {"sizes": list(sizes), "parameters": params, "ms": n_ms, "device_ms": graph,
+                     **bound(2 * sum(a * b for a, b in zip(sizes[:-1], sizes[1:])),
+                             4 * (params + sizes[0] + sizes[-1]))}
+
+    # --- the rollouts on the card against device="cpu" at a cut budget:
+    # MPNetPlanner.plan itself, so that the answers compared are MPNet's
+    # (plan_with_mpnet would hand most of them to its RRTC fallback)
+    rollers = {}
+    for side in (dev, "cpu"):
+        rollers[side] = mpnet.MPNetPlanner(spec, env.build(side), device=side)
+        rollers[side].encode_environment(cloud)
+    cmp = []
+    for start, goal in requests[:MPNET_CPU_CHECK]:
+        got = {}
+        for side, planner in rollers.items():
+            mpnet.FORWARDS = 0
+            t0 = time.perf_counter()
+            path = planner.plan(start, goal, max_iterations=MPNET_CPU_ITERATIONS)
+            ms = (time.perf_counter() - t0) * 1e3
+            reached = path is not None and float(np.linalg.norm(path[-1] - goal)) < 1e-6
+            method = ("mpnet" if reached and planner.path_valid(path)
+                      else "partial" if path is not None else "none")
+            got[side] = (path, {"method": method, "ms": ms, "planner_forwards": mpnet.FORWARDS,
+                                "path_vertices": 0 if path is None else len(path)})
+        (pc, rc), (pp, rp) = got[dev], got["cpu"]
+        same_len = rc["path_vertices"] == rp["path_vertices"]
+        cmp.append({"card": rc, "cpu": rp, "answers_from": "MPNetPlanner.plan rollouts",
+                    "same_method": rc["method"] == rp["method"], "same_length": same_len,
+                    "max_vertex_diff": float(np.abs(np.stack(pc) - np.stack(pp)).max())
+                    if same_len and pc is not None else None})
+
+    # --- one request's rollouts (the networks built and the cloud encoded
+    # before): untimed by the profiler, then the same draws again under it
+    mp.encode_environment(cloud)
+    rng_state = mp._rng.bit_generator.state
+    mpnet.FORWARDS = mpnet.VALIDATIONS = 0
+    t0 = time.perf_counter()
+    mp.plan(*requests[0])
+    torch.cuda.synchronize()
+    untraced_us = (time.perf_counter() - t0) * 1e6
+    untraced = {"planner_forwards": mpnet.FORWARDS, "motion_checks": mpnet.VALIDATIONS,
+                "us": untraced_us, "step_ms": untraced_us / 1e3 / max(mpnet.FORWARDS, 1)}
+    mp._rng.bit_generator.state = rng_state
+    fkcc_cuda.LAUNCHES = 0
+    mpnet.FORWARDS = mpnet.VALIDATIONS = 0
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir):
+            t0 = time.perf_counter()
+            mp.plan(*requests[0])
+            torch.cuda.synchronize()
+            traced_us = (time.perf_counter() - t0) * 1e6
+        top = profiling.op_breakdown(log_dir, top=10)
+        kernel_us = trace_kernel_us(log_dir)
+    traced = {"planner_forwards": mpnet.FORWARDS, "motion_checks": mpnet.VALIDATIONS,
+              "fkcc_launches": fkcc_cuda.LAUNCHES}
+    check(traced["planner_forwards"] == untraced["planner_forwards"]
+          and traced["motion_checks"] == untraced["motion_checks"],
+          "the traced rollouts repeat the untraced ones")
+    untraced["device_busy_share"] = kernel_us / untraced_us  # the traced run's kernels
+
+    # --- fkcc at MPNet's launch shape: one motion check, 1 x 440 lanes
+    num = validate.n_points_bound(spec, float(np.linalg.norm(spec.limits_high
+                                                             - spec.limits_low)))
+    st = torch.as_tensor(np.stack([r[0] for r in requests]), device=dev)[:, None]
+    gl = torch.as_tensor(np.stack([r[1] for r in requests]), device=dev)[:, None]
+    q_d = validate.motion_configs(spec, st, gl, num).contiguous()        # (R, 7, 440)
+    envs_r = envmod.broadcast_environment(env.build(dev), MPNET_REQUESTS)
+    every = branch_kernel(spec, envs_r, q_d.transpose(1, 2).contiguous(), "lanes")[0]
+    one = branch_kernel(spec, envs1, q_d[:1].transpose(1, 2).contiguous(), "lanes")[0]
+    one["device_ms"] = time_fkcc.graph_ms(time_fkcc.launcher(spec, envs1, q_d[:1], "lanes"))
+    check(every["mismatches_outside_bands"] == 0 and one["mismatches_outside_bands"] == 0,
+          "fkcc agrees with plain outside the contact band at MPNet's shape")
+    for c in cmp:
+        check(c["same_method"] and c["same_length"]
+              and (c["max_vertex_diff"] is None or c["max_vertex_diff"] <= MPNET_VERTEX_ATOL),
+              f"MPNet's rollouts on the card equal the CPU's: {json.dumps(c)}")
+
+    emit({"phase": "mpnet", "robot": "panda", "scene": "sphere cage",
+          "cloud_points": int(len(cloud)), "requests": recs,
+          "methods": {m: sum(r["method"] == m for r in recs)
+                      for m in ("mpnet", "rrtc_fallback", "partial")},
+          "networks": nets, "encoder_bound_ms": nets["encoder"]["bytes_bound_ms"],
+          "card_vs_cpu": {"max_iterations": MPNET_CPU_ITERATIONS, "requests": cmp,
+                          "same_method_share": float(np.mean([c["same_method"] for c in cmp])),
+                          "same_length_share": float(np.mean([c["same_length"] for c in cmp]))},
+          "rollouts": untraced | {"of": "MPNetPlanner.plan of the first request, untraced"},
+          "traced_rollouts": traced | {"of": "the same rollouts under profiling.trace",
+                                       "profiled": True, "traced_us": traced_us,
+                                       "step_ms": traced_us / 1e3 / max(traced["planner_forwards"], 1),
+                                       "kernel_us": kernel_us,
+                                       "device_busy_share": kernel_us / traced_us},
+          "op_breakdown_top10": [list(r) for r in top],
+          "fkcc_motion_check": one, "fkcc_request_segments": every})
+    return row("fkcc", one["kernel_ms"], one["plain_ms"], one, one["max_abs_err"], mpnet_launches) | {
+        "name": "fkcc_mpnet", "replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
+        "occupancy": one["occupancy"], "device_ms": one["device_ms"],
+        "launches_of": f"the MPNet motion checks of {MPNET_REQUESTS} plan_with_mpnet requests",
+        "launches_per_request": mpnet_launches / MPNET_REQUESTS,
+        "ms_of": f"one motion check (1 x {num}, lanes)",
+        "mismatches_outside_bands": every["mismatches_outside_bands"]}
+
+
+def mesh_phase(dev):
+    """parallel/mesh.py on the card under a world-size-1 NCCL group
+    (init_distributed): plan_batch_mega_sharded over a one-card mesh on the
+    MEGA_PROBLEMS cages against plan_batch_mega (identical),
+    plan_batch_sharded on MESH_LOCKSTEP cages against rrtc.plan_batch
+    (identical), and aorrtc_restarts_sharded at rounds=2 from VAMP's start A
+    to goal B in the cage (its all_reduce(MIN) checked against the host
+    minimum inside the function); the group destroyed after."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import vamp_mvt_tpu_torch as vmt
+    from vamp_mvt_tpu_torch.bench import mbm
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
+    from vamp_mvt_tpu_torch.parallel import mesh
+    from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    n = mesh.init_distributed(init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        check(n == 1 and dist.get_backend() == "nccl", "a world-size-1 NCCL group")
+        m = mesh.make_mesh()
+        spec = vmt.panda.spec
+        c_envs, c_st, c_gl, c_mk = mbm.build_batch(
+            mbm.cage_suite(MEGA_PROBLEMS)["problems"]["cage"], device=dev)
+        s = mbm.default_settings("panda", "mega")
+        rrtc_mega_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        sh = mesh.plan_batch_mega_sharded(spec, m, c_envs, c_st, c_gl, c_mk, s)
+        torch.cuda.synchronize()
+        sh_ms = (time.perf_counter() - t0) * 1e3
+        sh_launches = rrtc_mega_cuda.LAUNCHES
+        lo = rrtc_mega.plan_batch_mega(spec, c_envs, c_st, c_gl, c_mk, s, device=dev)
+        mega_same = same_plan(sh, lo)
+        k = MESH_LOCKSTEP
+        e64 = c_envs.map(lambda t: t[:k])
+        t0 = time.perf_counter()
+        lsh = mesh.plan_batch_sharded(spec, m, e64, c_st[:k], c_gl[:k], c_mk[:k], s)
+        torch.cuda.synchronize()
+        lsh_ms = (time.perf_counter() - t0) * 1e3
+        llo = rrtc.plan_batch(spec, e64, c_st[:k], c_gl[:k], c_mk[:k], s)
+        lock_same = same_plan(lsh, llo)
+        env = vmt.Environment()
+        for c in mbm.CAGE_CENTERS:
+            env.add_sphere(vmt.Sphere(c, mbm.CAGE_RADIUS))
+        t0 = time.perf_counter()
+        path, length, cost, history = mesh.aorrtc_restarts_sharded(
+            spec, m, env.build(dev), mbm.PANDA_START, mbm.PANDA_GOAL,
+            vmt.panda.default_rrtc_settings(), rounds=2)
+        torch.cuda.synchronize()
+        restart_ms = (time.perf_counter() - t0) * 1e3
+        ok = paths_revalidate_plain(spec, env.build(dev).map(lambda t: t[None]),
+                                    torch.as_tensor(path, device=dev)[None], [length])
+        emit({"phase": "mesh", "backend": dist.get_backend(), "world_size": n,
+              "mesh_devices": [str(d) for d in m.devices],
+              "mega": {"problems": MEGA_PROBLEMS, "identical": int(mega_same.sum()),
+                       "solved": int(sh.solved.sum()), "ms": sh_ms, "rrtc_mega_launches": sh_launches},
+              "lockstep": {"problems": k, "identical": int(lock_same.sum()),
+                           "solved": int(lsh.solved.sum()), "ms": lsh_ms},
+              "aorrtc_restarts": {"rounds": 2, "history": history, "cost": cost,
+                                  "path_vertices": length, "ms": restart_ms,
+                                  "revalidated_plain": bool(ok[0]),
+                                  "all_reduce_min_checked": True}})
+        check(bool(mega_same.all()), "the sharded mega plan equals plan_batch_mega")
+        check(sh_launches > 0, "the sharded mega plan launched the planner kernel")
+        check(bool(lock_same.all()), "the sharded lockstep plan equals rrtc.plan_batch")
+        check(len(history) == 3 and np.isfinite(cost) and bool(ok[0]),
+              "aorrtc_restarts_sharded found a path that revalidates (plain)")
+        check(all(b <= a for a, b in zip(history, history[1:])),
+              "the restarts' best cost never rises")
+    finally:
+        dist.destroy_process_group()
+
+
+def examples_phase(dev):
+    """Each port example's main on the card at the JAX scripts' defaults:
+    solved counts, walls and the kernels each launched.  sphere_cage_example
+    runs both megakernels: every path of its timed run revalidated by the
+    plain version, and its first EXAMPLE_PLAIN_CHECK trials held against the
+    kernels' plain versions on the same inputs (the lockstep planner at the
+    example's settings and sample offset, then the lockstep simplifier on
+    the plain plan's paths), at least MIN_SHARE identical."""
+    import torch
+
+    from vamp_mvt_tpu_torch.examples import (
+        attachments, flying_sphere, random_dance, sphere_cage_example)
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda, rrtc_mega_cuda, simplify_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc, simplify_mega
+    from vamp_mvt_tpu_torch.robots import registry
+
+    libs = {"fkcc": fkcc_cuda, "rrtc_mega": rrtc_mega_cuda, "simplify_mega": simplify_mega_cuda}
+    out = {}
+    for name, fn in (("sphere_cage_example", lambda: sphere_cage_example.main(100, device=dev)),
+                     ("random_dance", lambda: random_dance.main(5, device=dev)),
+                     ("attachments", lambda: attachments.main(device=dev)),
+                     ("flying_sphere", lambda: flying_sphere.main(device=dev))):
+        for lib in libs.values():
+            lib.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = {"wall_s": time.perf_counter() - t0, "result": res,
+                     "launches": {n: lib.LAUNCHES for n, lib in libs.items()}}
+    out["attachments"]["result"].pop("path")
+
+    cage = out["sphere_cage_example"]
+    res = cage["result"]
+    (envs, st, gl, mk), plan, simp = (res.pop(k) for k in ("batch", "plan", "simplified"))
+    spec = registry.load("panda")
+    plan_ok = paths_revalidate_plain(spec, envs, plan.path, plan.path_length)
+    simp_ok = paths_revalidate_plain(spec, envs, simp.path, simp.path_length)
+    k = EXAMPLE_PLAIN_CHECK
+    sub = envs.map(lambda t: t[:k])
+    offs = torch.full((k,), sphere_cage_example.TIMED_OFFSET, dtype=torch.long, device=dev)
+    t0 = time.perf_counter()
+    pp = rrtc.plan_batch_compact(spec, sub, st[:k], gl[:k], mk[:k], sphere_cage_example.SETTINGS,
+                                 offs, device=dev)
+    torch.cuda.synchronize()
+    plan_plain_s = time.perf_counter() - t0
+    same = same_plan(type(plan)(*(t[:k] for t in plan)), pp)
+    # the simplify kernel on the plain plan's paths against its plain version
+    ks = simplify_mega.simplify_batch_mega(spec, sub, pp.path, pp.path_length,
+                                           sphere_cage_example.SIMPLIFY, device=dev)
+    t0 = time.perf_counter()
+    ps = simplify_mega.simplify_batch_plain(spec, sub, pp.path, pp.path_length,
+                                            sphere_cage_example.SIMPLIFY)
+    torch.cuda.synchronize()
+    simp_plain_s = time.perf_counter() - t0
+    s_len = ks.path_length == ps.path_length
+    s_cost = (ks.cost - ps.cost).abs() <= SIMPLIFY_RTOL * ps.cost.abs()
+    solved = plan.solved
+    cage["checks"] = {
+        "solved_paths_revalidated_plain": {"plan": int((plan_ok & solved).sum()),
+                                           "simplified": int((simp_ok & solved).sum())},
+        "against_plain": {"trials": k, "rrtc_mega_identical": int(same.sum()),
+                          "plain_plan_s": plan_plain_s,
+                          "simplify_mega_equal_length": int(s_len.sum()),
+                          "simplify_mega_cost_within_rtol": int(s_cost.sum()),
+                          "plain_simplify_s": simp_plain_s}}
+    emit({"phase": "examples", **out})
+    check(res["solved"] == 100, "sphere_cage_example solves its 100 trials")
+    check(cage["launches"]["rrtc_mega"] > 0 and cage["launches"]["simplify_mega"] > 0,
+          "sphere_cage_example ran both megakernels")
+    check(bool(plan_ok[solved].all()) and bool(simp_ok[solved].all()),
+          "every sphere_cage_example path revalidates (plain)")
+    check(float(same.float().mean()) >= MIN_SHARE,
+          "sphere_cage_example's plans equal the planner's plain version")
+    check(float(s_len.float().mean()) >= MIN_SHARE and float(s_cost.float().mean()) >= MIN_SHARE,
+          "sphere_cage_example's simplifier equals its plain version")
+    check(out["attachments"]["result"]["solved"], "attachments solves")
+    check(out["flying_sphere"]["result"]["solved"], "flying_sphere solves")
+    check(all(v["launches"]["fkcc"] > 0 for k, v in out.items() if k != "sphere_cage_example"),
+          "the API examples launched the fkcc kernel")
 
 
 def main() -> int:
@@ -2077,9 +2494,25 @@ def main() -> int:
         g_plain = time_cuda(lambda: gather.plain(pname, tab, gi, gi2), 1, 5)
         per = PROBE_TILES * 1024 * (gather.TIMING_GATHERS if pname == "timing" else 1)
         ops, g_bytes = gather.work(pname, PROBE_TILES)
+        lib_call, why = GATHER_LIBRARY[pname]
+        lib_ms = None
+        if lib_call is not None:
+            li, li2 = gi.long(), None if gi2 is None else gi2.long()
+            check(torch.equal(lib_call(tab, li, li2), gather.plain(pname, tab, gi, gi2)),
+                  f"the library call computes the {pname} probe")
+            lib_ms = time_cuda(lambda: lib_call(tab, li, li2), 3, 20)
         probes[pname] = {"equal": bool(np.array_equal(got, want)), "ms": g_ms,
                          "plain_ms": g_plain, "ns_per_gather": g_ms * 1e6 / per,
-                         **bound(ops, g_bytes)}
+                         "library_ms": lib_ms, "library": why, **bound(ops, g_bytes)}
+    gather_rows = [{"name": f"probe_gather_{p}", "route": "cuda",
+                    "source": "vamp_mvt_tpu_torch/csrc/probe_gather.cu",
+                    "replaces": f"tools/probe_gather.py:{GATHER_LINES[p]}",
+                    "launches": 1, "on_main_path": False,
+                    "max_abs_err": 0.0 if probes[p]["equal"] else None,
+                    "ms": probes[p]["ms"], "plain_ms": probes[p]["plain_ms"],
+                    "bound_ms": probes[p]["bound_ms"], "bound_by": probes[p]["bound_by"],
+                    "library_ms": probes[p]["library_ms"], "library": probes[p]["library"],
+                    "checked_against_plain": True} for p in gather.PROBES if p != "timing"]
     gather_row = {"name": "probe_gather", "route": "cuda",
                   "source": "vamp_mvt_tpu_torch/csrc/probe_gather.cu",
                   "replaces": "tools/probe_gather.py:32",
@@ -2089,7 +2522,8 @@ def main() -> int:
                   "ms": probes["timing"]["ms"], "plain_ms": probes["timing"]["plain_ms"],
                   "bound_ms": probes["timing"]["bound_ms"],
                   "bound_by": probes["timing"]["bound_by"], "library_ms": None,
-                  "ms_of": "the timing probe (each probe in the phase line)",
+                  "library": probes["timing"]["library"],
+                  "ms_of": "the timing probe (the others: probe_gather_<name>)",
                   "checked_against_plain": True}
     emit({"phase": "probe_gather", "tiles": PROBE_TILES, "probes": probes, "kernel": gather_row})
     check(all(v["equal"] for v in probes.values()), "every gather probe equals numpy")
@@ -2107,8 +2541,13 @@ def main() -> int:
     path_rows, path_lines = fkcc_paths_phase(dev, api_launches, planner_calls, batches)
     prm_row["sample_wave_ms"] = path_lines["prm_samples"]["kernel_ms"]
 
-    # --- AORRTC, REDUCE and PERTURB (this slice) ---------------------------
+    # --- AORRTC, REDUCE and PERTURB --------------------------------------
     aorrtc_rows = aorrtc_phase(dev)
+
+    # --- MPNet, sharding and the examples (this slice) ----------------------
+    mpnet_row = mpnet_phase(dev)
+    mesh_phase(dev)
+    examples_phase(dev)
 
     # --- bench: the port's bench entry on its default source ----------------
     bench_phase()
@@ -2154,10 +2593,12 @@ def main() -> int:
         *path_rows,
         *branch_rows,
         gather_row,
+        *gather_rows,
         mosaic_row,
         *robot_rows,
         prm_row,
         *aorrtc_rows,
+        mpnet_row,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

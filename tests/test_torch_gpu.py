@@ -1184,3 +1184,56 @@ def test_reduce_perturb_card_match_cpu(cuda):
     assert torch.equal(card.path_length.cpu(), cpu.path_length)
     assert torch.equal(card.iterations.cpu(), cpu.iterations)
     torch.testing.assert_close(card.path.cpu(), cpu.path, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_mpnet_valid_matches_plain(cuda):
+    """MPNet's motion check (`MPNetPlanner._valid`: one fkcc launch of 1 x
+    440 lanes for the Panda) against the plain version on the same points,
+    over seeded segments in the sphere cage; segments with a point within
+    BAND of contact are left out."""
+    from vamp_mvt_tpu_torch.bench import mbm
+    from vamp_mvt_tpu_torch.planning import mpnet, validate
+
+    spec = registry.load("panda")
+    b = envmod.EnvironmentBuilder()
+    for c in mbm.CAGE_CENTERS:
+        b.add_sphere(c, mbm.CAGE_RADIUS)
+    mp = mpnet.MPNetPlanner(spec, b.build(device=cuda), device=cuda)
+    assert mp._num == 440
+    rng = np.random.default_rng(5)
+    q = rng.uniform(spec.limits_low, spec.limits_high, (128, 7)).astype(np.float32)
+    ends = q + 0.3 * rng.standard_normal((128, 7)).astype(np.float32)
+    decided = {True: 0, False: 0}
+    for a, e in zip(q, ends):
+        before = fkcc_cuda.LAUNCHES
+        got = mp._valid(a, e)
+        assert fkcc_cuda.LAUNCHES == before + 1
+        pts = validate.motion_configs(spec, torch.as_tensor(a, device=cuda)[None, None],
+                                      torch.as_tensor(e, device=cuda)[None, None], mp._num)
+        vmin = fkcc_cuda.fkcc_vmin_plain(spec, mp._envs, pts.transpose(1, 2).contiguous())
+        if bool((vmin.abs() <= BAND).any()):
+            continue
+        assert got == bool((vmin >= 0).all())
+        decided[got] += 1
+    assert decided[True] > 10 and decided[False] > 10
+
+
+@pytest.mark.gpu
+def test_sharded_mega_planner_on_the_card(cuda):
+    """plan_batch_mega_sharded over the local cards (no process group) on 64
+    cages equals plan_batch_mega on one."""
+    from vamp_mvt_tpu_torch.bench import mbm
+    from vamp_mvt_tpu_torch.parallel import mesh
+    from vamp_mvt_tpu_torch.planning import rrtc_mega
+
+    spec = registry.load("panda")
+    envs, st, gl, mk = mbm.build_batch(mbm.cage_suite(64)["problems"]["cage"], device=cuda)
+    s = mbm.default_settings("panda", "mega")
+    m = mesh.make_mesh()
+    assert m.size == torch.cuda.device_count()
+    sh = mesh.plan_batch_mega_sharded(spec, m, envs, st, gl, mk, s)
+    lo = rrtc_mega.plan_batch_mega(spec, envs, st, gl, mk, s, device=cuda)
+    assert bool(lo.solved.all())
+    for f in ("solved", "iterations", "size_start", "size_goal", "path_length", "cost", "path"):
+        assert torch.equal(getattr(sh, f).cpu(), getattr(lo, f).cpu()), f

@@ -177,3 +177,53 @@ def maze(rng):
     out = np.zeros((200, 200), np.float32)
     out[5:195, 5:195] = np.kron(blocks, np.ones((10, 10), np.float32))
     return out
+
+
+WALL_LIMITS = dict(lows=(-3, -3, 0), highs=(3, 3, 3), radius=0.1)
+
+
+def center_wall(B: int, device=None):
+    """The sphere robot's wall with a centre hole, B problems whose goals
+    differ by 0.05 each (tests/test_sharding.py's batch): spec, envs (B, ...),
+    starts (B, 3), goals (B, 1, 3), masks (B, 1)."""
+    from vamp_mvt_tpu_torch.collision import environment as envmod
+
+    b = envmod.EnvironmentBuilder()
+    for y in np.linspace(-3, 3, 13):
+        for z in np.linspace(0, 3, 7):
+            if abs(y) < 1.0 and abs(z - 1.0) < 1.0:
+                continue
+            b.add_sphere([0.0, y, z], 0.3)
+    envs = envmod.broadcast_environment(b.build(device=device), B)
+    starts = torch.tensor([[-2.0, 0.0, 1.0]] * B, device=device)
+    goals = (torch.tensor([[[2.0, 0.0, 1.0]]] * B, device=device)
+             + torch.arange(B, dtype=torch.float32, device=device)[:, None, None] * 0.05)
+    masks = torch.ones((B, 1), dtype=torch.bool, device=device)
+    return registry.sphere_spec(**WALL_LIMITS), envs, starts, goals, masks
+
+
+def cage_cloud(per_sphere: int = 1000) -> np.ndarray:
+    """The sphere cage's pointcloud: `per_sphere` seeded surface points a
+    cage sphere (pointcloud/sampling.py::sphere_surface), (14 per_sphere, 3)."""
+    from vamp_mvt_tpu_torch.pointcloud import sampling
+
+    np.random.seed(0)
+    return np.vstack([sampling.sphere_surface(c, mbm.CAGE_RADIUS, per_sphere)
+                      for c in mbm.CAGE_CENTERS])
+
+
+def cage_requests(spec, n: int, seed: int = 40, device=None) -> list[tuple]:
+    """`n` (start, goal) pairs of seeded configurations valid in the sphere
+    cage: the first 2n valid of 1024 drawn, in order (numpy float32)."""
+    from vamp_mvt_tpu_torch.collision import environment as envmod
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
+
+    b = envmod.EnvironmentBuilder()
+    for c in mbm.CAGE_CENTERS:
+        b.add_sphere(c, mbm.CAGE_RADIUS)
+    envs = b.build(device=device).map(lambda t: t[None])
+    q = seeded_configs(spec, 1, 1024, seed, device)
+    valid = q[0][fkcc_cuda.fkcc_batched(spec, envs, q)[0]][: 2 * n].cpu().numpy()
+    if len(valid) < 2 * n:
+        raise ValueError(f"only {len(valid)} of 1024 seeded configurations are valid")
+    return [(valid[2 * i], valid[2 * i + 1]) for i in range(n)]

@@ -91,6 +91,11 @@ def build_mvt(points, min_radius: float, max_radius: float, workspace_min, works
     return MVTData(grid=grid, voxel_points=vp, voxel_count=vc, voxel_aabb=va, meta=meta)
 
 
+def empty_mvt() -> MVTData:
+    """The MVT of an empty cloud."""
+    return build_mvt(np.zeros((0, 3)), 0.01, 1.0, [0, 0, 0], [1, 1, 1], 0.0025)
+
+
 def batch_index(lead: tuple, qshape: tuple, device) -> torch.Tensor:
     """(qshape) int64: the row of a structure's flattened leading dims `lead`
     that serves each query, `lead` aligned with the query's first dims."""

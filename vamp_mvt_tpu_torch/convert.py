@@ -1,10 +1,10 @@
 """State carried across from the JAX package: robot specs and environments.
 
-The JAX package has no weights; its state is the robot spec, the
-environment arrays and the pointcloud structures.  These helpers take them
-as numpy arrays and Python scalars (what `np.asarray` gives for each JAX
-leaf) and return the port's objects, so both packages can be fed the same
-inputs.
+The JAX package's state is the robot spec, the environment arrays, the
+pointcloud structures and MPNet's network parameters.  These helpers take
+them as numpy arrays and Python scalars (what `np.asarray` gives for each
+JAX leaf) and return the port's objects, so both packages can be fed the
+same inputs.
 """
 
 from __future__ import annotations
@@ -104,3 +104,20 @@ def environment_from_numpy(leaves: dict, device) -> Environment:
         for name in _STRUCT_FROM if leaves.get(name) is not None
     }
     return Environment(**tables, **structs)
+
+
+def mpnet_params_from_numpy(params, device=None):
+    """The port's `planning/mpnet.py::MLP` from MPNet parameters as the JAX
+    package holds them: (W (a, b), b (b,), alpha) a layer, `x @ W + b`,
+    numpy arrays or scalars."""
+    from vamp_mvt_tpu_torch.planning.mpnet import MLP
+
+    params = [(np.asarray(W, np.float32), np.asarray(b, np.float32),
+               np.asarray(a, np.float32).reshape(())) for W, b, a in params]
+    mlp = MLP((params[0][0].shape[0],) + tuple(W.shape[1] for W, _, _ in params))
+    with torch.no_grad():
+        for (W, b, a), lin, act in zip(params, mlp.linears, mlp.prelus):
+            lin.weight.copy_(torch.tensor(W.T))
+            lin.bias.copy_(torch.tensor(b))
+            act.weight.fill_(float(a))
+    return mlp.to(device)

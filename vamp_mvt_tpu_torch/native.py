@@ -49,6 +49,15 @@ def library() -> ctypes.CDLL:
         return _LIB
 
 
+def available() -> bool:
+    """Whether the library loads (it is never built here: `make -C native`)."""
+    try:
+        library()
+    except RuntimeError:
+        return False
+    return True
+
+
 def _f32(a) -> np.ndarray:
     return np.ascontiguousarray(a, np.float32)
 

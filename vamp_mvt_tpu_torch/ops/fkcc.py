@@ -218,6 +218,14 @@ def attachment_vmin(spec: RobotSpec, env: Environment, q: torch.Tensor,
     return out
 
 
+def attachment_collision(spec: RobotSpec, env: Environment, q: torch.Tensor,
+                         centers: torch.Tensor) -> torch.Tensor:
+    """(...) bool, True = a payload sphere of `env.attachment` hits the
+    environment or the robot's attachment-check spheres (JAX ops/fkcc.py::
+    attachment_collision)."""
+    return attachment_vmin(spec, env, q, centers) < 0.0
+
+
 def fkcc_vmin(spec: RobotSpec, env: Environment, q: torch.Tensor) -> torch.Tensor:
     """(..., d) -> (...) minimum signed value; valid iff >= 0.
 

@@ -79,6 +79,10 @@ def const_vec(v: np.ndarray):
     return [float(v[i]) for i in range(3)]
 
 
+def identity():
+    return [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]]
+
+
 def axis_rotation_terms(axis: np.ndarray):
     """Rodrigues coefficients (A, I - A, K) of R = A + (I - A) c + K s for a
     constant unit axis, A = axis axis^T, K = [axis]_x (float64)."""

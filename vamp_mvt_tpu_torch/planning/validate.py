@@ -68,6 +68,23 @@ def interpolation_fractions(spec: RobotSpec, dist: torch.Tensor, num: int) -> to
     return torch.clamp_max(k / N[..., None], 1.0)
 
 
+def validate_vector(
+    spec: RobotSpec,
+    envs: Environment,
+    start: torch.Tensor,    # (B, d)
+    vector: torch.Tensor,   # (B, d)
+    dist: torch.Tensor,     # (B,)
+    num: int,
+) -> torch.Tensor:
+    """Validate start + t * vector for t in (0, 1], one segment a problem ->
+    (B,) bool, True = collision-free.  `num` evaluated points must cover
+    the segment's N (`n_points_bound` on the longest segment); mirrors
+    validate_vector (reference planning/validate.hh:23-67)."""
+    frac = interpolation_fractions(spec, dist, num)                     # (B, num)
+    q = start[:, None, :] + vector[:, None, :] * frac[..., None]        # (B, num, d)
+    return torch.all(fkcc_valid(spec, envs, q), dim=-1)
+
+
 def motion_configs(spec: RobotSpec, starts: torch.Tensor, goals: torch.Tensor,
                    num: int) -> torch.Tensor:
     """The (B, d, E * num) configurations `validate_motion_batch` checks for

@@ -60,6 +60,15 @@ def cylinder_surface(pos, quat_xyzw, radius, height, num_points, noise=0.0):
     return pts + jitter
 
 
+def sphere_surface(center, radius, num_points, noise=0.0):
+    """Sample a sphere's surface uniformly (normalised Gaussian directions;
+    the port's own: MBM's clouds sample no sphere)."""
+    d = np.random.standard_normal((num_points, 3))
+    pts = np.asarray(center) + radius * d / np.linalg.norm(d, axis=1, keepdims=True)
+    jitter = 2 * noise * np.random.random_sample(pts.shape) - noise
+    return pts + jitter
+
+
 def cuboid_surface(pos, quat_xyzw, dims, num_points, noise=0.0):
     """Sample the box surface, face-area-weighted."""
     dims = np.asarray(dims, dtype=float)

@@ -22,6 +22,37 @@ ROBOTS = ("sphere", "ur5", "panda", "fetch", "baxter")
 RRT_RANGES = {"sphere": 1.0, "ur5": 1.5, "panda": 1.0, "fetch": 1.0, "baxter": 0.5}
 
 
+def spec_to_dict(spec: RobotSpec) -> dict:
+    """The JSON form `spec_from_dict` reads (robots/_specs.json's entries)."""
+    return {
+        "name": spec.name,
+        "dimension": spec.dimension,
+        "resolution": spec.resolution,
+        "frames": [
+            {
+                "name": f.name,
+                "parent": f.parent,
+                "joint_type": f.joint_type,
+                "q_index": f.q_index,
+                "origin_rot": np.asarray(f.origin_rot).reshape(-1).tolist(),
+                "origin_xyz": np.asarray(f.origin_xyz).tolist(),
+                "axis": np.asarray(f.axis).tolist(),
+            }
+            for f in spec.frames
+        ],
+        "sphere_frame": spec.sphere_frame.tolist(),
+        "sphere_local": spec.sphere_local.tolist(),
+        "sphere_radius": spec.sphere_radius.tolist(),
+        "limits_low": spec.limits_low.tolist(),
+        "limits_high": spec.limits_high.tolist(),
+        "self_collision_pairs": spec.self_collision_pairs.tolist(),
+        "attachment_check_spheres": spec.attachment_check_spheres.tolist(),
+        "joint_names": list(spec.joint_names),
+        "end_effector": spec.end_effector,
+        "ee_frame": spec.ee_frame,
+    }
+
+
 def spec_from_dict(d: dict) -> RobotSpec:
     return RobotSpec(
         name=d["name"],
