@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, each printed as one JSON line (no failure is caught: a failed check
-or an exception exits non-zero):
+Phases, each printed as one JSON line with `t_s`, the seconds since the
+script started, when it ended (no failure is caught: a failed check or an
+exception exits non-zero):
 
   card           nvidia-smi's name and power limit, torch and CUDA versions
   build          the five kernels (csrc/fkcc.cu, csrc/rrtc_mega.cu,
@@ -83,9 +84,13 @@ or an exception exits non-zero):
                  PC_CHECK pointcloud scenes at the budget: at least MIN_SHARE
                  identical, times, work counters and the bound
   probe_gather   the six gather probes (csrc/probe_gather.cu, off the main
-                 path) against numpy, with ns per gather, the launches of
-                 the probe entry point and the time of the PyTorch call that
-                 computes the probe where one does (GATHER_LIBRARY)
+                 path) against numpy and their plain versions, with the
+                 launches of the probe entry point, ns per gather and per
+                 element, and bench/time_probes.py's times: one call with
+                 the host's work, the card's time alone with the L2 cold,
+                 the same of the PyTorch call that computes the probe where
+                 one does (time_probes.GATHER_LIBRARY); fails if a probe's
+                 share of its bound reads over MAX_SHARE
   attach_kernel  700 seeded sphere cages, each with a seeded payload (1-4
                  spheres along the EE axis, one payload in ten above every
                  radius class) x the kernel phase's 1024 configurations: the
@@ -117,9 +122,11 @@ or an exception exits non-zero):
                  the plain version
   probe_mosaic   the fifteen Mosaic probes (csrc/probe_mosaic.cu, off the main
                  path) on PROBE_TILES tiles against their plain versions and
-                 numpy, tile 0 against the probe files' constants; times,
-                 bounds and a PyTorch call's time where one computes the
-                 probe's function
+                 numpy, tile 0 against the probe files' constants; times
+                 and bounds as probe_gather's (the L2 cold where ten copies
+                 of a launch's bytes overflow it), a PyTorch call's times
+                 where one computes the probe's function, an empty kernel's
+                 graph-replayed time; fails as probe_gather does
   suite_robots   run_suite(robot, planner="mega") at its defaults on UR5,
                  Fetch and Baxter, each over ROBOT_SCENES problems: the
                  first ROBOT_SCENES of ROBOT_POOL MBM-shaped scenes in which
@@ -198,7 +205,7 @@ them; fkcc's attachment and heightfield rows at the API's step; the probes'
 rows with the launches of their entry point; fkcc at the AORRTC shapes with
 the launches of panda.aorrtc's AOX searches, of solve_batch's and of the
 REDUCE/PERTURB pass; fkcc at MPNet's motion check with the launches of the
-mpnet phase's rollouts; each gather probe a row) and, last, {"ok": true,
+mpnet phase's rollouts; each gather and Mosaic probe a row) and, last, {"ok": true,
 "device": {...}}.  The script imports nothing of JAX or of the JAX package.  Without a
 GPU it exits 1.
 """
@@ -245,19 +252,23 @@ AORRTC_PROBLEMS = 32   # cages of bench/aorrtc.py's solve_batch
 AORRTC_BATCH_ITERATIONS = 32768  # its anytime budget (bench/aorrtc.py's default)
 REDUCE_PATHS = 64      # cage paths of the REDUCE + SHORTCUT + PERTURB + BSPLINE pass
 REDUCE_CPU_CHECK = 8   # of them, the CPU repeats (its plain SHORTCUT takes ~10 s a path)
-# The one PyTorch call that computes each gather probe (table, int64 index,
-# int64 second index), or None and why there is none.
-GATHER_LIBRARY = {
-    "lane": (lambda t, i, i2: t.expand(i.shape[0], 8, 128).gather(2, i), "torch.gather"),
-    "row": (lambda t, i, i2: t[0][i], "table[0][idx]"),
-    "bits": (None, "a gather, a shift and a mask: three calls, no one call"),
-    "two_level": (lambda t, i, i2: t[i, i2], "table[idx, idx2]"),
-    "sublane": (lambda t, i, i2: t.expand(i.shape[0], 8, 128).gather(1, i),
-                "torch.gather(dim=1)"),
-    "timing": (None, "64 gathers of shifted indices summed: no one call"),
-}
 GATHER_LINES = {"lane": 32, "row": 47, "bits": 62, "two_level": 85, "sublane": 99,
-                "timing": 121}
+                "timing": 121}  # tools/probe_gather.py's pl.pallas_call of each probe
+MOSAIC_LINES = {  # the pl.pallas_call of each Mosaic probe
+    "while_carry": "tools/probe_mosaic.py:40", "dyn_sublane": "tools/probe_mosaic.py:64",
+    "smem_writes": "tools/probe_mosaic.py:90", "dot_argmin": "tools/probe_mosaic.py:110",
+    "nested_loops": "tools/probe_mosaic.py:141", "grid_carry": "tools/probe_mosaic.py:169",
+    "group32_sum": "tools/probe_mosaic.py:190", "scratch_diag": "tools/probe_mosaic.py:212",
+    "reduce_while": "tools/probe_mosaic2.py:37", "halton_digits": "tools/probe_mosaic2.py:58",
+    "cumsum_first": "tools/probe_mosaic2.py:91", "transpose": "tools/probe_mosaic2.py:117",
+    "static_reads": "tools/probe_mosaic2.py:134", "dyn_rows_while": "tools/probe_mosaic2.py:160",
+    "smem_int_out": "tools/probe_mosaic2.py:184",
+}
+MAX_SHARE = 1.05  # a probe whose time reads under its bound by more than this: a wrong bound
+# Mosaic probes whose library call (time_probes.mosaic_library) computes the
+# whole output, checked equal to the plain version; the others' computes a part
+MOSAIC_LIBRARY_WHOLE = ("dot_argmin", "grid_carry", "group32_sum", "transpose",
+                        "smem_writes", "smem_int_out")
 MPNET_REQUESTS = 8     # plan_with_mpnet requests in the sphere cage
 MPNET_CPU_CHECK = 2    # of them, rerun on the card and on the CPU at a cut budget
 MPNET_CPU_ITERATIONS = 2  # MPNetPlanner.plan's max_iterations of those reruns (the default is 50)
@@ -265,12 +276,16 @@ MPNET_VERTEX_ATOL = 1e-4  # card against CPU rollout vertices (the port against 
 EXAMPLE_PLAIN_CHECK = 32  # sphere_cage_example trials held against the plain versions
 MPNET_CLOUD = 1000     # surface points a cage sphere (14,000 in all, subsampled to 11,978)
 MESH_LOCKSTEP = 64     # cages of the sharded lockstep planner
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
+
+
+START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase line also carries `t_s`, the seconds
+    since the script started (the time budget, phase by phase)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -380,12 +395,12 @@ def pointcloud_envs(problems):
 
 
 def bound(ops: int, n_bytes: int) -> dict:
-    """The card's least time for `ops` FP32 operations moving `n_bytes`."""
-    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    return {"fp32_ops": int(ops), "bytes": int(n_bytes), "ops_bound_ms": ops_ms,
-            "bytes_bound_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    """The card's least time for `ops` FP32 operations moving `n_bytes`, at
+    the H100 SXM peaks of `bench/time_probes.py` (imported here, once the
+    checkout is on sys.path)."""
+    from vamp_mvt_tpu_torch.bench.time_probes import bound as card_bound
+
+    return card_bound(ops, n_bytes)
 
 
 def median(t) -> float:
@@ -1180,97 +1195,151 @@ def fkcc_paths_phase(dev, api_launches, planner_calls, batches):
     return rows, held
 
 
-def probe_mosaic_phase(dev) -> dict:
-    """Every P2/P3 probe (csrc/probe_mosaic.cu) on PROBE_TILES tiles through
-    the probe entry point (`mosaic.run`, once each, launches counted),
-    against its plain version and numpy, tile 0 against the probe file's
-    constants; times, bounds and, where one PyTorch call computes the
-    probe's function, that call's time.  Each time is taken two ways: one
-    call between two events (`ms`, `library_ms`: the host's work included)
-    and ten calls replayed from one CUDA graph, over ten (`device_ms`,
-    `library_device_ms`: the card's time alone).  Returns the kernels line's
-    row."""
+def probe_row(name, src, replaces, r, launches) -> dict:
+    """The kernels line's row of one probe from its phase record."""
+    return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches, "on_main_path": False, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "library": r["library"],
+            "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"],
+            "l2": r["l2"], "share": r["share"], "checked_against_plain": True}
+
+
+def probe_gather_phase(dev) -> tuple[dict, list[dict]]:
+    """The six gather probes (csrc/probe_gather.cu, off the main path) on
+    PROBE_TILES tiles through the probe entry point (`gather.gather`, once
+    each, each probe's launches counted), against numpy and the plain
+    version, and the library calls against the plain version; then
+    `bench/time_probes.py`'s times: `ms` (one call, the host's work
+    included), `device_ms` (the card alone: a 10-launch CUDA graph rotating
+    over copies of the inputs and outputs that overflow the L2), the same
+    two of the one PyTorch call that computes the probe where there is one
+    (`library_ms`, `library_device_ms`), the bound and its share.  The
+    timing kernel builds its 128-entry window table once a block and then
+    makes one lookup an element, so `ns_per_gather` (ns over the 64 gathers
+    an element the probe's function sums) sits beside `ns_per_element`.
+    Fails if a probe's share of its bound reads over MAX_SHARE.  Returns the
+    kernels line's summary row (the timing probe) and the others' rows."""
     import numpy as np
     import torch
 
-    from vamp_mvt_tpu_torch.bench.time_fkcc import graph_ms
+    from vamp_mvt_tpu_torch.bench import time_probes
+    from vamp_mvt_tpu_torch.probes import gather
+
+    probes, launches = {}, {}
+    for p in gather.PROBES:
+        tab, gi, gi2 = gather.inputs(p, PROBE_TILES, seed=time_probes.GATHER_SEED, device=dev)
+        before = gather.LAUNCHES
+        got = gather.gather(p, tab, gi, gi2)
+        launches[p] = gather.LAUNCHES - before
+        want = gather.reference(p, tab.cpu().numpy(), gi.cpu().numpy(),
+                                None if gi2 is None else gi2.cpu().numpy())
+        plain = gather.plain(p, tab, gi, gi2)
+        lib = time_probes.GATHER_LIBRARY[p][0]
+        if lib is not None:
+            check(torch.equal(lib(tab, gi.long(), None if gi2 is None else gi2.long()), plain),
+                  f"the library call computes the {p} probe")
+        probes[p] = {"equal": bool(np.array_equal(got.cpu().numpy(), want)),
+                     "equal_plain": torch.equal(got, plain),
+                     "max_abs_err": float((got.double() - plain.double()).abs().max()),
+                     "plain_ms": time_cuda(lambda: gather.plain(p, tab, gi, gi2), 1, 5)}
+    for p, r in time_probes.time_gather(gather, gather, dev, PROBE_TILES).items():
+        per = PROBE_TILES * 1024 * (gather.TIMING_GATHERS if p == "timing" else 1)
+        probes[p] |= r | {"ns_per_gather": r["ms"] * 1e6 / per}
+    rows = {p: probe_row(f"probe_gather_{p}", "vamp_mvt_tpu_torch/csrc/probe_gather.cu",
+                         f"tools/probe_gather.py:{GATHER_LINES[p]}", r, launches[p])
+            for p, r in probes.items()}
+    total = sum(launches.values())
+    summary = rows["timing"] | {
+        "name": "probe_gather", "replaces_all": "tools/probe_gather.py:32,47,62,85,99,121",
+        "launches": total, "max_abs_err": max(r["max_abs_err"] for r in probes.values()),
+        "ms_of": "the timing probe (the others: probe_gather_<name>)"}
+    emit({"phase": "probe_gather", "tiles": PROBE_TILES, "launches": launches,
+          "probes": probes, "kernel": summary})
+    for p, r in probes.items():
+        check(r["equal"] and r["equal_plain"], f"gather probe {p} equals numpy and plain")
+        check(r["share"] <= MAX_SHARE, f"gather probe {p}'s share of its bound is at most "
+              f"{MAX_SHARE}: {r['share']:.3f}")
+        check(launches[p] == 1, f"the probe entry point launched the gather probe {p} once: "
+              f"{launches[p]}")
+    return summary, [rows[p] for p in gather.PROBES if p != "timing"]
+
+
+def probe_mosaic_phase(dev) -> tuple[dict, list[dict]]:
+    """Every P2/P3 probe (csrc/probe_mosaic.cu) on PROBE_TILES tiles through
+    the probe entry point (`mosaic.run`, once each, each probe's launches
+    counted), against its plain version and numpy, tile 0 against the probe
+    file's constants, and the library calls that compute a whole probe
+    (MOSAIC_LIBRARY_WHOLE) against the plain version; then `bench/time_probes.py`'s times, as probe_gather_phase
+    takes them (`device_ms` rotates over copies that overflow the L2 where
+    10 copies of a launch's bytes can: `l2` says "cold", else "warm"), and
+    an empty kernel's graph-replayed time (`empty_device_ms`, the floor of
+    a launch, with each probe's `floor_ratio`).  Fails if a probe's share
+    of its bound reads over MAX_SHARE.  Returns the kernels line's summary
+    row and a row for each probe."""
+    import numpy as np
+    import torch
+
+    from vamp_mvt_tpu_torch.bench import time_probes
     from vamp_mvt_tpu_torch.probes import mosaic
 
-    ins = {p: mosaic.inputs(p, PROBE_TILES, seed=4, device=dev) for p in mosaic.PROBES}
-    mosaic.LAUNCHES = 0
-    got = {p: mosaic.run(p, *ins[p]) for p in mosaic.PROBES}
+    ins = {p: mosaic.inputs(p, PROBE_TILES, seed=time_probes.MOSAIC_SEED, device=dev)
+           for p in mosaic.PROBES}
+    got, launches = {}, {}
+    for p in mosaic.PROBES:
+        before = mosaic.LAUNCHES
+        got[p] = mosaic.run(p, *ins[p])
+        launches[p] = mosaic.LAUNCHES - before
     torch.cuda.synchronize()
-    launches = mosaic.LAUNCHES
-    # one PyTorch call that computes the probe's function (its reduction,
-    # scan or copy; a constant row made before timing), timed here only:
-    # the port never calls these
-    three_i = torch.arange(512, dtype=torch.int32, device=dev) * 3
-    library = {
-        "dot_argmin": lambda a, b: torch.argmin(torch.bmm(a, b), dim=1),
-        "group32_sum": lambda x: x.view(-1, 8, 4, 32).sum(-1),
-        "reduce_while": lambda x: torch.sum(x, dim=(1, 2)),
-        "grid_carry": lambda x: torch.cumsum(x[:, :, 0], dim=1),
-        "cumsum_first": lambda x: torch.cumsum(x[:, 0], dim=1),
-        "transpose": lambda x: x[:, 0, :64, None].contiguous(),
-        "smem_int_out": lambda off: torch.add(off[:, None, None], three_i),
-    }
-    library_ms_null = {  # why no single call computes the rest
-        "while_carry": "a loop whose trip count depends on the data",
-        "dyn_sublane": "a row written at a data-dependent index, then read back",
-        "smem_writes": "512 scalar writes, two read back and added",
-        "nested_loops": "a masked row fill and a product",
-        "scratch_diag": "a diagonal scaled, truncated to int and summed",
-        "halton_digits": "eight digit steps of integer division",
-        "static_reads": "two reads scaled and truncated to int",
-        "dyn_rows_while": "a loop over rows up to a data-dependent count",
-    }
-    check(set(library) | set(library_ms_null) == set(mosaic.PROBES)
-          and not set(library) & set(library_ms_null), "every probe has a library call or a reason")
+    library = time_probes.mosaic_library(dev)
     probes = {}
     for p in mosaic.PROBES:
         plain = mosaic.plain(p, *ins[p])
         want = mosaic.reference(p, *(t.cpu().numpy() for t in ins[p]))
-        lib = library.get(p)
+        if p in MOSAIC_LIBRARY_WHOLE:
+            check(torch.equal(library[p][0](*ins[p]).to(plain[0].dtype), plain[0]),
+                  f"the library call computes the {p} probe")
         probes[p] = {
             "equal_plain": all(torch.equal(g, w) for g, w in zip(got[p], plain)),
             "equal_numpy": all(np.array_equal(g.cpu().numpy(), w) for g, w in zip(got[p], want)),
             "tile0_probe_constants": mosaic.tile0_ok(p, got[p]),
             "max_abs_err": max(float((g.double() - w.double()).abs().max())
                                for g, w in zip(got[p], plain)),
-            "ms": time_cuda(lambda: mosaic.launch(p, *ins[p]), 3, 20),
-            "device_ms": graph_ms(lambda: mosaic.launch(p, *ins[p])),
-            "plain_ms": time_cuda(lambda: mosaic.plain(p, *ins[p]), 1, 3),
-            **bound(*mosaic.work(p, ins[p])),
-            "library_ms": None if lib is None else time_cuda(lambda: lib(*ins[p]), 3, 20),
-            "library_device_ms": None if lib is None else graph_ms(lambda: lib(*ins[p]))}
+            "plain_ms": time_cuda(lambda: mosaic.plain(p, *ins[p]), 1, 3)}
+    del got, ins
+    floor = time_probes.empty_device_ms(mosaic, dev)
+    for p, r in time_probes.time_mosaic(mosaic, mosaic, dev, PROBE_TILES).items():
+        probes[p] |= r | {"floor_ratio": r["device_ms"] / floor}
     emit({"phase": "probe_mosaic", "tiles": PROBE_TILES, "launches": launches,
-          "library_ms_null": library_ms_null, "probes": probes})
-    check(launches == len(mosaic.PROBES), "the probe entry point launched every probe once")
+          "empty_device_ms": floor, "probes": probes})
     for p, r in probes.items():
+        check(launches[p] == 1, f"the probe entry point launched probe {p} once: {launches[p]}")
         check(r["equal_plain"] and r["equal_numpy"], f"probe {p} equals plain and numpy")
         check(r["tile0_probe_constants"], f"probe {p}'s tile 0 gives the probe file's constants")
+        check(r["share"] <= MAX_SHARE, f"probe {p}'s share of its bound is at most "
+              f"{MAX_SHARE}: {r['share']:.3f}")
+    rows = [probe_row(f"probe_mosaic_{p}", "vamp_mvt_tpu_torch/csrc/probe_mosaic.cu",
+                      MOSAIC_LINES[p], r, launches[p]) for p, r in probes.items()]
     by = {k: sum(r["bound_ms"] for r in probes.values() if r["bound_by"] == k)
           for k in ("bytes", "operations")}
-    return {"name": "probe_mosaic", "route": "cuda",
-            "source": "vamp_mvt_tpu_torch/csrc/probe_mosaic.cu",
-            "replaces": "tools/probe_mosaic.py:40",
-            "replaces_all": "tools/probe_mosaic.py:40,64,90,110,141,169,190,212; "
-                            "tools/probe_mosaic2.py:37,58,91,117,134,160,184",
-            "launches": launches, "on_main_path": False,
-            "max_abs_err": max(r["max_abs_err"] for r in probes.values()),
-            "ms": sum(r["ms"] for r in probes.values()),
-            "plain_ms": sum(r["plain_ms"] for r in probes.values()),
-            "bound_ms": sum(r["bound_ms"] for r in probes.values()),
-            "bound_by": max(by, key=by.get), "library_ms": None,
-            "library_ms_by_probe": {p: r["library_ms"] for p, r in probes.items()
-                                    if r["library_ms"] is not None},
-            "device_ms_by_probe": {p: r["device_ms"] for p, r in probes.items()},
-            "library_device_ms_by_probe": {p: r["library_device_ms"] for p, r in probes.items()
-                                           if r["library_device_ms"] is not None},
-            "library_ms_null": f"the row sums all {len(probes)} probes; {len(library_ms_null)} "
-                               "of them have no single PyTorch call (reasons in the phase line)",
-            "ms_of": "the 15 probes, one launch each, summed (each probe in the phase line)",
-            "checked_against_plain": True}
+    summary = {"name": "probe_mosaic", "route": "cuda",
+               "source": "vamp_mvt_tpu_torch/csrc/probe_mosaic.cu",
+               "replaces": "tools/probe_mosaic.py:40",
+               "replaces_all": "tools/probe_mosaic.py:40,64,90,110,141,169,190,212; "
+                               "tools/probe_mosaic2.py:37,58,91,117,134,160,184",
+               "launches": sum(launches.values()), "on_main_path": False,
+               "max_abs_err": max(r["max_abs_err"] for r in probes.values()),
+               "ms": sum(r["ms"] for r in probes.values()),
+               "plain_ms": sum(r["plain_ms"] for r in probes.values()),
+               "bound_ms": sum(r["bound_ms"] for r in probes.values()),
+               "bound_by": max(by, key=by.get), "library_ms": None,
+               "device_ms": sum(r["device_ms"] for r in probes.values()),
+               "empty_device_ms": floor,
+               "library_ms_null": "the row sums all 15 probes; each has a row of its own "
+                                  "(probe_mosaic_<name>), with its library call or why none",
+               "ms_of": "the 15 probes, one launch each, summed",
+               "checked_against_plain": True}
+    return summary, rows
 
 
 def suite_robots_phase(dev, ss) -> list[dict]:
@@ -2085,8 +2154,6 @@ def main() -> int:
     n_bytes = (q.numel() * 4 + sum(getattr(envs, n).numel() * 4 for n in TABLES)
                + sum(v.nbytes for v in tabs.values() if isinstance(v, np.ndarray))
                + n_cfg)  # one validity byte out per configuration
-    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     kernel = {
         "phase": "kernel", "problems": KERNEL_PROBLEMS, "configs_per_problem": KERNEL_CONFIGS,
         "live_rows_mean": {n: float(live[n].mean()) for n in TABLES},
@@ -2094,10 +2161,7 @@ def main() -> int:
         "mismatches": int(mism.sum()), "mismatches_outside_band": int(outside.sum()),
         "band": CONTACT_BAND, "max_abs_err": max_abs_err,
         "kernel_ms": kernel_ms, "occupancy": kernel_occupancy, "plain_ms": plain_ms,
-        "fp32_ops": ops, "bytes": n_bytes, "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
+        **bound(ops, n_bytes), "library_ms": None,
     }
     emit(kernel)
     check(int(outside.sum()) == 0, "kernel and plain agree outside the contact band")
@@ -2480,60 +2544,15 @@ def main() -> int:
           and float(spc_cost.float().mean()) >= MIN_SHARE,
           "simplify_mega equals plain on pointclouds")
 
-    # probe_gather: the six gather probes against numpy (off the main path;
-    # their launches counted through the probe entry point, `gather.gather`)
-    probes, g_launches = {}, 0
-    for pname in gather.PROBES:
-        tab, gi, gi2 = gather.inputs(pname, PROBE_TILES, seed=3, device=dev)
-        before = gather.LAUNCHES
-        got = gather.gather(pname, tab, gi, gi2).cpu().numpy()
-        g_launches += gather.LAUNCHES - before
-        want = gather.reference(pname, tab.cpu().numpy(), gi.cpu().numpy(),
-                                None if gi2 is None else gi2.cpu().numpy())
-        g_ms = time_cuda(lambda: gather.launch(pname, tab, gi, gi2), 3, 20)
-        g_plain = time_cuda(lambda: gather.plain(pname, tab, gi, gi2), 1, 5)
-        per = PROBE_TILES * 1024 * (gather.TIMING_GATHERS if pname == "timing" else 1)
-        ops, g_bytes = gather.work(pname, PROBE_TILES)
-        lib_call, why = GATHER_LIBRARY[pname]
-        lib_ms = None
-        if lib_call is not None:
-            li, li2 = gi.long(), None if gi2 is None else gi2.long()
-            check(torch.equal(lib_call(tab, li, li2), gather.plain(pname, tab, gi, gi2)),
-                  f"the library call computes the {pname} probe")
-            lib_ms = time_cuda(lambda: lib_call(tab, li, li2), 3, 20)
-        probes[pname] = {"equal": bool(np.array_equal(got, want)), "ms": g_ms,
-                         "plain_ms": g_plain, "ns_per_gather": g_ms * 1e6 / per,
-                         "library_ms": lib_ms, "library": why, **bound(ops, g_bytes)}
-    gather_rows = [{"name": f"probe_gather_{p}", "route": "cuda",
-                    "source": "vamp_mvt_tpu_torch/csrc/probe_gather.cu",
-                    "replaces": f"tools/probe_gather.py:{GATHER_LINES[p]}",
-                    "launches": 1, "on_main_path": False,
-                    "max_abs_err": 0.0 if probes[p]["equal"] else None,
-                    "ms": probes[p]["ms"], "plain_ms": probes[p]["plain_ms"],
-                    "bound_ms": probes[p]["bound_ms"], "bound_by": probes[p]["bound_by"],
-                    "library_ms": probes[p]["library_ms"], "library": probes[p]["library"],
-                    "checked_against_plain": True} for p in gather.PROBES if p != "timing"]
-    gather_row = {"name": "probe_gather", "route": "cuda",
-                  "source": "vamp_mvt_tpu_torch/csrc/probe_gather.cu",
-                  "replaces": "tools/probe_gather.py:32",
-                  "replaces_all": "tools/probe_gather.py:32,47,62,85,99,121",
-                  "launches": g_launches, "on_main_path": False,
-                  "max_abs_err": 0.0 if all(v["equal"] for v in probes.values()) else None,
-                  "ms": probes["timing"]["ms"], "plain_ms": probes["timing"]["plain_ms"],
-                  "bound_ms": probes["timing"]["bound_ms"],
-                  "bound_by": probes["timing"]["bound_by"], "library_ms": None,
-                  "library": probes["timing"]["library"],
-                  "ms_of": "the timing probe (the others: probe_gather_<name>)",
-                  "checked_against_plain": True}
-    emit({"phase": "probe_gather", "tiles": PROBE_TILES, "probes": probes, "kernel": gather_row})
-    check(all(v["equal"] for v in probes.values()), "every gather probe equals numpy")
-    check(g_launches == len(gather.PROBES), "the probe entry point launched every gather probe")
+    # probe_gather: the six gather probes (off the main path; their launches
+    # counted through the probe entry point, `gather.gather`)
+    gather_row, gather_rows = probe_gather_phase(dev)
 
     # --- attachments and heightfields (this slice) ------------------------
     branch_rows, api_launches, batches = branch_phases(dev, spec, q, ss)
 
     # --- the Mosaic probes, the other robots, the roadmap planners (this slice)
-    mosaic_row = probe_mosaic_phase(dev)
+    mosaic_row, mosaic_rows = probe_mosaic_phase(dev)
     robot_rows = suite_robots_phase(dev, ss)
     prm_row, planner_calls = api_planners_phase(dev)
 
@@ -2595,6 +2614,7 @@ def main() -> int:
         gather_row,
         *gather_rows,
         mosaic_row,
+        *mosaic_rows,
         *robot_rows,
         prm_row,
         *aorrtc_rows,

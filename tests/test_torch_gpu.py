@@ -439,6 +439,52 @@ def test_probe_gather_kernels_match_plain(cuda):
         assert torch.equal(got, gather.plain(name, table, idx, idx2)), name
 
 
+# Tile counts of the probe kernels' grid-stride tails: fewer tiles than one
+# block's units, a partial last block and, for probe_gather.cu, more pieces
+# than its persistent grid takes in one pass (4099 tiles: 1,049,344 pieces)
+# and for dot_argmin more tiles than its grid's blocks on an H100 (2112).
+# The other Mosaic kernels' later passes have a test of their own below.
+TAIL_TILES = (1, 7, 64, 1000, 4099)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiles", TAIL_TILES)
+def test_probe_gather_kernels_at_every_tile_count(cuda, tiles):
+    from vamp_mvt_tpu_torch.probes import gather
+
+    for name in gather.PROBES:
+        table, idx, idx2 = gather.inputs(name, tiles=tiles, seed=tiles, device=cuda)
+        got = gather.gather(name, table, idx, idx2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gather.plain(name, table, idx, idx2)), (name, tiles)
+
+
+@pytest.mark.gpu
+def test_probe_kernels_take_zero_tiles_and_misaligned_inputs(cuda):
+    """0 tiles: empty outputs and no launch; an input 4 bytes past an
+    aligned address is copied before the 128-bit loads."""
+    from vamp_mvt_tpu_torch.probes import gather, mosaic
+
+    for name in gather.PROBES:
+        table, idx, idx2 = gather.inputs(name, tiles=0, seed=0, device=cuda)
+        before = gather.LAUNCHES
+        got = gather.gather(name, table, idx, idx2)
+        assert gather.LAUNCHES == before and tuple(got.shape) == (0, 8, 128), name
+    for name in mosaic.PROBES:
+        ins = mosaic.inputs(name, 0, seed=0, device=cuda)
+        before = mosaic.LAUNCHES
+        outs = mosaic.run(name, *ins)
+        assert mosaic.LAUNCHES == before and all(o.shape[0] == 0 for o in outs), name
+    table, idx, _ = gather.inputs("row", tiles=3, seed=1, device=cuda)
+    shifted = torch.empty(idx.numel() + 1, dtype=idx.dtype, device=cuda)
+    shifted[1:] = idx.flatten()
+    view = shifted[1:].view(idx.shape)
+    assert view.data_ptr() % 16 != 0
+    assert torch.equal(gather.gather("row", table, view), gather.plain("row", table, idx))
+    mosaic.launch_empty(cuda)
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
 # The attachment and heightfield branches in all three kernels
 # ---------------------------------------------------------------------------
@@ -647,6 +693,54 @@ def test_probe_mosaic_kernels_match_plain(cuda):
         want = mosaic.plain(name, *ins)
         assert all(torch.equal(g, w) for g, w in zip(got, want)), name
         assert mosaic.tile0_ok(name, got), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiles", TAIL_TILES)
+def test_probe_mosaic_kernels_at_every_tile_count(cuda, tiles):
+    from vamp_mvt_tpu_torch.probes import mosaic
+
+    for name in mosaic.PROBES:
+        ins = mosaic.inputs(name, tiles=tiles, seed=tiles, device=cuda)
+        got = mosaic.run(name, *ins)
+        torch.cuda.synchronize()
+        want = mosaic.plain(name, *ins)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (name, tiles)
+        assert mosaic.tile0_ok(name, got), (name, tiles)
+
+
+# Threads a tile of the Mosaic kernels, all of which stride over their
+# units (probe_mosaic.cu: `probe_units` of probe_kernel, probe_tiles_kernel's
+# warp a tile or thread a 16-byte piece).  dot_argmin_kernel takes a block
+# of 256 a tile in a grid of at most kArgWaves (4) times its resident
+# blocks, so a tile counts 256 / 4 threads against the resident ones.
+GRID_STRIDE_THREADS = {
+    "while_carry": 32, "dyn_sublane": 32, "nested_loops": 32, "dyn_rows_while": 32,
+    "smem_int_out": 32, "scratch_diag": 8, "halton_digits": 64, "smem_writes": 1,
+    "grid_carry": 1, "static_reads": 1, "group32_sum": 32, "reduce_while": 32,
+    "cumsum_first": 32, "transpose": 16, "dot_argmin": 64,
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(GRID_STRIDE_THREADS))
+def test_probe_mosaic_kernels_take_a_second_grid_pass(cuda, name):
+    """More units than the card holds threads at once (every SM full), so
+    the grid, at most that many threads (dot_argmin: four times as many),
+    strides over them at least twice, the last pass partial (7 tiles past a
+    whole pass)."""
+    from vamp_mvt_tpu_torch.probes import mosaic
+
+    props = torch.cuda.get_device_properties(cuda)
+    resident = props.multi_processor_count * getattr(
+        props, "max_threads_per_multi_processor", 2048)
+    tiles = resident // GRID_STRIDE_THREADS[name] + 7
+    ins = mosaic.inputs(name, tiles=tiles, seed=5, device=cuda)
+    got = mosaic.run(name, *ins)
+    torch.cuda.synchronize()
+    want = mosaic.plain(name, *ins)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), (name, tiles)
+    assert mosaic.tile0_ok(name, got), (name, tiles)
 
 
 # ---------------------------------------------------------------------------

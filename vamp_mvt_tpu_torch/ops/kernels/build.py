@@ -100,10 +100,20 @@ def stream_handle(device) -> int:
     device interface reads it (torch._dynamo.device_interface imports
     torch._C._cuda_getCurrentRawStream as get_cuda_stream).  On the H100
     machine's host torch.cuda.current_stream(device).cuda_stream took 8.4 us
-    a call, a third of a small launch's host time."""
+    a call, a third of a small launch's host time.  A device without an
+    index means the current one."""
     import torch
 
-    return torch._C._cuda_getCurrentRawStream(device.index)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def aligned(t):
+    """`t` contiguous and at a 16-byte aligned address (a copy where it is
+    not), as kernels reading it with 128-bit loads need."""
+    if not t.is_contiguous():
+        t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ptxas_lines(name: str) -> list[str]:

@@ -139,8 +139,8 @@ def launch(name: str, table: torch.Tensor, idx: torch.Tensor, idx2=None) -> torc
     checked (the range check reads the indices back to the host, so timing
     loops call this)."""
     global LAUNCHES
-    table, idx = table.contiguous(), idx.contiguous()
-    idx2 = None if idx2 is None else idx2.contiguous()
+    table, idx = build.aligned(table), build.aligned(idx)
+    idx2 = None if idx2 is None else build.aligned(idx2)
     out = torch.empty(idx.shape, dtype=table.dtype, device=idx.device)
     if idx.shape[0] == 0:
         return out

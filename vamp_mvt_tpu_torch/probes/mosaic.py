@@ -4,9 +4,10 @@ their plain versions.
 Port of the TPU probes `tools/probe_mosaic.py` (P2, eight probes) and
 `tools/probe_mosaic2.py` (P3, seven), which tested which constructs Mosaic
 compiles for the planner megakernel.  Each probe computes its TPU probe's
-function over a leading axis of tiles (one CUDA block a tile; group32_sum,
-reduce_while, cumsum_first and transpose: one warp a tile, or a thread a
-16-byte piece, in a grid that strides over the tiles).  Tile 0 holds
+function over a leading axis of tiles, in a persistent grid that strides
+over units of independent work (a tile, a row, a 16-byte piece or, for
+group32_sum, reduce_while and cumsum_first, a warp a tile; dot_argmin a
+block a tile), reading only the input words the outputs depend on.  Tile 0 holds
 the TPU probe's own input, so its outputs equal the constants the probe file
 asserts (`tile0_ok`); the other tiles are seeded.
 
@@ -110,6 +111,8 @@ def library() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.probe_mosaic_launch.argtypes = [I, P, P, P, P, I, P]
         lib.probe_mosaic_launch.restype = ctypes.c_int
+        lib.probe_mosaic_empty.argtypes = [P]
+        lib.probe_mosaic_empty.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -442,7 +445,7 @@ def launch(name: str, *ins: torch.Tensor) -> tuple[torch.Tensor, ...]:
     call this).  Kept to the few host calls a launch needs: its host time is
     most of a probe's time at 4096 tiles."""
     global LAUNCHES
-    ins = [t if t.is_contiguous() else t.contiguous() for t in ins]
+    ins = [build.aligned(t) for t in ins]
     x = ins[0]
     n = x.shape[0]
     outs = tuple(x.new_empty((n,) + shape, dtype=dtype) for dtype, shape in _OUTPUTS[name])
@@ -458,19 +461,50 @@ def launch(name: str, *ins: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return outs
 
 
+def launch_empty(device) -> None:
+    """Launch an empty kernel on `device`'s current stream: the floor of a
+    launch, which `chip_smoke.py` and `bench/time_probes.py` time beside the
+    probes (not counted in LAUNCHES)."""
+    err = (_LIB or library()).probe_mosaic_empty(build.stream_handle(device))
+    if err != 0:
+        raise RuntimeError(f"probe_mosaic empty kernel launch failed with error {err}")
+
+
 # ---------------------------------------------------------------------------
 # Work count (the bound in chip_smoke.py)
 # ---------------------------------------------------------------------------
 
 
+SECTOR = 32  # bytes: the unit the card reads device memory in
+_ROW = 128 * 4  # one row of a tile, 16 sectors (tiles and rows are sector-aligned)
+# per probe reading part of a tile: the bytes of one tile's first input that
+# its outputs depend on, in whole sectors
+_TILE_READ = {
+    "while_carry": _ROW,            # row 0 (x[0, 0] included)
+    "dyn_sublane": _ROW,            # row 0
+    "cumsum_first": _ROW,           # row 0
+    "dyn_rows_while": _ROW,         # row 0
+    "transpose": 64 * 4,            # x[0, :64]
+    "scratch_diag": 8 * SECTOR,     # x[i, i], i < 8: one word on each of 8 rows
+    "static_reads": 2 * SECTOR,     # x[3, 5] and x[7, 127]
+}
+
+
+def _sectors(n_bytes: int) -> int:
+    return -(-n_bytes // SECTOR) * SECTOR
+
+
 def work(name: str, ins) -> tuple[int, int]:
     """(32-bit operations, bytes) probe `name` must do and move on these
-    inputs: each input read once, each output written once; the operations
-    of the loops that run on this data (integer operations counted like
-    FP32 ones)."""
+    inputs: the input bytes its outputs depend on, read once in 32-byte
+    sectors (all of an input unless `_TILE_READ` names the part), each
+    output written once; the operations of the loops that run on this data
+    (integer operations counted like FP32 ones)."""
     n = ins[0].shape[0]
-    n_bytes = sum(t.numel() * t.element_size() for t in ins) + sum(
-        n * int(np.prod(shape)) * 4 for _, shape in _OUTPUTS[name])
+    read = [n * _TILE_READ[name]] if name in _TILE_READ else [
+        _sectors(ins[0].numel() * ins[0].element_size())]
+    read += [_sectors(t.numel() * t.element_size()) for t in ins[1:]]
+    n_bytes = sum(read) + sum(n * int(np.prod(shape)) * 4 for _, shape in _OUTPUTS[name])
     x = ins[0]
     if name == "while_carry":
         ops = int(_while_iterations(x).sum()) * (128 + 3)  # a row's adds, acc, i, the test
