@@ -46,9 +46,10 @@ exception exits non-zero):
                  plain version, with its time and bound
   rrtc_mega_mbm_shaped
                  the planner megakernel against its plain version on the
-                 first MBM_CHECK of those scenes (capsule and cuboid tables),
-                 at the budget and as run_suite's 32x retry: at least
-                 MIN_SHARE of the results identical at each, every solved
+                 first MBM_CHECK of those scenes (capsule and cuboid tables)
+                 at the budget (at least MIN_SHARE of the results
+                 identical), then run_suite's 32x retry by the kernel alone
+                 (mega_interleave compares the plain retry); every solved
                  path revalidated by the plain version
   mega_interleave
                  the planner kernel's interleaved cadence (interleave=True:
@@ -83,6 +84,14 @@ exception exits non-zero):
                  each megakernel against its plain version on the first
                  PC_CHECK pointcloud scenes at the budget: at least MIN_SHARE
                  identical, times, work counters and the bound
+  evaluate_mbm   the main path's command line (examples/evaluate_mbm.py's
+                 port) on its default device: the 700 cages through
+                 --problems_pkl at --planner auto --batch_size 700 --table
+                 (valid = solved = 700, every path revalidated by the plain
+                 version, every kernel launched, the median simplified cost
+                 equal to suite_mega's), then the first PC_CHECK pointcloud
+                 scenes through --pointcloud at its defaults (every solved
+                 path revalidated, every kernel launched); walls, problems/s
   probe_gather   the six gather probes (csrc/probe_gather.cu, off the main
                  path) against numpy and their plain versions, with the
                  launches of the probe entry point, ns per gather and per
@@ -186,6 +195,20 @@ exception exits non-zero):
                  sphere_cage_example's paths revalidated by the plain version
                  and its first EXAMPLE_PLAIN_CHECK trials held against both
                  megakernels' plain versions
+  mpnet_train    MPNet demonstrations and training through a cached parse
+                 of TRAIN_PROBLEMS sphere-cage problems (each sphere also a
+                 cube, so that a cloud samples it): prepare_mpnet_dataset's
+                 port (every demonstration revalidated by the plain version
+                 in its cloud), train_mpnet's port at its defaults but
+                 --batch for TRAIN_STEPS steps an epoch (pairs, steps, the loss at its first
+                 and last printed epoch, a step's ms against its bound), the
+                 trained checkpoints on the mpnet phase's requests (methods
+                 and ms beside the untrained ones, every solution
+                 revalidated)
+  mbm_examples   through the same cached parse: evaluate_mbm_mpnet's port
+                 with the trained checkpoints (every solution revalidated),
+                 prepare_query_dataset's port (`collides` equal to the plain
+                 mvt_collides on the CPU)
   bench          the port's bench entry (python -m vamp_mvt_tpu_torch.bench)
                  in this process on the 700 cages: its JSON line
 
@@ -276,6 +299,13 @@ MPNET_VERTEX_ATOL = 1e-4  # card against CPU rollout vertices (the port against 
 EXAMPLE_PLAIN_CHECK = 32  # sphere_cage_example trials held against the plain versions
 MPNET_CLOUD = 1000     # surface points a cage sphere (14,000 in all, subsampled to 11,978)
 MESH_LOCKSTEP = 64     # cages of the sharded lockstep planner
+TRAIN_PROBLEMS = 16    # MPNet demonstrations (sphere-cage problems) the trainer learns from
+TRAIN_SEED = 41        # their seeded requests (the mpnet phase's are seed 40)
+TRAIN_STEPS = 6        # train_mpnet's steps an epoch: its --batch is the largest multiple of 16
+                       # (at most its default, 256) that gives as many steps
+TRAIN_EPOCHS = 400     # train_mpnet's --epochs (its default)
+EXAMPLE_MPNET_PROBLEMS = 4  # of them, evaluate_mbm_mpnet plans
+EXAMPLE_QUERY_PROBLEMS = 5  # and prepare_query_dataset queries (its default --count)
 
 
 START = time.perf_counter()
@@ -387,8 +417,8 @@ def pointcloud_envs(problems):
     from vamp_mvt_tpu_torch.pointcloud import pipeline
 
     envs = []
-    for p in problems:
-        b = pipeline.problem_to_pointcloud_env("panda", p, pc_repr="capt",
+    for p in problems:  # (MVT builds faster than CAPT; the kernel form is the same)
+        b = pipeline.problem_to_pointcloud_env("panda", p, pc_repr="mvt",
                                                samples_per_object=PC_SAMPLES)[0]
         envs.append(envmod.EnvironmentBuilder(pck=b.pck).build(device="cpu"))
     return envmod.stack_environments(envs)
@@ -615,12 +645,14 @@ def mega_compare(spec, envs, st, gl, mk, settings, ss) -> dict:
     }
 
 
-def retry_compare(spec, envs, st, gl, mk, settings) -> dict:
+def retry_compare(spec, envs, st, gl, mk, settings, plain_retry: bool = True) -> dict:
     """The planner kernel against its plain version (in the cadence
     `settings.interleave` names) at the budget, then as run_suite's retry
     (32x the budget, the solved rows' goals replaced by their starts), where
     the shares are over the retried rows: at least MIN_SHARE identical at
-    each, every solved path revalidated by the plain version."""
+    each, every solved path revalidated by the plain version.  Without
+    `plain_retry` the retry runs the kernel alone (its solved paths still
+    revalidated): the plain planner's retry is the longest comparison."""
     import dataclasses
 
     import torch
@@ -637,23 +669,24 @@ def retry_compare(spec, envs, st, gl, mk, settings) -> dict:
                                         device=dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        ref = rrtc.plan_batch_compact(spec, envs, st, g, mk,
-                                      dataclasses.replace(settings, max_iterations=budget),
-                                      device=dev, interleave=settings.interleave)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        same = same_plan(got, ref)[retried]
         ok = paths_revalidate_plain(spec, envs, got.path, got.path_length)
         out[str(budget)] = {
-            "problems": int(retried.sum()), "identical": int(same.sum()),
-            "solved": {"kernel": int(got.solved[retried].sum()),
-                       "plain": int(ref.solved[retried].sum())},
+            "problems": int(retried.sum()), "solved": {"kernel": int(got.solved[retried].sum())},
             "past_max_path": rrtc_mega.PAST_MAX_PATH,
             "solved_paths_revalidated_plain": int((ok & got.solved)[retried].sum()),
-            "kernel_s": t1 - t0, "plain_s": t2 - t1}
-        check(float(same.float().mean()) >= MIN_SHARE,
-              f"rrtc_mega (interleave={settings.interleave}) equals plain at budget {budget}")
+            "kernel_s": t1 - t0}
         check(bool(ok[got.solved].all()), f"every solved path revalidates at budget {budget}")
+        if plain_retry or budget == settings.max_iterations:
+            ref = rrtc.plan_batch_compact(spec, envs, st, g, mk,
+                                          dataclasses.replace(settings, max_iterations=budget),
+                                          device=dev, interleave=settings.interleave)
+            torch.cuda.synchronize()
+            same = same_plan(got, ref)[retried]
+            out[str(budget)] |= {"identical": int(same.sum()),
+                                 "plain_s": time.perf_counter() - t1}
+            out[str(budget)]["solved"]["plain"] = int(ref.solved[retried].sum())
+            check(float(same.float().mean()) >= MIN_SHARE,
+                  f"rrtc_mega (interleave={settings.interleave}) equals plain at budget {budget}")
         retried = ~got.solved
         g = torch.where(retried[:, None, None], gl, st[:, None])
     return out
@@ -1742,7 +1775,7 @@ def mpnet_phase(dev):
     then the same draws under profiling.trace (the top op_breakdown rows,
     the card's busy share, both marked profiled); the fkcc kernel at
     MPNet's launch shape (1 x 440 lanes) against its plain version.
-    Returns the kernels line's row."""
+    Returns the requests' records and the kernels line's row."""
     import tempfile
 
     import numpy as np
@@ -1906,13 +1939,301 @@ def mpnet_phase(dev):
                                        "device_busy_share": kernel_us / traced_us},
           "op_breakdown_top10": [list(r) for r in top],
           "fkcc_motion_check": one, "fkcc_request_segments": every})
-    return row("fkcc", one["kernel_ms"], one["plain_ms"], one, one["max_abs_err"], mpnet_launches) | {
+    return recs, row("fkcc", one["kernel_ms"], one["plain_ms"], one, one["max_abs_err"],
+                     mpnet_launches) | {
         "name": "fkcc_mpnet", "replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
         "occupancy": one["occupancy"], "device_ms": one["device_ms"],
         "launches_of": f"the MPNet motion checks of {MPNET_REQUESTS} plan_with_mpnet requests",
         "launches_per_request": mpnet_launches / MPNET_REQUESTS,
         "ms_of": f"one motion check (1 x {num}, lanes)",
         "mismatches_outside_bands": every["mismatches_outside_bands"]}
+
+
+def reset_launches() -> dict:
+    """The three kernels' wrappers, each count set to 0."""
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda, rrtc_mega_cuda, simplify_mega_cuda
+
+    kernels = {"fkcc": fkcc_cuda, "rrtc_mega": rrtc_mega_cuda, "simplify_mega": simplify_mega_cuda}
+    for lib in kernels.values():
+        lib.LAUNCHES = 0
+    return kernels
+
+
+def evaluate_mbm_phase(dev, spec, cages, c_envs, mega_median, pc_problems, pc_envs) -> dict:
+    """The main path's command line, examples/evaluate_mbm.py's port, on its
+    default device (the GPU): the MEGA_PROBLEMS cages through --problems_pkl
+    at --planner auto --batch_size 700 --table (valid = solved = 700, every
+    simplified path revalidated by the plain version, all three kernels
+    launched, the median simplified cost equal to suite_mega's on the same
+    problems), then the first PC_CHECK pointcloud scenes through
+    --pointcloud at its defaults (CAPT, SCDF, PC_SAMPLES samples an object)
+    and --batch_size PC_CHECK (its default, 700, would pad the batch with
+    636 copies): every solved path revalidated by the plain version, every
+    kernel launched.  Returns each run's launches."""
+    import pickle
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from vamp_mvt_tpu_torch.examples import evaluate_mbm
+
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = (("cages", cages, ["--planner", "auto", "--batch_size", str(MEGA_PROBLEMS),
+                                  "--table"], c_envs),
+                ("pointcloud", {"problems": {"mbm_shaped": pc_problems[:PC_CHECK]}},
+                 ["--pointcloud", "--batch_size", str(PC_CHECK)], pc_envs))
+        for tag, data, args, envs in runs:
+            pkl = Path(tmp) / f"{tag}.pkl"
+            pkl.write_bytes(pickle.dumps(data))
+            kernels = reset_launches()
+            t0 = time.perf_counter()
+            got = evaluate_mbm.main(["--problems_pkl", str(pkl), *args])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[tag] = {n: lib.LAUNCHES for n, lib in kernels.items()}
+            res, summ = got["suite"], got["summary"]
+            solved = np.asarray(res.plan.solved) & res.valid
+            ok = paths_revalidate_plain(spec, envs, res.simplified.path,
+                                        res.simplified.path_length).cpu().numpy()
+            out[tag] = {"problems": summ["total_problems"], "wall_s": wall, "summary": summ,
+                        "problems_per_sec_wall": summ["total_problems"] / wall,
+                        "launches": launches[tag],
+                        "solved_paths_revalidated_plain": int((ok & solved).sum())}
+            check(all(v > 0 for v in launches[tag].values()),
+                  f"evaluate_mbm ({tag}) launched every kernel")
+            check(bool(ok[solved].all()), f"every solved evaluate_mbm ({tag}) path revalidates")
+            check(summ["solved_problems"] > 0, f"evaluate_mbm ({tag}) solves problems")
+    cage = out["cages"]["summary"]
+    out["cages"]["median_simplified_cost_vs_suite_mega"] = cage["median_simplified_cost"] - mega_median
+    out["pointcloud"]["settings"] = "--pointcloud defaults (capt, scdf, 10000 samples)"
+    emit({"phase": "evaluate_mbm", "entry": "python -m vamp_mvt_tpu_torch.examples.evaluate_mbm",
+          **out})
+    check(cage["valid_problems"] == cage["solved_problems"] == MEGA_PROBLEMS,
+          "evaluate_mbm solves every cage")
+    check(out["cages"]["solved_paths_revalidated_plain"] == MEGA_PROBLEMS,
+          "every evaluate_mbm cage path revalidates (plain)")
+    check(cage["median_simplified_cost"] == mega_median,
+          "evaluate_mbm's median cost equals suite_mega's on the same problems")
+    return launches
+
+
+def mpnet_train_phase(dev, untrained) -> dict:
+    """MPNet demonstrations and training, then the MBM-file examples, all
+    through a cached parse of the problems (mbm.CACHE_DIR pointed at a
+    temporary directory holding <robot>_problems.pkl, so that no tarball or
+    PyYAML is needed):
+
+    mpnet_train: TRAIN_PROBLEMS sphere-cage problems whose cage spheres are
+    also cubes (bench/scenes.py::cage_box_problems: a cloud samples boxes,
+    never spheres), start and goal seeded configurations valid among both
+    (cage_box_requests, seed TRAIN_SEED: not the mpnet phase's requests);
+    examples/prepare_mpnet_dataset.py's port writes the demonstrations
+    (every written path revalidated by the plain version in its cloud),
+    tools/train_mpnet.py's port trains at its defaults but --batch, the
+    largest multiple of 16 that gives TRAIN_STEPS steps an epoch (at least
+    4 steps an epoch; pairs and steps reported): the
+    loss at its first and last printed epoch, a step's ms against its bound
+    (6 x parameters x batch FP32 operations; each parameter, gradient and
+    Adam moment read once and the parameters, gradients and moments written
+    once, and the batch's clouds read); then plan_with_mpnet with the
+    trained checkpoints on the mpnet phase's MPNET_REQUESTS requests, in its
+    cage and cloud: methods and ms beside the untrained ones, every solution
+    revalidated by the plain version.
+
+    mbm_examples: examples/evaluate_mbm_mpnet.py's port with those
+    checkpoints on EXAMPLE_MPNET_PROBLEMS of the problems (every solution
+    revalidated), examples/prepare_query_dataset.py's port on
+    EXAMPLE_QUERY_PROBLEMS, its `collides` equal to the plain mvt_collides
+    on the CPU on the same queries.  Returns each run's launches."""
+    import pickle
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import vamp_mvt_tpu_torch as vmt
+    from vamp_mvt_tpu_torch.bench import mbm, scenes
+    from vamp_mvt_tpu_torch.collision.mvt import mvt_collides
+    from vamp_mvt_tpu_torch.examples import (evaluate_mbm_mpnet, prepare_mpnet_dataset,
+                                             prepare_query_dataset)
+    from vamp_mvt_tpu_torch.planning import mpnet
+    from vamp_mvt_tpu_torch.pointcloud import pipeline
+    from vamp_mvt_tpu_torch.tools import train_mpnet
+
+    spec = vmt.panda.spec
+    problems = scenes.cage_box_problems(
+        scenes.cage_box_requests(spec, TRAIN_PROBLEMS, TRAIN_SEED, device=dev))
+    data = {"robot": "panda", "joints": list(spec.joint_names), "problems": {"cage": problems}}
+    launches = {}
+
+    def cloud_envs(plist, samples=2000):
+        """Each problem's cloud as the examples build it, in the kernel form
+        that the card's planner reads, stacked on the card."""
+        from vamp_mvt_tpu_torch.collision import environment as envmod
+
+        return envmod.stack_environments([envmod.EnvironmentBuilder(
+            pck=pipeline.problem_to_pointcloud_env("panda", p, pc_repr="mvt",
+                                                   samples_per_object=samples)[0].pck
+        ).build(device="cpu") for p in plist]).to(dev)
+
+    old_cache = mbm.CACHE_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        mbm.CACHE_DIR = tmp / "cache"
+        try:
+            mbm.CACHE_DIR.mkdir()
+            (mbm.CACHE_DIR / "panda_problems.pkl").write_bytes(pickle.dumps(data))
+
+            # --- the demonstrations
+            kernels = reset_launches()
+            t0 = time.perf_counter()
+            ds = prepare_mpnet_dataset.main(["--problem", "cage", "--count", str(TRAIN_PROBLEMS),
+                                             "--out", str(tmp / "data")])
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t0
+            launches["prepare_mpnet_dataset"] = {n: lib.LAUNCHES for n, lib in kernels.items()}
+            idx = [int(Path(f).stem.split("_")[1]) for f in ds["files"]]
+            demo = [np.load(f)["path"] for f in ds["files"]]
+            T = max(len(p) for p in demo)
+            padded = np.stack([np.concatenate([p, np.repeat(p[-1:], T - len(p), 0)]) for p in demo])
+            demo_ok = paths_revalidate_plain(spec, cloud_envs([problems[i] for i in idx]),
+                                             torch.as_tensor(padded, device=dev),
+                                             [len(p) for p in demo]).cpu().numpy()
+
+            # --- the training
+            pairs = len(train_mpnet.load_dataset(tmp / "data")[1])
+            batch = min(256, 16 * (pairs // (16 * TRAIN_STEPS)))
+            check(batch >= 16, f"{pairs} waypoint pairs make {TRAIN_STEPS} batches of 16")
+            kernels = reset_launches()
+            tr = train_mpnet.main(["--data", str(tmp / "data"), "--out", str(tmp / "ckpt"),
+                                   "--batch", str(batch), "--epochs", str(TRAIN_EPOCHS)])
+            torch.cuda.synchronize()
+            launches["train_mpnet"] = {n: lib.LAUNCHES for n, lib in kernels.items()}
+            enc = mpnet.load_torch_state_dict(tr["encoder"])
+            pla = mpnet.load_torch_state_dict(tr["planner"])
+            n_params = sum(p.numel() for net in (enc, pla) for p in net.parameters())
+            flops = 6 * n_params * batch
+            step_bytes = 4 * (8 * n_params + batch * enc.sizes[0])
+            step_bound = bound(flops, step_bytes)
+            alphas = [a.weight.item() for net in (enc, pla) for a in net.prelus[:-1]]
+
+            # --- the trained planner on the mpnet phase's requests
+            env = vmt.Environment()
+            for c in mbm.CAGE_CENTERS:
+                env.add_sphere(vmt.Sphere(c, mbm.CAGE_RADIUS))
+            envs1 = env.build(dev).map(lambda t: t[None])
+            cloud = scenes.cage_cloud(MPNET_CLOUD)
+            requests = scenes.cage_requests(spec, MPNET_REQUESTS, device=dev)
+            kernels = reset_launches()
+            trained = []
+            for start, goal in requests:
+                t0 = time.perf_counter()
+                path, method = mpnet.plan_with_mpnet("panda", start, goal, env, cloud,
+                                                     encoder_path=tr["encoder"],
+                                                     planner_path=tr["planner"], device=dev)
+                torch.cuda.synchronize()
+                rec = {"method": method, "ms": (time.perf_counter() - t0) * 1e3,
+                       "path_vertices": 0 if path is None else len(path)}
+                if path is not None and len(path) >= 2:
+                    P = torch.as_tensor(np.stack(path).astype(np.float32), device=dev)
+                    rec["revalidated_plain"] = bool(
+                        paths_revalidate_plain(spec, envs1, P[None], [len(path)])[0])
+                trained.append(rec)
+            launches["plan_with_mpnet_trained"] = {n: lib.LAUNCHES for n, lib in kernels.items()}
+            methods = lambda recs: {m: sum(r["method"] == m for r in recs)
+                                    for m in ("mpnet", "rrtc_fallback", "partial")}
+            emit({"phase": "mpnet_train", "problems": TRAIN_PROBLEMS, "scene": "sphere cage, "
+                  f"each sphere also a cube of half side {scenes.CAGE_BOX_HALF}",
+                  "demonstrations": {"written": ds["written"], "wall_s": prep_s,
+                                     "path_vertices": [len(p) for p in demo],
+                                     "revalidated_plain": int(demo_ok.sum()),
+                                     "launches": launches["prepare_mpnet_dataset"]},
+                  "training": {k: tr[k] for k in ("clouds", "pairs", "epochs", "lr", "batch",
+                                                  "steps", "losses", "step_ms", "train_s",
+                                                  "device")}
+                  | {"steps_per_epoch": tr["steps"] / tr["epochs"], "parameters": n_params,
+                     "step_flops": flops, "step_bytes": step_bytes, **step_bound,
+                     "step_bound_share": step_bound["bound_ms"] / tr["step_ms"]
+                     if tr["steps"] else None,
+                     "trained_alphas": {"min": min(alphas), "max": max(alphas)},
+                     "launches": launches["train_mpnet"]},
+                  "requests": {"trained": trained, "untrained": untrained,
+                               "methods_trained": methods(trained),
+                               "methods_untrained": methods(untrained),
+                               "median_ms_trained": float(np.median([r["ms"] for r in trained])),
+                               "median_ms_untrained": float(np.median([r["ms"] for r in untrained])),
+                               "launches": launches["plan_with_mpnet_trained"]}})
+            check(ds["written"] > 0 and bool(demo_ok.all()),
+                  "every demonstration path revalidates in its cloud (plain)")
+            check(launches["prepare_mpnet_dataset"]["fkcc"] > 0,
+                  "prepare_mpnet_dataset launched the fkcc kernel")
+            check(tr["steps"] >= 4 * tr["epochs"], "at least 4 optimizer steps an epoch")
+            check(all(np.isfinite(v) for v in tr["losses"].values()), "finite training losses")
+            check(all(abs(a - 0.25) > 0 for a in alphas), "the checkpoints carry trained alphas")
+            check(all(r.get("revalidated_plain", False) or r["method"] == "partial"
+                      for r in trained), "every trained plan_with_mpnet solution revalidates")
+            check(launches["plan_with_mpnet_trained"]["fkcc"] > 0,
+                  "the trained planner's requests launched the fkcc kernel")
+
+            # --- mbm_examples: evaluate_mbm_mpnet and prepare_query_dataset
+            kernels = reset_launches()
+            t0 = time.perf_counter()
+            ev = evaluate_mbm_mpnet.main(["--problem", "cage", "--max_problems",
+                                          str(EXAMPLE_MPNET_PROBLEMS), "--encoder", tr["encoder"],
+                                          "--planner", tr["planner"]])
+            torch.cuda.synchronize()
+            ev_s = time.perf_counter() - t0
+            launches["evaluate_mbm_mpnet"] = {n: lib.LAUNCHES for n, lib in kernels.items()}
+            ev_envs = cloud_envs(problems[:EXAMPLE_MPNET_PROBLEMS], samples=10000)
+            ev_ok = []
+            for i, r in enumerate(ev["rows"]):
+                if r["method"] in ("mpnet", "rrtc_fallback"):
+                    P = torch.as_tensor(np.stack(r["path"]).astype(np.float32), device=dev)
+                    ev_ok.append(bool(paths_revalidate_plain(
+                        spec, ev_envs.map(lambda t, i=i: t[i : i + 1]), P[None],
+                        [len(r["path"])])[0]))
+            kernels = reset_launches()
+            t0 = time.perf_counter()
+            qd = prepare_query_dataset.main(["--problem", "cage", "--count",
+                                             str(EXAMPLE_QUERY_PROBLEMS), "--out",
+                                             str(tmp / "queries")])
+            torch.cuda.synchronize()
+            qd_s = time.perf_counter() - t0
+            launches["prepare_query_dataset"] = {n: lib.LAUNCHES for n, lib in kernels.items()}
+            q_equal, q_hits = [], 0
+            for i, f in enumerate(qd["files"]):
+                z = np.load(f)
+                b = pipeline.problem_to_pointcloud_env("panda", problems[i], pc_repr="mvt",
+                                                       samples_per_object=2000,
+                                                       kernel_pc=False)[0]
+                plain = mvt_collides(b.build(device="cpu").mvt, torch.from_numpy(z["query_centers"]),
+                                     torch.from_numpy(z["query_radii"])).numpy()
+                q_equal.append(bool(np.array_equal(plain, z["collides"])))
+                q_hits += int(z["collides"].sum())
+            emit({"phase": "mbm_examples", "source": "a cached parse of the mpnet_train problems",
+                  "evaluate_mbm_mpnet": {
+                      "problems": len(ev["rows"]), "wall_s": ev_s,
+                      "rows": [{k: v for k, v in r.items() if k != "path"} for r in ev["rows"]],
+                      "solved": ev["solved"], "neural": ev["neural"],
+                      "solutions_revalidated_plain": int(sum(ev_ok)),
+                      "launches": launches["evaluate_mbm_mpnet"]},
+                  "prepare_query_dataset": {
+                      "problems": len(qd["files"]), "wall_s": qd_s, "queries": 64 * spec.n_spheres,
+                      "collides_equal_plain_cpu": q_equal, "collisions": q_hits,
+                      "launches": launches["prepare_query_dataset"]}})
+            check(len(ev["rows"]) == EXAMPLE_MPNET_PROBLEMS and all(ev_ok),
+                  "every evaluate_mbm_mpnet solution revalidates (plain)")
+            check(launches["evaluate_mbm_mpnet"]["fkcc"] > 0,
+                  "evaluate_mbm_mpnet launched the fkcc kernel")
+            check(len(q_equal) == EXAMPLE_QUERY_PROBLEMS and all(q_equal) and q_hits > 0,
+                  "prepare_query_dataset's collides equal the plain mvt_collides on the CPU")
+        finally:
+            mbm.CACHE_DIR = old_cache
+    return launches
 
 
 def mesh_phase(dev):
@@ -2372,8 +2693,10 @@ def main() -> int:
     # MBM_CHECK of these scenes (capsule and cuboid tables): at the budget,
     # then as run_suite's retry (32x the budget, the solved rows' goals
     # replaced by their starts), where the share is over the retried rows
+    # (the plain planner's 32x retry is compared in mega_interleave, in the
+    # interleaved cadence; here the kernel's retry runs alone)
     b_envs, b_st, b_gl, b_mk = mbm.build_batch(problems[:MBM_CHECK], device=dev)
-    mbm_check = retry_compare(spec, b_envs, b_st, b_gl, b_mk, mega_s)
+    mbm_check = retry_compare(spec, b_envs, b_st, b_gl, b_mk, mega_s, plain_retry=False)
     emit({"phase": "rrtc_mega_mbm_shaped", "settings": "run_suite's mega settings",
           "min_share": MIN_SHARE, "by_budget": mbm_check})
 
@@ -2544,6 +2867,10 @@ def main() -> int:
           and float(spc_cost.float().mean()) >= MIN_SHARE,
           "simplify_mega equals plain on pointclouds")
 
+    # --- evaluate_mbm: the main path's command line (this slice) -----------
+    cli = evaluate_mbm_phase(dev, spec, cages, c_envs, msum["median_simplified_cost"],
+                             pc_problems, pk_envs)
+
     # probe_gather: the six gather probes (off the main path; their launches
     # counted through the probe entry point, `gather.gather`)
     gather_row, gather_rows = probe_gather_phase(dev)
@@ -2564,9 +2891,16 @@ def main() -> int:
     aorrtc_rows = aorrtc_phase(dev)
 
     # --- MPNet, sharding and the examples (this slice) ----------------------
-    mpnet_row = mpnet_phase(dev)
+    mpnet_recs, mpnet_row = mpnet_phase(dev)
     mesh_phase(dev)
     examples_phase(dev)
+
+    # --- MPNet demonstrations and training, the MBM-file examples (this slice)
+    train = mpnet_train_phase(dev, mpnet_recs)
+    mpnet_row["launches_trained_requests"] = train["plan_with_mpnet_trained"]["fkcc"]
+    cli_launches = lambda kernel, tag: {
+        f"evaluate_mbm{' --pointcloud' if tag == 'pointcloud' else ''}": cli[tag][kernel],
+        **({k: v[kernel] for k, v in train.items()} if tag == "cages" else {})}
 
     # --- bench: the port's bench entry on its default source ----------------
     bench_phase()
@@ -2577,38 +2911,43 @@ def main() -> int:
            "occupancy": kernel_occupancy, "ms_of": "700 x 1024 MBM-shaped configurations",
            "launches_of": "suite_mega (its shapes: fkcc_bench_path)",
            "replaces_function": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py::_run",
-           "launches_xla_suite": launches},
+           "launches_xla_suite": launches, "launches_entry_points": cli_launches("fkcc", "cages")},
         bench_fkcc_row,
         row("rrtc_mega", rrtc_ms, rrtc_plain_ms, r_bound, rrtc_err, mega_launches["rrtc_mega"])
         | {"replaces": "vamp_mvt_tpu/planning/rrtc_mega.py:943",
            "replaces_function": "vamp_mvt_tpu/planning/rrtc_mega.py::_run_mega",
            "warps_per_sm": r_launch["occupancy"]["warps_per_sm"],
-           "phase_share": r_launch["phase_share"]},
+           "phase_share": r_launch["phase_share"],
+           "launches_entry_points": cli_launches("rrtc_mega", "cages")},
         inter_row,
         row("simplify_mega", simp_ms, simp_plain_ms, s_bound, simp_err,
             mega_launches["simplify_mega"])
         | {"replaces": "vamp_mvt_tpu/planning/simplify_mega.py:377",
            "replaces_function": "vamp_mvt_tpu/planning/simplify_mega.py::_run",
            "warps_per_sm": s_launch["occupancy"]["warps_per_sm"],
-           "phase_share": s_launch["phase_share"]},
+           "phase_share": s_launch["phase_share"],
+           "launches_entry_points": cli_launches("simplify_mega", "cages")},
         # the pointcloud branch in each kernel, on this slice's path
         row("fkcc", pk_ms, pp_ms, pk_bound, p_err, pc_launches["fkcc"])
         | {"name": "fkcc_pc", "replaces": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py:568",
            "occupancy": pk_occupancy,
            "replaces_function": "vamp_mvt_tpu/ops/kernels/fkcc_pallas.py::tile_vmin "
                                 "pointcloud branch (248-457)",
-           "max_abs_err_of": "validity outside the contact band"},
+           "max_abs_err_of": "validity outside the contact band",
+           "launches_entry_points": cli_launches("fkcc", "pointcloud")},
         row("rrtc_mega", rpc_ms, rpc_plain_ms, rpc_bound, rpc_err, pc_launches["rrtc_mega"])
         | {"name": "rrtc_mega_pc", "replaces": "vamp_mvt_tpu/planning/rrtc_mega.py:943",
            "replaces_function": "vamp_mvt_tpu/planning/rrtc_mega.py::_run_mega on pck",
            "warps_per_sm": rp_launch["occupancy"]["warps_per_sm"],
-           "phase_share": rp_launch["phase_share"]},
+           "phase_share": rp_launch["phase_share"],
+           "launches_entry_points": cli_launches("rrtc_mega", "pointcloud")},
         row("simplify_mega", spc_ms, spc_plain_ms, spc_bound, spc_err,
             pc_launches["simplify_mega"])
         | {"name": "simplify_mega_pc", "replaces": "vamp_mvt_tpu/planning/simplify_mega.py:377",
            "replaces_function": "vamp_mvt_tpu/planning/simplify_mega.py::_run on pck",
            "warps_per_sm": sp_launch["occupancy"]["warps_per_sm"],
-           "phase_share": sp_launch["phase_share"]},
+           "phase_share": sp_launch["phase_share"],
+           "launches_entry_points": cli_launches("simplify_mega", "pointcloud")},
         *path_rows,
         *branch_rows,
         gather_row,

@@ -52,6 +52,22 @@ def test_port_imports_without_jax():
         "probes.gather", "probes.mosaic", "planning.prm", "planning.fcit", "api")} <= names
 
 
+def test_mbm_entry_points_import_without_jax():
+    """The MBM command line, the MPNet demonstrations and trainer and the
+    other MBM-file examples are among the modules imported with JAX and
+    the JAX package blocked."""
+    out = subprocess.run(
+        [sys.executable, "-c", f"ROOT = {str(ROOT)!r}\n" + _BLOCKED_IMPORT],
+        capture_output=True, text=True, timeout=120, cwd=ROOT,
+    )
+    assert out.returncode == 0, out.stderr
+    names = set(out.stdout.strip().splitlines()[-1].split())
+    assert {f"vamp_mvt_tpu_torch.{m}" for m in (
+        "examples.evaluate_mbm", "examples.prepare_mpnet_dataset",
+        "examples.evaluate_mbm_mpnet", "examples.prepare_query_dataset",
+        "examples.visualize_mbm", "tools", "tools.train_mpnet")} <= names
+
+
 def test_port_sources_name_no_jax():
     files = list((ROOT / "vamp_mvt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in files:

@@ -131,19 +131,19 @@ def _request(data, joints):
 
 
 def load_problems(robot: str, use_cache: bool = True) -> dict:
-    """Parse resources/<robot>/problems.tar.bz2 into the reference pkl layout."""
-    import yaml
+    """Parse resources/<robot>/problems.tar.bz2 into the reference pkl layout.
 
-    try:
-        loader = yaml.CLoader
-    except AttributeError:  # pragma: no cover
-        loader = yaml.SafeLoader
-
+    The parse is cached as CACHE_DIR/<robot>_problems.pkl, keyed by the
+    robot's name alone; a cached parse loads without PyYAML."""
     CACHE_DIR.mkdir(parents=True, exist_ok=True)
     cache = CACHE_DIR / f"{robot}_problems.pkl"
     if use_cache and cache.exists():
         with open(cache, "rb") as f:
             return pickle.load(f)
+
+    import yaml
+
+    loader = getattr(yaml, "CLoader", yaml.SafeLoader)
 
     spec = registry.load(robot)
     joints = list(spec.joint_names)

@@ -227,3 +227,152 @@ def cage_requests(spec, n: int, seed: int = 40, device=None) -> list[tuple]:
     if len(valid) < 2 * n:
         raise ValueError(f"only {len(valid)} of 1024 seeded configurations are valid")
     return [(valid[2 * i], valid[2 * i + 1]) for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# A MotionBenchMaker problem tarball (the parser's input), and cage problems
+# whose obstacles a pointcloud samples
+# ---------------------------------------------------------------------------
+
+TARBALL_SCENARIOS = ("bookshelf_small", "box", "cage")
+
+
+def _quat_xyzw(R) -> list[float]:
+    """A rotation matrix as a unit quaternion [x, y, z, w] (w >= 0)."""
+    w = np.sqrt(max(0.0, 1.0 + R[0, 0] + R[1, 1] + R[2, 2])) / 2
+    x = np.copysign(np.sqrt(max(0.0, 1.0 + R[0, 0] - R[1, 1] - R[2, 2])) / 2, R[2, 1] - R[1, 2])
+    y = np.copysign(np.sqrt(max(0.0, 1.0 - R[0, 0] + R[1, 1] - R[2, 2])) / 2, R[0, 2] - R[2, 0])
+    z = np.copysign(np.sqrt(max(0.0, 1.0 - R[0, 0] - R[1, 1] + R[2, 2])) / 2, R[1, 0] - R[0, 1])
+    return [float(v) for v in (x, y, z, w)]
+
+
+def _random_rotation(rng) -> np.ndarray:
+    q = rng.normal(size=4)
+    return mbm._quat_matrix(q / np.linalg.norm(q))
+
+
+def _posed_object(rng, name: str, kind: str, dims, center, R) -> dict:
+    """A MoveIt collision object whose primitive lands at `center` with
+    rotation R, through a seeded object pose and the primitive pose that
+    undoes it."""
+    Rb = _random_rotation(rng)
+    pb = rng.uniform(-0.5, 0.5, 3)
+    pp = Rb.T @ (np.asarray(center, float) - pb)
+    return {"id": name,
+            "pose": {"position": [float(v) for v in pb], "orientation": _quat_xyzw(Rb)},
+            "primitives": [{"type": kind, "dimensions": [float(v) for v in dims]}],
+            "primitive_poses": [{"position": [float(v) for v in pp],
+                                 "orientation": _quat_xyzw(Rb.T @ R)}]}
+
+
+def write_mbm_tarball(root, robot: str = "panda", scenarios=TARBALL_SCENARIOS,
+                      per_scenario: int = 3, seed: int = 0):
+    """Write `root/<robot>/problems.tar.bz2` in MotionBenchMaker's layout:
+    `problems/<scenario>_<robot>/scene<i>.yaml` (MoveIt planning scenes) and
+    `request<i>.yaml` (motion plan requests), i = 1..per_scenario.  Each
+    scene is the Panda's sphere cage (every sphere moved by a seeded offset
+    in +-0.01 a coordinate) with two cylinders and two boxes inside cage
+    spheres, at seeded rotations; every object carries a seeded pose of its
+    own that its primitive pose undoes.  The requests go from VAMP's start
+    to its goal in the cage, with the joints (the fingers among them) in a
+    seeded order.  Every obstacle lies inside a cage sphere, so VAMP's start
+    and goal stay valid.  Needs PyYAML.  Returns the tarball's path."""
+    import io
+    import tarfile
+    from pathlib import Path
+
+    import yaml
+
+    spec = registry.load(robot)
+    joints = list(spec.joint_names)
+    extra = [f"{robot}_finger_joint1", f"{robot}_finger_joint2"]
+    rng = np.random.default_rng(seed)
+    files = {}
+    for scenario in scenarios:
+        for i in range(1, per_scenario + 1):
+            centers = np.asarray(mbm.CAGE_CENTERS) + rng.uniform(-0.01, 0.01, (14, 3))
+            objects = [_posed_object(rng, f"sphere{k}", "sphere", [mbm.CAGE_RADIUS], c,
+                                     _random_rotation(rng)) for k, c in enumerate(centers)]
+            inside = rng.choice(len(centers), 4, replace=False)
+            for k in inside[:2]:  # height 0.24, radius 0.08: corners 0.165 from the centre
+                objects.append(_posed_object(rng, f"cylinder{k}", "cylinder", [0.24, 0.08],
+                                             centers[k], _random_rotation(rng)))
+            for k in inside[2:]:  # a cube of side 0.2: corners 0.173 from the centre
+                objects.append(_posed_object(rng, f"box{k}", "box", [0.2, 0.2, 0.2],
+                                             centers[k], _random_rotation(rng)))
+            rng.shuffle(objects)
+            scene = {"name": f"{scenario}_{i}", "robot_state": {},
+                     "world": {"collision_objects": objects}}
+            order = rng.permutation(len(joints) + len(extra))
+            names = [(joints + extra)[j] for j in order]
+            values = dict(zip(joints, mbm.PANDA_START)) | {n: 0.04 for n in extra}
+            goal = dict(zip(joints, mbm.PANDA_GOAL))
+            request = {
+                "start_state": {"joint_state": {"name": names,
+                                                "position": [float(values[n]) for n in names]}},
+                "goal_constraints": [{"joint_constraints": [
+                    {"joint_name": j, "position": float(goal[j]), "tolerance_above": 0.001,
+                     "tolerance_below": 0.001, "weight": 1.0}
+                    for j in (joints[k] for k in rng.permutation(len(joints)))]}],
+                "group_name": f"{robot}_arm"}
+            base = f"problems/{scenario}_{robot}"
+            files[f"{base}/scene{i:04d}.yaml"] = yaml.safe_dump(scene)
+            files[f"{base}/request{i:04d}.yaml"] = yaml.safe_dump(request)
+    out = Path(root) / robot / "problems.tar.bz2"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tarfile.open(out, "w:bz2") as tar:
+        for name, text in files.items():
+            data = text.encode()
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+    return out
+
+
+CAGE_BOX_HALF = 0.15  # the cube standing for a cage sphere in cage_box_problems
+
+
+def cage_box_problems(requests, seed: int = 0) -> list[dict]:
+    """Sphere-cage problems in the MBM layout (problem kind "cage"), one a
+    (start, goal) request, whose obstacles a pointcloud samples: each cage
+    sphere also as a cube of half side CAGE_BOX_HALF, turned about z by a
+    seeded angle that every problem shares (pointcloud/sampling.py samples
+    cylinders and boxes, never spheres)."""
+    angles = np.random.default_rng(seed).uniform(-np.pi, np.pi, len(mbm.CAGE_CENTERS))
+    boxes = [{"position": list(map(float, c)), "orientation_euler_xyz": [0.0, 0.0, float(a)],
+              "half_extents": [CAGE_BOX_HALF] * 3} for c, a in zip(mbm.CAGE_CENTERS, angles)]
+    spheres = [{"position": list(map(float, c)), "radius": mbm.CAGE_RADIUS}
+               for c in mbm.CAGE_CENTERS]
+    return [{"problem": "cage", "index": i + 1, "sphere": spheres, "cylinder": [], "box": boxes,
+             "start": [float(v) for v in start], "goals": [[float(v) for v in goal]]}
+            for i, (start, goal) in enumerate(requests)]
+
+
+def cage_box_requests(spec, n: int, seed: int, device=None) -> list[tuple]:
+    """`n` (start, goal) pairs for cage_box_problems: seeded configurations
+    valid in the sphere cage, among the cubes and against the cubes' cloud
+    (sampled, filtered and built as `prepare_mpnet_dataset` does: 2000
+    points an object), whose straight segment the cubes block, so that a
+    plan has a waypoint between them.  Of 4096 configurations drawn, the
+    valid ones paired in order, the first n such pairs (numpy float32)."""
+    from vamp_mvt_tpu_torch.collision import environment as envmod
+    from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
+    from vamp_mvt_tpu_torch.pointcloud import pipeline
+
+    q = seeded_configs(spec, 1, 4096, seed, device)
+    box = cage_box_problems([(np.zeros(spec.dimension), np.zeros(spec.dimension))])[0]
+    cloud = pipeline.problem_to_pointcloud_env(spec.name, box, pc_repr="mvt",
+                                               samples_per_object=2000)[0]
+    tables = [mbm.problem_to_builder(p) for p in (dict(box, box=[]), dict(box, sphere=[]))]
+    ok = torch.ones(q.shape[:2], dtype=torch.bool, device=q.device)
+    for b in tables + [envmod.EnvironmentBuilder(pck=cloud.pck)]:
+        ok &= fkcc_cuda.fkcc_batched(spec, b.build(device=device).map(lambda t: t[None]), q)
+    valid = q[0][ok[0]]
+    pairs = valid[: len(valid) // 2 * 2].reshape(-1, 2, spec.dimension)
+    num = validate.n_points_bound(spec, float(np.linalg.norm(spec.limits_high - spec.limits_low)))
+    cubes = tables[1].build(device=device).map(lambda t: t[None].expand(len(pairs), *t.shape))
+    free = validate.validate_motion(spec, cubes, pairs[:, 0], pairs[:, 1], num)
+    blocked = pairs[~free][:n].cpu().numpy()
+    if len(blocked) < n:
+        raise ValueError(f"only {len(blocked)} blocked pairs among 4096 seeded configurations")
+    return [(a, b) for a, b in blocked]

@@ -121,3 +121,12 @@ def mpnet_params_from_numpy(params, device=None):
             lin.bias.copy_(torch.tensor(b))
             act.weight.fill_(float(a))
     return mlp.to(device)
+
+
+def mpnet_params_to_numpy(mlp) -> list[tuple]:
+    """The inverse of `mpnet_params_from_numpy`: a port `MLP` as the JAX
+    package holds MPNet parameters, (W (a, b), b (b,), alpha ()) numpy
+    float32 arrays a layer."""
+    return [(W.detach().cpu().numpy().copy(), b.detach().cpu().numpy().copy(),
+             a.detach().cpu().numpy().astype(np.float32).reshape(()))
+            for W, b, a in mlp.params()]

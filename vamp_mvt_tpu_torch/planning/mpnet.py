@@ -69,6 +69,28 @@ class MLP(nn.Module):
                 x = act(x)
         return x
 
+    def params(self) -> list[tuple]:
+        """The layers as `mlp_apply` takes them: (W (a, b), b (b,), alpha ())
+        views of the module's parameters, so gradients reach the module."""
+        return [(lin.weight.T, lin.bias, act.weight.reshape(()))
+                for lin, act in zip(self.linears, self.prelus)]
+
+
+def _prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """The JAX package's PReLU, slope 1 at x = 0 also in the gradient."""
+    return torch.where(x >= 0, x, alpha * x)
+
+
+def mlp_apply(params, x: torch.Tensor, final_linear: bool = True) -> torch.Tensor:
+    """The JAX package's functional MLP over (W, b, alpha) tensors a layer:
+    `x @ W + b`, then a scalar PReLU after every layer but the last when
+    `final_linear`.  `MLP.params()` gives a module's layers in this form."""
+    for i, (W, b, alpha) in enumerate(params):
+        x = x @ W + b
+        if not (i == len(params) - 1 and final_linear):
+            x = _prelu(x, alpha)
+    return x
+
 
 def init_mlp(key: torch.Tensor, sizes, device=None) -> MLP:
     """The JAX package's `init_mlp`: the key split once a layer, weights

@@ -103,11 +103,19 @@ def validate_motion_batch(
     starts: torch.Tensor,   # (B, E, d)
     goals: torch.Tensor,    # (B, E, d)
     num: int,
+    chunk: int | None = None,
 ) -> torch.Tensor:
     """Validate B x E straight segments at `num` points each -> (B, E) bool.
 
-    One fused FK+CC evaluation over B x E x num configurations."""
+    One fused FK+CC evaluation over B x E x num configurations, or with
+    `chunk`, one over each `chunk` segments of every problem in turn (the
+    last chunk takes the remainder), which bounds the (B, chunk * num, S, 3)
+    intermediate: on the GPU one fkcc launch a chunk."""
     B, E, _ = starts.shape
+    if chunk is not None and chunk < E:
+        return torch.cat([validate_motion_batch(spec, envs, starts[:, i : i + chunk],
+                                                goals[:, i : i + chunk], num)
+                          for i in range(0, E, chunk)], dim=1)
     block_d = motion_configs(spec, starts, goals, num)
     ok = _fkcc_valid_lanes(spec, envs, block_d).reshape(B, E, num)
     return torch.all(ok, dim=-1)

@@ -39,11 +39,17 @@ def problem_to_pointcloud_env(
     filter_radius: float = 0.02,
     voxel_filter_size: float = 0.0308,
     filter_cull: bool = True,
+    builder: envmod.EnvironmentBuilder | None = None,
+    pad: dict | None = None,
     kernel_pc: bool = True,
     use_native: bool = True,
 ):
     """Returns (builder, original_pc, filtered_pc, filter_ns, build_ns).
 
+    `builder`, when given, receives the cloud beside what it holds already
+    (and is the builder returned).  `pad` pads the structures to a batch's
+    maxima: pad_voxels / pad_capacity for MVT, pad_leaves / pad_capacity
+    for CAPT, and pc_pad_chunks for the kernel form's chunks.
     kernel_pc=True also builds the kernel-resident structure, and its build
     time counts in build_ns (it is part of the per-problem preprocessing,
     like the reference's CAPT/MVT builds).  use_native picks the C++ filters
@@ -70,15 +76,17 @@ def problem_to_pointcloud_env(
                                             bbox_lo, bbox_hi, use_native=use_native)
     filter_ns = time.perf_counter_ns() - t0
 
-    b = envmod.EnvironmentBuilder()
+    b = envmod.EnvironmentBuilder() if builder is None else builder
+    pad = dict(pad or {})
+    pc_pad_chunks = pad.pop("pc_pad_chunks", None)
     if pc_repr == "mvt":
         build_ns = b.add_mvt_pointcloud(filtered, spec.min_radius, spec.max_radius, bbox_lo,
-                                        bbox_hi, POINT_RADIUS)
+                                        bbox_hi, POINT_RADIUS, **pad)
     else:
         build_ns = b.add_capt_pointcloud(filtered, spec.min_radius, spec.max_radius,
-                                         POINT_RADIUS, use_native=use_native)
+                                         POINT_RADIUS, use_native=use_native, **pad)
     if kernel_pc:
         build_ns += b.add_kernel_pointcloud(
             filtered, radius_classes(spec.sphere_radius), bbox_lo, bbox_hi, POINT_RADIUS,
-            float(spec.max_radius), use_native=use_native)
+            float(spec.max_radius), pad_chunks=pc_pad_chunks, use_native=use_native)
     return b, original, filtered, filter_ns, build_ns

@@ -94,6 +94,14 @@ class RobotSpec:
     def space_measure(self) -> float:
         return float(np.prod(self.limits_high - self.limits_low))
 
+    def scale(self, unit: np.ndarray) -> np.ndarray:
+        """[0,1]^d -> joint space (reference robots/panda.hh:77)."""
+        return unit * (self.limits_high - self.limits_low) + self.limits_low
+
+    def descale(self, q: np.ndarray) -> np.ndarray:
+        """Joint space -> [0,1]^d, the inverse of `scale`."""
+        return (q - self.limits_low) / (self.limits_high - self.limits_low)
+
 
 def _parse_floats(s: str | None, default: str = "0 0 0") -> np.ndarray:
     return np.array([float(x) for x in (s or default).split()])
