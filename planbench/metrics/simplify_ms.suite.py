@@ -1,0 +1,7 @@
+"""The simplifier megakernel's phase a suite."""
+
+from planbench import readers
+
+
+def read(run):
+    return readers.phase_ms(run, "simplify")
