@@ -319,6 +319,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def phase_times(timings: dict) -> dict:
+    """A runner's timings without the span log (utils/profiling.py): the
+    seconds of each span and the counts."""
+    return {k: v for k, v in timings.items() if k != "spans"}
+
+
 def check(ok, what: str) -> None:
     """A failed check ends the run (a check, not an assert: -O keeps it)."""
     if not ok:
@@ -822,7 +828,7 @@ def mega_interleave_phase(dev, spec, cages, c_envs, c_st, c_gl, c_mk, c_ops, meg
                *(getattr(c_envs, n) for n in TABLES))
         + int(cad["interleaved"]["scal"][:, 6].sum()) * (d + 4) * 4
         + len(c_st) * (mega_s.max_path * d + rrtc_mega_cuda.SCALARS
-                       + 2 * (rrtc_mega_cuda.WORK + len(rrtc_mega_cuda.PHASES))) * 4)
+                       + 2 * rrtc_mega_cuda.WORK_COLS) * 4)
     cages_line = {"problems": len(c_st), **{n: c["line"] for n, c in cad.items()},
                   "identical_share": float(same.float().mean()),
                   "solved_plain": int(pres.solved.sum()), "diverged": diverged,
@@ -857,8 +863,8 @@ def mega_interleave_phase(dev, spec, cages, c_envs, c_st, c_gl, c_mk, c_ops, meg
     solved = np.asarray(sres.plan.solved) & sres.valid
     check(launches["rrtc_mega"] > 0, "the interleaved main path launched the planner kernel")
     check(bool(s_ok[solved].all()), "every solved interleaved simplified path revalidates")
-    suite_line = {"wall_s": swall, "summary": ssum, "timings": tm, "launches": launches,
-                  "past_max_path": past,
+    suite_line = {"wall_s": swall, "summary": ssum, "timings": phase_times(tm),
+                  "launches": launches, "past_max_path": past,
                   "solved_paths_revalidated_plain": int((s_ok & solved).sum())}
 
     # the A/B of bench/interleave.py (run_suite with interleave off and on)
@@ -910,11 +916,11 @@ def api_phase(dev) -> tuple[dict, dict]:
     import torch
 
     import vamp_mvt_tpu_torch as vmt
-    from vamp_mvt_tpu_torch.bench import profile_suite, scenes
+    from vamp_mvt_tpu_torch.bench import scenes
     from vamp_mvt_tpu_torch.collision import environment as envmod
     from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
 
-    cage, A, B = profile_suite.api_cage()
+    cage, A, B = scenes.api_cage()
     terrain = vmt.Environment()
     terrain.add_heightfield(*envmod.make_heightfield(*scenes.MAZE_META,
                                                      scenes.maze(np.random.default_rng(41))))
@@ -1436,7 +1442,8 @@ def suite_robots_phase(dev, ss) -> list[dict]:
                                                     "samples_per_step", "sample_window",
                                                     "connect_segments")},
               "dimension": spec.dimension, "spheres": spec.n_spheres, "wall_s": wall,
-              "summary": summ, "timings": tm, "launches": launches, "occupancy": occupancy,
+              "summary": summ, "timings": phase_times(tm), "launches": launches,
+              "occupancy": occupancy,
               "past_max_path": past, "unsolved": {
                   "scene_rows": [rows[i] for i in unsolved], "starts": st[unsolved].tolist(),
                   "goals": gl[unsolved, 0].tolist()},
@@ -2502,7 +2509,7 @@ def main() -> int:
     paths_ok = int(paths_revalidate(spec, cage_envs, res.simplified.path,
                                     res.simplified.path_length).sum())
     emit({"phase": "suite", "problems": SUITE_PROBLEMS, "wall_s": wall, "summary": summary,
-          "timings": timings, "fkcc_launches": launches,
+          "timings": phase_times(timings), "fkcc_launches": launches,
           "simplified_paths_revalidated": paths_ok})
     print(res.percentile_table(), flush=True)
     check(launches > 0, "the main path launched the fkcc kernel")
@@ -2568,7 +2575,7 @@ def main() -> int:
         nbytes(ctl, nodes0, *(getattr(c_envs, n) for n in TABLES))
         + int(np.sum(work["nodes"])) * (d + 4) * 4            # each node row written once
         + MEGA_PROBLEMS * (mega_s.max_path * d + rrtc_mega_cuda.SCALARS
-                           + 2 * (rrtc_mega_cuda.WORK + len(rrtc_mega_cuda.PHASES))) * 4)
+                           + 2 * rrtc_mega_cuda.WORK_COLS) * 4)
     iters = kres.iterations.cpu().numpy()
     emit({"phase": "rrtc_mega", "wall_problem": wall, "problems": MEGA_PROBLEMS,
           "settings": dataclasses.asdict(mega_s),
@@ -2646,8 +2653,8 @@ def main() -> int:
                                 mres.simplified.path_length).sum())
     cost_ratio = msum["median_simplified_cost"] / plain_pipeline_cost
     emit({"phase": "suite_mega", "problems": MEGA_PROBLEMS, "wall_s": mwall, "summary": msum,
-          "timings": mt, "launches": mega_launches, "simplified_paths_revalidated": m_ok,
-          "past_max_path": m_past,
+          "timings": phase_times(mt), "launches": mega_launches,
+          "simplified_paths_revalidated": m_ok, "past_max_path": m_past,
           "median_simplified_cost_vs_plain": cost_ratio})
     print(mres.percentile_table(), flush=True)
     check(all(v > 0 for v in mega_launches.values()), "the main path launched every kernel")
@@ -2684,7 +2691,7 @@ def main() -> int:
     s_ok = paths_revalidate(spec, envs.map(lambda t: t[rows]), sres.simplified.path,
                             sres.simplified.path_length).cpu().numpy()
     emit({"phase": "suite_mega_mbm_shaped", "problems": len(problems), "wall_s": swall,
-          "summary": ssum, "timings": st_, "launches": s_launches,
+          "summary": ssum, "timings": phase_times(st_), "launches": s_launches,
           "past_max_path": rrtc_mega.PAST_MAX_PATH,
           "solved_paths_revalidated": int((s_ok & solved).sum())})
     check(bool(s_ok[solved].all()), "every solved MBM-shaped path revalidates")
@@ -2791,7 +2798,8 @@ def main() -> int:
     emit({"phase": "suite_pointcloud", "problems": len(pc_problems), "wall_s": pwall,
           "max_samples": pc_settings.max_samples, "refused_attempts": attempts,
           "summary": psum, "filter_median_ms": ptm["filter_median_ms"],
-          "build_median_ms": ptm["build_median_ms"], "phases": ptm["phases"],
+          "build_median_ms": ptm["build_median_ms"],
+          "phases": phase_times(ptm["phases"]),
           "launches": pc_launches, "pc_work": pc_points,
           "past_max_path": rrtc_mega.PAST_MAX_PATH,
           "solved_paths_revalidated_plain": int((p_reval & p_solved).sum())})
@@ -2827,7 +2835,7 @@ def main() -> int:
         nbytes(ctl, nodes0, *pk_envs.pck)
         + int(rp_scal[:, 6].sum()) * (spec.dimension + 4) * 4
         + PC_CHECK * (pc_settings.max_path * spec.dimension + rrtc_mega_cuda.SCALARS
-                      + 2 * (rrtc_mega_cuda.WORK + len(rrtc_mega_cuda.PHASES))) * 4)
+                      + 2 * rrtc_mega_cuda.WORK_COLS) * 4)
     k_ = torch.arange(kp.path.shape[1], device=dev)
     rpc_err = float(torch.where((k_[None] < pp.path_length[:, None])[..., None],
                                 (kp.path - pp.path).abs(), 0).max())

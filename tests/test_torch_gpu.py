@@ -909,10 +909,10 @@ def test_api_with_mvt_or_capt_cloud_on_the_card(cuda, kind):
     version there, as the JAX package takes its XLA path; they run without
     raising and equal their device="cpu" results."""
     import vamp_mvt_tpu_torch as vmt
-    from vamp_mvt_tpu_torch.bench import profile_suite
+    from vamp_mvt_tpu_torch.bench import scenes
 
     env = _cloud_env(kind)
-    _, A, B = profile_suite.api_cage()
+    _, A, B = scenes.api_cage()
     assert not fkcc_cuda.supports(env.build(cuda))
     res = {}
     for d in (None, "cpu"):
@@ -1331,3 +1331,68 @@ def test_sharded_mega_planner_on_the_card(cuda):
     assert bool(lo.solved.all())
     for f in ("solved", "iterations", "size_start", "size_goal", "path_length", "cost", "path"):
         assert torch.equal(getattr(sh, f).cpu(), getattr(lo, f).cpu()), f
+
+
+@pytest.mark.gpu
+def test_rrtc_mega_block_clocks(cuda):
+    """The planner kernel's %globaltimer columns (after the phase clocks) on
+    16 Panda cages, half of them start = goal rows that end at once: exit >=
+    entry on every block, a start = goal block under 1% of the slowest live
+    one (a start = goal block takes ~23 us on an H100, a cage 1-19 ms), and
+    the phase clocks where they were (a live block's cycles over its time
+    read as a clock rate)."""
+    from vamp_mvt_tpu_torch.bench import mbm
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc_mega
+
+    spec = registry.load("panda")
+    envs, starts, goals, masks = mbm.build_batch(mbm.cage_suite(16)["problems"]["cage"],
+                                                 device=cuda)
+    still = torch.arange(16, device=cuda) % 2 == 1
+    goals = torch.where(still[:, None, None], starts[:, None, :], goals)
+    s = mbm.default_settings("panda", "mega")
+    ctl, nodes0, direct, _ = rrtc_mega.mega_inputs(spec, envs, starts, goals, masks, s)
+    _, scal, work = rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, s)
+    torch.cuda.synchronize()
+    assert work.shape == (16, rrtc_mega_cuda.WORK_COLS) == (16, 14)
+    t = rrtc_mega_cuda.WORK + len(rrtc_mega_cuda.PHASES)
+    dur = (work[:, t + 1] - work[:, t]).double().cpu()
+    assert bool((dur >= 0).all()) and bool((work[:, t] > 0).all())
+    still, direct = still.cpu(), direct.cpu()
+    assert bool(direct[still].all()) and not bool(direct[~still].any())
+    live = dur[~still]
+    assert float(dur[still].max()) < 0.01 * float(live.max()), dur.tolist()
+    phases = work[:, rrtc_mega_cuda.WORK:t].double().cpu()
+    assert bool((phases >= 0).all())
+    ghz = phases[~still].sum(1) / live
+    assert bool(((ghz > 0.5) & (ghz < 2.5)).all()), ghz.tolist()
+    assert bool((scal[:, 4].cpu()[~still] > 0).all())
+
+
+@pytest.mark.gpu
+def test_run_suite_counts_the_retry_and_the_card(cuda):
+    """run_suite(planner="mega")'s counts on 64 MBM-shaped problems at a
+    budget of 256 samples: retry_live equals the rows the first launch left
+    unsolved, the planner's blocks fill at most the card's slots, and the
+    retry launch (only) gives its slowest block's time an iteration."""
+    import dataclasses
+
+    from vamp_mvt_tpu_torch.bench import mbm, scenes
+    from vamp_mvt_tpu_torch.planning import rrtc_mega
+
+    spec = registry.load("panda")
+    data = scenes.mbm_shaped_suite("panda", 64, device=cuda)
+    s = dataclasses.replace(mbm.default_settings("panda", "mega"), max_iterations=256)
+    envs, starts, goals, masks = mbm.build_batch(data["problems"]["mbm_shaped"], device=cuda)
+    first = rrtc_mega.plan_batch_mega(spec, envs, starts, goals, masks, s, device=cuda)
+    unsolved = int((~first.solved).sum())
+    assert unsolved > 0
+    tm = {}
+    mbm.run_suite("panda", data=data, batch_size=64, planner="mega", settings=s,
+                  warmup=False, timings=tm, device=cuda)
+    assert tm["retry_live"] == unsolved
+    assert 0 < tm["planner_block_ns"] <= tm["planner_slot_ns"]
+    assert tm["retry_iter_us"] > 0 and "plan_iter_us" not in tm
+    names = [x[1] for x in tm["spans"]]
+    assert names.count("plan") == names.count("retry") == 1
+    assert {"batch_assemble", "batch_to_device", "gather"} <= set(names)

@@ -33,6 +33,7 @@ from vamp_mvt_tpu_torch.device import resolve_device
 from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
 from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega, simplify, simplify_mega, validate
 from vamp_mvt_tpu_torch.robots import registry
+from vamp_mvt_tpu_torch.utils import profiling
 
 RESOURCES = Path(os.environ.get("VAMP_MVT_TPU_RESOURCES", "/root/reference/resources"))
 
@@ -386,6 +387,26 @@ def build_batch(problems: list[dict], cache_key: str | None = None, device=None)
     With a cache_key the assembled arrays are memoized as an npz in
     CACHE_DIR; key it by content (`content_key`)."""
     dev = resolve_device(device)
+    with profiling.span("batch_assemble"):
+        arrs = _batch_arrays(problems, cache_key)
+    with profiling.span("batch_to_device"):
+        nh = len(problems)
+        t = lambda a: torch.as_tensor(a, device=dev)
+        envs = envmod.Environment(
+            spheres=t(arrs["spheres"]),
+            capsules=t(arrs["capsules"]),
+            z_capsules=t(arrs["z_capsules"]),
+            cuboids=t(arrs["cuboids"]),
+            z_cuboids=t(arrs["z_cuboids"]),
+            hf_meta=torch.zeros((nh, 0, 10), dtype=torch.float32, device=dev),
+            hf_data=torch.zeros((nh, 0, 0), dtype=torch.float32, device=dev),
+        )
+        return envs, t(arrs["starts"]), t(arrs["goals"]), t(arrs["masks"])
+
+
+def _batch_arrays(problems: list[dict], cache_key: str | None) -> dict[str, np.ndarray]:
+    """build_batch's host arrays: the tables and the endpoints, from the
+    npz cache where a cache_key names one."""
     arrs = None
     cache = None
     if cache_key is not None:
@@ -411,19 +432,7 @@ def build_batch(problems: list[dict], cache_key: str | None = None, device=None)
             np.savez(cache, **arrs)
     for name in envmod.TABLES:
         envmod.check_live_prefix(name, arrs[name])
-
-    nh = len(problems)
-    t = lambda a: torch.as_tensor(a, device=dev)
-    envs = envmod.Environment(
-        spheres=t(arrs["spheres"]),
-        capsules=t(arrs["capsules"]),
-        z_capsules=t(arrs["z_capsules"]),
-        cuboids=t(arrs["cuboids"]),
-        z_cuboids=t(arrs["z_cuboids"]),
-        hf_meta=torch.zeros((nh, 0, 10), dtype=torch.float32, device=dev),
-        hf_data=torch.zeros((nh, 0, 0), dtype=torch.float32, device=dev),
-    )
-    return envs, t(arrs["starts"]), t(arrs["goals"]), t(arrs["masks"])
+    return arrs
 
 
 def _valid_fused(spec, envs, starts, goals, masks):
@@ -563,9 +572,13 @@ def run_suite(
     lockstep state machine with straggler compaction and the lockstep
     simplifier.  "auto" means "mega" on a GPU and "xla" on the CPU.
 
-    Pass a dict as `timings` for a wall-clock phase breakdown
-    (build_batch/validity/warmup/plan/retry/simplify/gather).  Runs on
-    `device` (default: the GPU).
+    Pass a dict as `timings` for a wall-clock phase breakdown in seconds,
+    the spans of utils/profiling.py (build_batch, with batch_assemble and
+    batch_to_device inside it, validity, warmup, plan, retry, simplify,
+    gather; the log of them under "spans"), and the counts: retry_live (rows
+    the retry plans with their own goals), and on the mega path
+    planner_block_ns, planner_slot_ns and, for the retry launch,
+    retry_iter_us (`rrtc_mega.plan_batch_mega`).  Runs on `device` (default: the GPU).
     """
     dev = resolve_device(device)
     spec = registry.load(robot)
@@ -601,29 +614,11 @@ def run_suite(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    tmark = time.perf_counter()
-
-    def _phase(name):
-        nonlocal tmark
-        sync()
-        t = time.perf_counter()
-        if timings is not None:
-            timings[name] = timings.get(name, 0.0) + (t - tmark)
-        tmark = t
-
-    # cache the assembled batch only for the tarball suites, keyed by content
-    key = content_key(problems) if from_tarballs else None
-    envs, starts, goals, masks = build_batch(problems, cache_key=key, device=dev)
-    _phase("build_batch")
-
-    valid = _valid_fused(spec, envs, starts, goals, masks).cpu().numpy()[:n_real]
-    _phase("validity")
-
     if planner == "mega":
 
-        def plan_fn(e, s_, g, m, budget):
+        def plan_fn(e, s_, g, m, budget, iter_count=None):
             return rrtc_mega.plan_batch_mega(spec, e, s_, g, m, settings, budget=budget,
-                                             device=dev)
+                                             device=dev, iter_count=iter_count)
 
         solve_batch = _mega_solver(plan_fn, settings, 32, sync)
 
@@ -658,23 +653,35 @@ def run_suite(
         def simp_fn(e, p, l):
             return simplify.simplify_batch_compact(spec, e, p, l, simp_settings, device=dev)
 
-    if warmup and dev.type == "cuda":
-        # build and load every kernel outside the timed phases; the mega path
-        # launches each of its kernels once on the first problem, at both
-        # budgets (the retry's on its start-replaced goal, which ends at once)
-        fkcc_cuda.library()
-        if planner == "mega":
-            e0, s0, g0, m0 = envs.map(lambda t: t[:1]), starts[:1], goals[:1], masks[:1]
-            r0 = plan_fn(e0, s0, g0, m0, settings.max_iterations)
-            plan_fn(e0, s0, s0[:, None].expand_as(g0), m0, retry_budget)
-            simp_fn(e0, r0.path, r0.path_length)
-    _phase("warmup")
+    with profiling.recording(timings):
+        with profiling.span("build_batch"):
+            # cache the assembled batch only for the tarball suites, keyed by content
+            key = content_key(problems) if from_tarballs else None
+            envs, starts, goals, masks = build_batch(problems, cache_key=key, device=dev)
+            sync()
 
-    plan_parts, simp_parts, t_plan, t_simp = _run_batches(
-        envs, starts, goals, masks, batch_size, solve_batch, simp_fn, sync, timings)
-    tmark = time.perf_counter()
-    plan_res, simp_res = _gather(plan_parts, n_real), _gather(simp_parts, n_real)
-    _phase("gather")
+        with profiling.span("validity"):
+            valid = _valid_fused(spec, envs, starts, goals, masks).cpu().numpy()[:n_real]
+
+        with profiling.span("warmup"):
+            if warmup and dev.type == "cuda":
+                # build and load every kernel outside the timed phases; the mega
+                # path launches each of its kernels once on the first problem, at
+                # both budgets (the retry's on its start-replaced goal, which ends
+                # at once)
+                fkcc_cuda.library()
+                if planner == "mega":
+                    e0, s0, g0, m0 = envs.map(lambda t: t[:1]), starts[:1], goals[:1], masks[:1]
+                    r0 = plan_fn(e0, s0, g0, m0, settings.max_iterations)
+                    plan_fn(e0, s0, s0[:, None].expand_as(g0), m0, retry_budget)
+                    simp_fn(e0, r0.path, r0.path_length)
+            sync()
+
+        plan_parts, simp_parts, t_plan, t_simp = _run_batches(
+            envs, starts, goals, masks, batch_size, solve_batch, simp_fn, sync)
+        with profiling.span("gather"):
+            plan_res, simp_res = _gather(plan_parts, n_real), _gather(simp_parts, n_real)
+            profiling.read_counts()
     return SuiteResult(names, plan_res, simp_res, valid, t_plan, t_simp)
 
 
@@ -722,8 +729,11 @@ def run_suite_pointcloud(
 
     Returns (SuiteResult, timings): filter_ns and build_ns per problem,
     their medians in ms, pc_repr, filter_type, and `phases`, the wall-clock
-    breakdown (pointcloud, validity, warmup, plan, retry, simplify, gather)
-    in seconds.  Runs on `device` (default: the GPU).
+    breakdown in seconds by the spans of utils/profiling.py (pointcloud,
+    with pc_sample, pc_filter, pc_build_capt or pc_build_mvt,
+    pc_build_kernel and pc_stage inside it, validity, warmup, plan, retry,
+    simplify, gather; their log under "spans"; no counts).  Runs on
+    `device` (default: the GPU).
     """
     from vamp_mvt_tpu_torch.pointcloud import pipeline
 
@@ -756,53 +766,11 @@ def run_suite_pointcloud(
         if use_mega:
             torch.cuda.synchronize(dev)
 
-    phases: dict = {}
-    tmark = time.perf_counter()
-
-    def _phase(name):
-        nonlocal tmark
-        sync()
-        t = time.perf_counter()
-        phases[name] = phases.get(name, 0.0) + (t - tmark)
-        tmark = t
-
-    # sample + filter + build, timed per problem.  On the GPU the planner
-    # reads the kernel form; the requested MVT / CAPT is built for its
-    # build-time metric.  Environments are stacked on the host (pointcloud
-    # structures padded to the batch's largest) and moved once.
-    envs_list, filter_ns, build_ns = [], [], []
-    for p in problems:
-        b, _orig, _filt, f_ns, b_ns = pipeline.problem_to_pointcloud_env(
-            robot, p, pc_repr=pc_repr, samples_per_object=samples_per_object,
-            filter_type=filter_type, kernel_pc=use_mega)
-        filter_ns.append(f_ns)
-        build_ns.append(b_ns)
-        clouds = {"pck": b.pck} if use_mega else {pc_repr: getattr(b, pc_repr)}
-        envs_list.append(envmod.EnvironmentBuilder(**clouds).build(device="cpu"))
-    envs = envmod.stack_environments(envs_list).to(dev)
-    del envs_list
-
-    G = max(len(p["goals"]) for p in problems)
-    d = len(problems[0]["start"])
-    starts = np.zeros((len(problems), d), np.float32)
-    goals = np.zeros((len(problems), G, d), np.float32)
-    masks = np.zeros((len(problems), G), bool)
-    for i, p in enumerate(problems):
-        starts[i] = p["start"]
-        for g, goal in enumerate(p["goals"]):
-            goals[i, g] = goal
-            masks[i, g] = True
-    starts, goals, masks = (torch.as_tensor(a, device=dev) for a in (starts, goals, masks))
-    _phase("pointcloud")
-
-    valid = _valid_fused(spec, envs, starts, goals, masks).cpu().numpy()[:n_real]
-    _phase("validity")
-
     if use_mega:
 
-        def plan_fn(e, s_, g, m, budget):
+        def plan_fn(e, s_, g, m, budget, iter_count=None):
             return rrtc_mega.plan_batch_mega(spec, e, s_, g, m, settings, budget=budget,
-                                             device=dev)
+                                             device=dev, iter_count=iter_count)
 
         solve_batch = _mega_solver(plan_fn, settings, retry_factor, sync)
         if simplify_mega.supports(simp_settings):
@@ -835,19 +803,59 @@ def run_suite_pointcloud(
         def simp_fn(e, p, l):
             return simplify.simplify_batch_compact(spec, e, p, l, simp_settings, device=dev)
 
-    if warmup and use_mega:
-        # build and load every kernel outside the timed phases (see run_suite)
-        e0, s0, g0, m0 = envs.map(lambda t: t[:1]), starts[:1], goals[:1], masks[:1]
-        r0 = plan_fn(e0, s0, g0, m0, settings.max_iterations)
-        plan_fn(e0, s0, s0[:, None].expand_as(g0), m0, retry_factor * settings.max_iterations)
-        simp_fn(e0, r0.path, r0.path_length)
-    _phase("warmup")
+    phases: dict = {}
+    # every call returns its phases, so it records spans alone: the planner's
+    # counts are work on the card that only run_suite's callers ask for
+    with profiling.recording(phases, counts=False):
+        # sample + filter + build, timed per problem.  On the GPU the planner
+        # reads the kernel form; the requested MVT / CAPT is built for its
+        # build-time metric.  Environments are stacked on the host (pointcloud
+        # structures padded to the batch's largest) and moved once.
+        with profiling.span("pointcloud"):
+            envs_list, filter_ns, build_ns = [], [], []
+            for p in problems:
+                b, _orig, _filt, f_ns, b_ns = pipeline.problem_to_pointcloud_env(
+                    robot, p, pc_repr=pc_repr, samples_per_object=samples_per_object,
+                    filter_type=filter_type, kernel_pc=use_mega)
+                filter_ns.append(f_ns)
+                build_ns.append(b_ns)
+                with profiling.span("pc_stage"):
+                    clouds = {"pck": b.pck} if use_mega else {pc_repr: getattr(b, pc_repr)}
+                    envs_list.append(envmod.EnvironmentBuilder(**clouds).build(device="cpu"))
+            with profiling.span("pc_stage"):
+                envs = envmod.stack_environments(envs_list).to(dev)
+                del envs_list
+                G = max(len(p["goals"]) for p in problems)
+                d = len(problems[0]["start"])
+                starts = np.zeros((len(problems), d), np.float32)
+                goals = np.zeros((len(problems), G, d), np.float32)
+                masks = np.zeros((len(problems), G), bool)
+                for i, p in enumerate(problems):
+                    starts[i] = p["start"]
+                    for g, goal in enumerate(p["goals"]):
+                        goals[i, g] = goal
+                        masks[i, g] = True
+                starts, goals, masks = (torch.as_tensor(a, device=dev)
+                                        for a in (starts, goals, masks))
+                sync()
 
-    plan_parts, simp_parts, t_plan, t_simp = _run_batches(
-        envs, starts, goals, masks, batch_size, solve_batch, simp_fn, sync, phases)
-    tmark = time.perf_counter()
-    plan_res, simp_res = _gather(plan_parts, n_real), _gather(simp_parts, n_real)
-    _phase("gather")
+        with profiling.span("validity"):
+            valid = _valid_fused(spec, envs, starts, goals, masks).cpu().numpy()[:n_real]
+
+        with profiling.span("warmup"):
+            if warmup and use_mega:
+                # build and load every kernel outside the timed phases (see run_suite)
+                e0, s0, g0, m0 = envs.map(lambda t: t[:1]), starts[:1], goals[:1], masks[:1]
+                r0 = plan_fn(e0, s0, g0, m0, settings.max_iterations)
+                plan_fn(e0, s0, s0[:, None].expand_as(g0), m0,
+                        retry_factor * settings.max_iterations)
+                simp_fn(e0, r0.path, r0.path_length)
+            sync()
+
+        plan_parts, simp_parts, t_plan, t_simp = _run_batches(
+            envs, starts, goals, masks, batch_size, solve_batch, simp_fn, sync)
+        with profiling.span("gather"):
+            plan_res, simp_res = _gather(plan_parts, n_real), _gather(simp_parts, n_real)
     suite = SuiteResult(names, plan_res, simp_res, valid, t_plan, t_simp)
     f_ns = np.asarray(filter_ns[:n_real], np.float64)
     b_ns = np.asarray(build_ns[:n_real], np.float64)
@@ -862,27 +870,34 @@ def run_suite_pointcloud(
     }
     return suite, timings
 
+
 def _mega_solver(plan_fn, settings, factor: int, sync):
     """solve_batch of the mega path: plan at the budget, then replan the
     unsolved problems with the same kernel at `factor` x the budget (solved
     rows get start == goal problems that the direct check ends at once).
-    Returns (result, retry start time)."""
+    Under a recorder it counts retry_live, the rows the retry plans with
+    their own goals, and has plan_fn count retry_iter_us, the retry
+    launch's slowest block's us an iteration (rrtc_mega.plan_batch_mega)."""
 
     def solve_batch(e, s_, g, m):
-        pr = plan_fn(e, s_, g, m, settings.max_iterations)
-        sync()
-        t_retry = time.perf_counter()
-        um = ~pr.solved
-        if bool(um.any()):
-            _check_retry_room(pr, um, m, settings, factor)
-            g2 = torch.where(um[:, None, None], g, s_[:, None, :])
-            rr = plan_fn(e, s_, g2, m, factor * settings.max_iterations)
-            pr = type(pr)(*(
-                torch.where(um.reshape(um.shape + (1,) * (o.dim() - 1)), n, o)
-                for o, n in zip(pr, rr)
-            ))
+        with profiling.span("plan"):
+            pr = plan_fn(e, s_, g, m, settings.max_iterations)
             sync()
-        return pr, t_retry
+        with profiling.span("retry"):
+            um = ~pr.solved
+            if profiling.counting():
+                profiling.count("retry_live", um.sum())
+            if bool(um.any()):
+                _check_retry_room(pr, um, m, settings, factor)
+                g2 = torch.where(um[:, None, None], g, s_[:, None, :])
+                rr = plan_fn(e, s_, g2, m, factor * settings.max_iterations,
+                             iter_count="retry_iter_us")
+                pr = type(pr)(*(
+                    torch.where(um.reshape(um.shape + (1,) * (o.dim() - 1)), n, o)
+                    for o, n in zip(pr, rr)
+                ))
+                sync()
+        return pr
 
     return solve_batch
 
@@ -903,55 +918,54 @@ def _lockstep_solver(plan_fn, retry_fn, retry_b: int, sync, dev, guard=None):
     """solve_batch of the lockstep path: plan, then rerun the stragglers with
     retry_fn in fixed-size batches of retry_b and write their results back in
     place.  guard = (settings, factor) refuses a retry that replays the same
-    search in the same node buffer (_check_retry_room)."""
+    search in the same node buffer (_check_retry_room).  Counts retry_live,
+    the stragglers rerun."""
 
     def solve_batch(e, s_, g, m):
-        pr = plan_fn(e, s_, g, m)
-        sync()
-        t_retry = time.perf_counter()
-        unsolved = ~pr.solved.cpu().numpy()
-        if unsolved.any():
-            if guard is not None:
-                _check_retry_room(pr, torch.as_tensor(unsolved, device=dev), m, *guard)
-            idx = np.flatnonzero(unsolved)
-            pr = type(pr)(*(t.clone() for t in pr))
-            for off in range(0, len(idx), retry_b):
-                part = idx[off : off + retry_b]
-                take = torch.as_tensor(np.resize(part, retry_b), device=dev)
-                rr = retry_fn(e.map(lambda t: t[take]), s_[take], g[take], m[take])
-                rows = torch.as_tensor(part, device=dev)
-                for dst, src in zip(pr, rr):
-                    dst[rows] = src[: len(part)]
+        with profiling.span("plan"):
+            pr = plan_fn(e, s_, g, m)
             sync()
-        return pr, t_retry
+        with profiling.span("retry"):
+            unsolved = ~pr.solved.cpu().numpy()
+            profiling.count("retry_live", int(unsolved.sum()))
+            if unsolved.any():
+                if guard is not None:
+                    _check_retry_room(pr, torch.as_tensor(unsolved, device=dev), m, *guard)
+                idx = np.flatnonzero(unsolved)
+                pr = type(pr)(*(t.clone() for t in pr))
+                for off in range(0, len(idx), retry_b):
+                    part = idx[off : off + retry_b]
+                    take = torch.as_tensor(np.resize(part, retry_b), device=dev)
+                    rr = retry_fn(e.map(lambda t: t[take]), s_[take], g[take], m[take])
+                    rows = torch.as_tensor(part, device=dev)
+                    for dst, src in zip(pr, rr):
+                        dst[rows] = src[: len(part)]
+                sync()
+        return pr
 
     return solve_batch
 
 
-def _run_batches(envs, starts, goals, masks, batch_size, solve_batch, simp_fn, sync,
-                 timings):
-    """Plan and simplify every batch of `batch_size` problems.  Returns the
-    per-batch plan and simplify results and the plan and simplify seconds."""
+def _run_batches(envs, starts, goals, masks, batch_size, solve_batch, simp_fn, sync):
+    """Plan and simplify every batch of `batch_size` problems, in the spans
+    plan, retry (solve_batch's) and simplify.  Returns the per-batch plan and
+    simplify results and the plan and simplify seconds."""
     plan_parts, simp_parts = [], []
     t_plan = t_simp = 0.0
     for i in range(0, starts.shape[0], batch_size):
         sl = slice(i, i + batch_size)
         e, s_, g, m = envs.map(lambda t: t[sl]), starts[sl], goals[sl], masks[sl]
         t0 = time.perf_counter()
-        pr, tr0 = solve_batch(e, s_, g, m)
+        pr = solve_batch(e, s_, g, m)
         t1 = time.perf_counter()
-        if timings is not None:
-            timings["plan"] = timings.get("plan", 0.0) + (tr0 - t0)
-            timings["retry"] = timings.get("retry", 0.0) + (t1 - tr0)
-        sr = simp_fn(e, pr.path, pr.path_length)
-        sync()
+        with profiling.span("simplify"):
+            sr = simp_fn(e, pr.path, pr.path_length)
+            sync()
         t2 = time.perf_counter()
         t_plan += t1 - t0
         t_simp += t2 - t1
         plan_parts.append(pr)
         simp_parts.append(sr)
-    if timings is not None:
-        timings["simplify"] = t_simp
     return plan_parts, simp_parts, t_plan, t_simp
 
 

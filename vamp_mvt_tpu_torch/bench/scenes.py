@@ -212,6 +212,18 @@ def cage_cloud(per_sphere: int = 1000) -> np.ndarray:
                       for c in mbm.CAGE_CENTERS])
 
 
+def api_cage():
+    """examples/attachments.py's scenario through the user API: the sphere
+    cage with the payload [[0, 0, 0.12, 0.06]], VAMP's start A and goal B."""
+    import vamp_mvt_tpu_torch as vmt
+
+    env = vmt.Environment()
+    for c in mbm.CAGE_CENTERS:
+        env.add_sphere(vmt.Sphere(c, mbm.CAGE_RADIUS))
+    env.attach(vmt.Attachment(spheres=[[0.0, 0.0, 0.12, 0.06]]))
+    return env, mbm.PANDA_START, mbm.PANDA_GOAL
+
+
 def cage_requests(spec, n: int, seed: int = 40, device=None) -> list[tuple]:
     """`n` (start, goal) pairs of seeded configurations valid in the sphere
     cage: the first 2n valid of 1024 drawn, in order (numpy float32)."""

@@ -117,7 +117,7 @@ def path_cases(dev, names=None) -> dict:
     import torch
 
     import vamp_mvt_tpu_torch as vmt
-    from vamp_mvt_tpu_torch.bench import mbm, profile_suite
+    from vamp_mvt_tpu_torch.bench import mbm
     from vamp_mvt_tpu_torch.collision import environment as envmod
     from vamp_mvt_tpu_torch.planning import validate
     from vamp_mvt_tpu_torch.pointcloud import pipeline
@@ -164,7 +164,7 @@ def path_cases(dev, names=None) -> dict:
                                   validate.motion_configs(spec, *ends, num_long).contiguous(),
                                   "lanes")
     if names & {"api_rrtc_step", "prm_samples", "prm_edges", "fcit_edge"}:
-        cage, A, B = profile_suite.api_cage()
+        cage, A, B = scenes.api_cage()
         rng = np.random.default_rng(11)
         rrt_range = vmt.panda.default_rrtc_settings().range
         out["api_rrtc_step"] = (spec, cage.build(dev).map(lambda t: t[None]),

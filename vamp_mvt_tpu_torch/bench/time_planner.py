@@ -74,7 +74,7 @@ def main(argv=None) -> dict:
         if hasattr(mod, "PHASES"):
             out["phases"] = fkcc_cuda.phase_split(work, mod.WORK, mod.PHASES)
             # the blocks' cycles: the slowest block against the kernel's time
-            cyc = work[:, mod.WORK:].sum(1).double().cpu()
+            cyc = work[:, mod.WORK:mod.WORK + len(mod.PHASES)].sum(1).double().cpu()
             slow = int(cyc.argmax())
             out["blocks"] = {"cycles_max": float(cyc.max()), "cycles_p50": float(cyc.median()),
                              "cycles_mean": float(cyc.mean()), "configs_of_slowest":

@@ -40,8 +40,9 @@
 // At the end the block walks both parent chains and exports only the
 // max_path path rows and the scalars (plus its work counters: configurations
 // checked, node-sample pairs scanned, and the pointcloud's spheres gated,
-// chunk bounds tested and points evaluated) and the cycles of each phase of
-// a step, read by thread 0 at barriers the step passes anyway.  A pointcloud
+// chunk bounds tested and points evaluated), the cycles of each phase of
+// a step, read by thread 0 at barriers the step passes anyway, and the
+// card's %globaltimer (ns) as the block enters and as it leaves.  A pointcloud
 // (fkcc_device.cuh) and a heightfield's heights stay in global memory; a
 // heightfield's meta rows (10 floats a field), an attachment's payload rows
 // and the robot tables go to shared memory, and each payload sphere adds 3
@@ -107,9 +108,18 @@ constexpr int kWork = 5;
 // Phase clocks (cycles of clock64() summed per block, read by thread 0 at
 // barriers the step passes anyway), exported after the work counters.
 enum Phase { kSampling, kNnA, kPrefilter, kEdges, kFkcc, kNnB, kInserts, kPhases };
+// Then the block's entry and exit on the card's %globaltimer (ns).
+constexpr int kTimes = 2;
+constexpr int kWorkCols = kWork + kPhases + kTimes;
 // Radius of a node never updated: a finite stand-in for infinity, as in the
 // TPU kernel's node rows (mega_inputs writes it for the roots).
 constexpr float kBig = 1.0e30f;
+
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 // The launcher's integer parameters (ip[]) then its float ones (fp[]), in
 // this order (ops/kernels/rrtc_mega_cuda.py::params).
@@ -270,6 +280,8 @@ rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
                  float* __restrict__ nodes, float* __restrict__ out_path,
                  int* __restrict__ out_scal, long long* __restrict__ out_work) {
   extern __shared__ float smem[];
+  __shared__ long long s_enter;  // thread 0's %globaltimer as the block enters
+  if (threadIdx.x == 0) s_enter = globaltimer();
   __shared__ State st;
   __shared__ unsigned long long s_work[kWork - 1];  // pairs, gates, chunks, points
   __shared__ long long s_ph[kPhases + 1];            // the phases' cycles, then the last read
@@ -715,10 +727,12 @@ rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
     out_path[(long long)b * PP * d + i] = node >= 0 ? nb[(long long)node * RS + col] : 0.0f;
   }
   if (tid == 0) {
-    long long* w = out_work + (long long)b * (kWork + kPhases);
+    long long* w = out_work + (long long)b * kWorkCols;
     w[0] = configs;
     for (int i = 0; i < kWork - 1; ++i) w[1 + i] = (long long)s_work[i];
     for (int i = 0; i < kPhases; ++i) w[kWork + i] = s_ph[i];
+    w[kWork + kPhases] = s_enter;
+    w[kWork + kPhases + 1] = globaltimer();
   }
 }
 

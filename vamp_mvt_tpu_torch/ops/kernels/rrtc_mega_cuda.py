@@ -10,7 +10,7 @@ part every step with an active chain riding along).
 
   plan(spec, envs, ctl, nodes0, settings, shape=None)
       ctl (B, 8) int32, nodes0 (B, 1 + G, d + 4) float32, CUDA tensors
-      -> path (B, max_path, d) float32, scal (B, 16) int32, work (B, 12) int64
+      -> path (B, max_path, d) float32, scal (B, 16) int32, work (B, 14) int64
 
 `scal` holds done, junction a, junction b, a-tree-was-start at the join,
 iterations, samples drawn, nodes, start-tree size, goal-tree size, grow steps,
@@ -18,8 +18,9 @@ connect steps and the two chain lengths; `work` holds the configurations
 checked, the node-sample pairs scanned and the pointcloud's spheres gated,
 chunk bounds tested and points evaluated (zero without a pointcloud,
 `envs.pck`), then the block's clock cycles in each phase of a step
-(`PHASES`; `fkcc_cuda.phase_split` sums them over the batch).  A failed
-build or launch raises.
+(`PHASES`; `fkcc_cuda.phase_split` sums them over the batch), then the
+card's %globaltimer in ns as the block entered and as it left (`TIMES`).
+A failed build or launch raises.
 
 The launch shape, T threads a block and G lanes of a warp a configuration
 of the FK + collision pass, comes from `launch_shape` (a pure function of
@@ -47,6 +48,9 @@ SCALARS = 16
 WORK = 5
 # the phases of a planner step whose cycles follow the work counters
 PHASES = ("sampling", "nn_a", "prefilter", "edges", "fkcc", "nn_b", "inserts")
+# then the block's entry and exit on the card's %globaltimer (ns)
+TIMES = ("enter_ns", "exit_ns")
+WORK_COLS = WORK + len(PHASES) + len(TIMES)
 # the kernel's static shared memory (state) comes on top of the dynamic part
 _STATIC_SMEM = 1024
 # node rows staged per nearest-neighbour pass (kChunk)
@@ -170,7 +174,7 @@ def plan(spec: RobotSpec, envs: Environment, ctl: torch.Tensor, nodes0: torch.Te
     nodes = torch.empty((B, M, d + 4), dtype=torch.float32, device=dev)
     path = torch.empty((B, P, d), dtype=torch.float32, device=dev)
     scal = torch.empty((B, SCALARS), dtype=torch.int32, device=dev)
-    work = torch.empty((B, WORK + len(PHASES)), dtype=torch.int64, device=dev)
+    work = torch.empty((B, WORK_COLS), dtype=torch.int64, device=dev)
     if B == 0:
         return path, scal, work
     lib = library()

@@ -17,6 +17,7 @@ retry of `run_suite` reuses the same kernel.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -29,6 +30,7 @@ from vamp_mvt_tpu_torch.planning import validate as validate_mod
 from vamp_mvt_tpu_torch.planning.rrtc import RRTCResult, RRTCSettings
 from vamp_mvt_tpu_torch.planning.validate import sum_last
 from vamp_mvt_tpu_torch.robots.spec import RobotSpec
+from vamp_mvt_tpu_torch.utils import profiling
 
 # Radius of a node never updated (a finite stand-in for infinity).
 _BIG = 1e30
@@ -142,10 +144,14 @@ def plan_batch_mega(
     budget: int | None = None,
     device=None,
     shape=None,
+    iter_count: str | None = None,
 ) -> RRTCResult:
     """Solve a batch with the planner megakernel, on `device` (default: the
     GPU).  `budget` replaces settings.max_iterations (the sample budget);
-    `shape` overrides the kernel's launch shape (rrtc_mega_cuda.plan)."""
+    `shape` overrides the kernel's launch shape (rrtc_mega_cuda.plan).
+    Under a runner's recorder that counts, the launch's block times are
+    counted (`_count_blocks`), and with `iter_count` its slowest block's us
+    an iteration under that name (`slowest_iter_us`)."""
     _check_settings(settings)
     _kernel_config(spec, settings, goals.shape[1])
     dev = resolve_device(device)
@@ -164,5 +170,39 @@ def plan_batch_mega(
     ctl, nodes0, any_direct, first_direct = mega_inputs(
         spec, envs, starts, goals, goal_masks, settings, sample_offsets, budget
     )
-    paths, scal, _ = rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, settings, shape)
+    paths, scal, work = rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, settings, shape)
+    if profiling.counting() and work.shape[0]:
+        _count_blocks(work)
+        if iter_count is not None:
+            profiling.count(iter_count, slowest_iter_us(work, scal[:, 4]))
     return _finalize_mega(paths, scal, starts, goals, any_direct, first_direct)
+
+
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _count_blocks(work) -> None:
+    """One launch's counts for the active recorder (utils/profiling.py),
+    from its blocks' %globaltimer columns, summed on the card:
+    planner_block_ns, the blocks' time (exit - entry, summed), and
+    planner_slot_ns, the launch's span (last exit - first entry) times the
+    blocks the card holds at once (SMs x blocks an SM), so that their ratio
+    is how full the card was."""
+    t = rrtc_mega_cuda.WORK + len(rrtc_mega_cuda.PHASES)
+    enter, leave = work[:, t], work[:, t + 1]
+    profiling.count("planner_block_ns", (leave - enter).sum())
+    slots = _sm_count(work.device) * rrtc_mega_cuda.LAST_LAUNCH["blocks_per_sm"]
+    profiling.count("planner_slot_ns", (leave.max() - enter.min()) * slots)
+
+
+def slowest_iter_us(work: torch.Tensor, iterations: torch.Tensor) -> torch.Tensor:
+    """A launch's slowest block's microseconds an iteration, from its `work`
+    and its rows' iterations (`scal[:, 4]`); a 0-dim float64 tensor on the
+    card, no sync."""
+    t = rrtc_mega_cuda.WORK + len(rrtc_mega_cuda.PHASES)
+    dur = work[:, t + 1] - work[:, t]
+    slow = dur.argmax().view(1)
+    iters = iterations.long().gather(0, slow).clamp(min=1)
+    return (dur.gather(0, slow).double() / iters / 1e3).sum()
