@@ -26,7 +26,8 @@ exception exits non-zero):
   rrtc_mega      the planner megakernel against its plain version (the
                  lockstep planner): exactly on the sphere-robot wall problem
                  at (K, C, W) = (1, 1, 1) and (4, 2, 2), with a runtime
-                 budget and the retry's start-replaced goals; then on the 700
+                 budget and the solved rows' goals replaced by their starts
+                 (problems that end at once); then on the 700
                  cages at run_suite's mega settings (at least MIN_SHARE of
                  the results identical), times, work counters and the bound
   simplify_mega  the simplify megakernel against its plain version on the
@@ -48,9 +49,10 @@ exception exits non-zero):
                  the planner megakernel against its plain version on the
                  first MBM_CHECK of those scenes (capsule and cuboid tables)
                  at the budget (at least MIN_SHARE of the results
-                 identical), then run_suite's 32x retry by the kernel alone
-                 (mega_interleave compares the plain retry); every solved
-                 path revalidated by the plain version
+                 identical), then run_suite's 32x retry of the unsolved
+                 rows alone by the kernel alone (mega_interleave compares
+                 the plain retry); every solved path revalidated by the
+                 plain version, each launch's cluster size
   mega_interleave
                  the planner kernel's interleaved cadence (interleave=True:
                  the grow part every step, an active connect chain riding
@@ -84,6 +86,17 @@ exception exits non-zero):
                  each megakernel against its plain version on the first
                  PC_CHECK pointcloud scenes at the budget: at least MIN_SHARE
                  identical, times, work counters and the bound
+  rrtc_mega_single
+                 the planner kernel one problem a launch (a cloud request,
+                 a lone problem's retry), each on a cluster of
+                 SINGLE_CLUSTER blocks: the first SINGLE_CHECK cages, the
+                 MBM_CHECK MBM-shaped scenes and the first SINGLE_CHECK
+                 pointcloud scenes at the budget, then those left unsolved
+                 (every one, where none is) at the runner's retry budget
+                 (32x, 16x on clouds); at each, one launch a problem, at
+                 least MIN_SHARE identical to the plain planner on the same
+                 problems, every solved path revalidated by the plain
+                 version
   evaluate_mbm   the main path's command line (examples/evaluate_mbm.py's
                  port) on its default device: the 700 cages through
                  --problems_pkl at --planner auto --batch_size 700 --table
@@ -257,6 +270,8 @@ SIMPLIFY_RTOL = 1e-5
 MIN_SHARE = 0.95
 MBM_CHECK = 64  # MBM-shaped scenes the planner is compared on
 PC_CHECK = 64   # pointcloud scenes the kernels are compared on
+SINGLE_CHECK = 16   # cages and pointcloud scenes planned one a launch
+SINGLE_CLUSTER = 8  # blocks a problem of a one-problem launch (rrtc_mega_cuda.cluster_size)
 PC_SAMPLES = 10000  # surface samples per object (run_suite_pointcloud's default)
 PC_RETRY_SAMPLES = 16384  # run_suite's node rows, if the 4096 of the pointcloud suite fill
 PROBE_TILES = 4096  # (8, 128) index tiles a gather probe reads
@@ -654,48 +669,107 @@ def mega_compare(spec, envs, st, gl, mk, settings, ss) -> dict:
 def retry_compare(spec, envs, st, gl, mk, settings, plain_retry: bool = True) -> dict:
     """The planner kernel against its plain version (in the cadence
     `settings.interleave` names) at the budget, then as run_suite's retry
-    (32x the budget, the solved rows' goals replaced by their starts), where
-    the shares are over the retried rows: at least MIN_SHARE identical at
-    each, every solved path revalidated by the plain version.  Without
-    `plain_retry` the retry runs the kernel alone (its solved paths still
-    revalidated): the plain planner's retry is the longest comparison."""
+    (bench/mbm.py::_mega_solver: the rows left unsolved, gathered alone, at
+    32x the budget): at least MIN_SHARE of each launch's rows identical,
+    every solved path revalidated by the plain version, each launch's
+    cluster size read.  Without `plain_retry` the retry runs the kernel
+    alone (its solved paths still revalidated): the plain planner's retry
+    is the longest comparison."""
     import dataclasses
 
     import torch
 
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
     from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega
 
     dev = st.device
-    out, g, retried = {}, gl, torch.ones(len(st), dtype=torch.bool, device=dev)
+    out, rows = {}, torch.arange(len(st), device=dev)
     for budget in (settings.max_iterations, 32 * settings.max_iterations):
-        check(bool(retried.any()), f"problems to compare at budget {budget}")
+        check(len(rows) > 0, f"problems to compare at budget {budget}")
+        e, s, g, m = envs.map(lambda t: t[rows]), st[rows], gl[rows], mk[rows]
         rrtc_mega.PAST_MAX_PATH = 0
         t0 = time.perf_counter()
-        got = rrtc_mega.plan_batch_mega(spec, envs, st, g, mk, settings, budget=budget,
-                                        device=dev)
+        got = rrtc_mega.plan_batch_mega(spec, e, s, g, m, settings, budget=budget, device=dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        ok = paths_revalidate_plain(spec, envs, got.path, got.path_length)
+        ok = paths_revalidate_plain(spec, e, got.path, got.path_length)
         out[str(budget)] = {
-            "problems": int(retried.sum()), "solved": {"kernel": int(got.solved[retried].sum())},
-            "past_max_path": rrtc_mega.PAST_MAX_PATH,
-            "solved_paths_revalidated_plain": int((ok & got.solved)[retried].sum()),
-            "kernel_s": t1 - t0}
+            "problems": len(rows), "cluster": rrtc_mega_cuda.LAST_LAUNCH["cluster"],
+            "solved": {"kernel": int(got.solved.sum())}, "past_max_path": rrtc_mega.PAST_MAX_PATH,
+            "solved_paths_revalidated_plain": int((ok & got.solved).sum()), "kernel_s": t1 - t0}
         check(bool(ok[got.solved].all()), f"every solved path revalidates at budget {budget}")
         if plain_retry or budget == settings.max_iterations:
-            ref = rrtc.plan_batch_compact(spec, envs, st, g, mk,
+            ref = rrtc.plan_batch_compact(spec, e, s, g, m,
                                           dataclasses.replace(settings, max_iterations=budget),
                                           device=dev, interleave=settings.interleave)
             torch.cuda.synchronize()
-            same = same_plan(got, ref)[retried]
+            same = same_plan(got, ref)
             out[str(budget)] |= {"identical": int(same.sum()),
                                  "plain_s": time.perf_counter() - t1}
-            out[str(budget)]["solved"]["plain"] = int(ref.solved[retried].sum())
+            out[str(budget)]["solved"]["plain"] = int(ref.solved.sum())
             check(float(same.float().mean()) >= MIN_SHARE,
                   f"rrtc_mega (interleave={settings.interleave}) equals plain at budget {budget}")
-        retried = ~got.solved
-        g = torch.where(retried[:, None, None], gl, st[:, None])
+        rows = rows[~got.solved]
     return out
+
+
+def single_request_phase(dev, spec, cases) -> None:
+    """The planner kernel as a single request launches it (B = 1: a cloud
+    request of run_suite_pointcloud(batch_size=1), one problem alone), at
+    SINGLE_CLUSTER blocks a problem.  For each case (name, envs, starts,
+    goals, masks, settings, its runner's retry factor, rows): each of its
+    first `rows` problems planned alone at the budget, then each it left
+    unsolved (every one, where none is left) alone at factor x the budget,
+    as the retry plans it; the rrtc_mega launches counted (reset just
+    before) and each launch's cluster size read; the kernel's results
+    against the plain planner's on the same problems, at least MIN_SHARE
+    identical at each budget, every solved path revalidated by the plain
+    version."""
+    import dataclasses
+
+    import torch
+
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega
+
+    out = {}
+    for name, envs, st, gl, mk, settings, factor, n in cases:
+        line, rows = {}, list(range(n))
+        for budget in (settings.max_iterations, factor * settings.max_iterations):
+            rrtc_mega_cuda.LAUNCHES = 0
+            got, clusters = [], []
+            t0 = time.perf_counter()
+            for r in rows:
+                got.append(rrtc_mega.plan_batch_mega(
+                    spec, envs.map(lambda t: t[r:r + 1]), st[r:r + 1], gl[r:r + 1], mk[r:r + 1],
+                    settings, budget=budget, device=dev))
+                clusters.append(rrtc_mega_cuda.LAST_LAUNCH["cluster"])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            launches = rrtc_mega_cuda.LAUNCHES
+            got = type(got[0])(*(torch.cat(f) for f in zip(*got)))
+            idx = torch.as_tensor(rows, device=dev)
+            e = envs.map(lambda t: t[idx])
+            ref = rrtc.plan_batch_compact(spec, e, st[idx], gl[idx], mk[idx],
+                                          dataclasses.replace(settings, max_iterations=budget),
+                                          device=dev, interleave=settings.interleave)
+            torch.cuda.synchronize()
+            same = same_plan(got, ref)
+            ok = paths_revalidate_plain(spec, e, got.path, got.path_length)
+            line[str(budget)] = {
+                "problems": len(rows), "launches": launches, "clusters": sorted(set(clusters)),
+                "identical": int(same.sum()),
+                "solved": {"kernel": int(got.solved.sum()), "plain": int(ref.solved.sum())},
+                "solved_paths_revalidated_plain": int((ok & got.solved).sum()),
+                "kernel_s": t1 - t0, "plain_s": time.perf_counter() - t1}
+            what = f"{name} alone at budget {budget}"
+            check(launches == len(rows), f"one rrtc_mega launch a problem, {what}")
+            check(set(clusters) == {SINGLE_CLUSTER}, f"a cluster of {SINGLE_CLUSTER}, {what}")
+            check(float(same.float().mean()) >= MIN_SHARE, f"rrtc_mega equals plain, {what}")
+            check(bool(ok[got.solved].all()), f"every solved path revalidates, {what}")
+            rows = [r for r, ok_ in zip(rows, got.solved.tolist()) if not ok_] or rows
+        out[name] = line
+    emit({"phase": "rrtc_mega_single", "min_share": MIN_SHARE, "cases": out})
 
 
 def mega_path(spec, envs, st, gl, mk, settings, ss) -> dict:
@@ -837,9 +911,8 @@ def mega_interleave_phase(dev, spec, cages, c_envs, c_st, c_gl, c_mk, c_ops, meg
                   "work": {"configs": int(work[:, 0].sum()), "pairs": int(work[:, 1].sum())},
                   **r_bound}
 
-    # the MBM-shaped scenes at the budget, then as run_suite's retry (32x,
-    # the solved rows' goals replaced by their starts; shares over the
-    # retried rows), both cadences' kernels at the budget
+    # the MBM-shaped scenes at the budget, then as run_suite's retry (32x on
+    # the unsolved rows alone), both cadences' kernels at the budget
     b_envs, b_st, b_gl, b_mk = mbm.build_batch(mbm_problems, device=dev)
     mbm_line = {n: cadence_run(spec, b_envs, b_st, b_gl, b_mk, s)["line"]
                 for n, s in (("alternating", mega_s), ("interleaved", inter_s))}
@@ -1463,7 +1536,7 @@ def suite_robots_phase(dev, ss) -> list[dict]:
             out.append(row(k, r["ms"], r["plain_ms"], r, r["max_abs_err"], launches[k])
                        | {"name": f"{k}_{robot}", "replaces": src,
                           **{f: occupancy[k].get(f) for f in (
-                              "threads", "group", "smem_bytes", "blocks_per_sm",
+                              "threads", "group", "cluster", "smem_bytes", "blocks_per_sm",
                               "warps_per_sm")},
                           "phase_share": r["phase_share"]})
     return out
@@ -2531,7 +2604,7 @@ def main() -> int:
                                 samples_per_step=kcw[0], connect_segments=kcw[1],
                                 sample_window=kcw[2])
         g = gl_w
-        for budget in (384, 260, 32 * 260):  # the last two: run_suite's retry
+        for budget in (384, 260, 32 * 260):  # the last: solved rows' goals at their starts
             got = rrtc_mega.plan_batch_mega(spec_w, envs_w, st_w, g, mk_w, s_w, offs,
                                             budget=budget, device=dev)
             ref = rrtc.plan_batch(spec_w, envs_w, st_w, g, mk_w,
@@ -2698,8 +2771,7 @@ def main() -> int:
 
     # the planner megakernel against its plain version on the first
     # MBM_CHECK of these scenes (capsule and cuboid tables): at the budget,
-    # then as run_suite's retry (32x the budget, the solved rows' goals
-    # replaced by their starts), where the share is over the retried rows
+    # then as run_suite's retry (32x the budget on the unsolved rows alone)
     # (the plain planner's 32x retry is compared in mega_interleave, in the
     # interleaved cadence; here the kernel's retry runs alone)
     b_envs, b_st, b_gl, b_mk = mbm.build_batch(problems[:MBM_CHECK], device=dev)
@@ -2847,6 +2919,18 @@ def main() -> int:
                            rp_work.sum(0).tolist())),
           **rp_launch, **rpc_bound, "library_ms": None})
     check(float(same_pc.float().mean()) >= MIN_SHARE, "rrtc_mega equals plain on pointclouds")
+
+    # rrtc_mega_single: the planner kernel one problem a launch, as a cloud
+    # request and a lone problem's retry launch it (SINGLE_CLUSTER blocks a
+    # problem): cages, the MBM-shaped scenes and the clouds, each at the
+    # budget and at its runner's retry budget (run_suite's 32x,
+    # run_suite_pointcloud's 16x)
+    s_envs, s_st, s_gl, s_mk = mbm.build_batch(cages["problems"]["cage"][:SINGLE_CHECK],
+                                               device=dev)
+    single_request_phase(dev, spec, [
+        ("cages", s_envs, s_st, s_gl, s_mk, mega_s, 32, SINGLE_CHECK),
+        ("mbm_shaped", b_envs, b_st, b_gl, b_mk, mega_s, 32, MBM_CHECK),
+        ("pointcloud", pk_envs, c_st, c_gl, c_mk, pc_settings, 16, SINGLE_CHECK)])
 
     sp_in, sl_in = pp.path.contiguous(), pp.path_length.to(torch.int32)
     ks = simplify_mega.simplify_batch_mega(spec, pk_envs, pp.path, pp.path_length, ss,

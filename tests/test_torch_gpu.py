@@ -12,7 +12,9 @@ of FK: the kernel reads constants as float32 where the plain version folds
 them in float64).  The megakernels must match their plain versions (the
 lockstep planner and simplifier) on the sphere-robot wall problem exactly in
 solved flags, iterations, tree sizes and path lengths, with costs within
-rtol 1e-6 (planner) and 1e-5 (simplifier).
+rtol 1e-6 (planner) and 1e-5 (simplifier).  The planner kernel run on a
+cluster of k blocks a problem must give the scalars, paths and work counters
+of one block a problem bit for bit (`_same_as_one_block`).
 """
 
 import dataclasses
@@ -26,6 +28,8 @@ from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
 from vamp_mvt_tpu_torch.robots import registry
 
 BAND = 1e-5
+# blocks a problem the planner kernel's parity tests force (shape=(T, G, k))
+CLUSTERS = [1, 2, 4, 8]
 
 
 @pytest.fixture
@@ -146,9 +150,30 @@ def _wall_settings(k, c, w, **kw):
                                     sample_window=w) | kw)
 
 
+def _same_as_one_block(spec, envs, starts, goals, masks, s, cluster, offs=None, budget=None):
+    """The planner kernel at `cluster` blocks a problem against one block a
+    problem, both at the one-block launch's G: the scalars, the paths and
+    the work counters (configurations, node-sample pairs, pointcloud work)
+    bit-identical.  Returns the cluster launch's (path, scal, work)."""
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc_mega
+
+    ctl, nodes0, _, _ = rrtc_mega.mega_inputs(spec, envs, starts, goals, masks, s, offs, budget)
+    G = rrtc_mega_cuda.launch_shape(spec, envs, s)["group"]
+    one = rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, s, shape=(None, G, 1))
+    got = rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, s, shape=(None, G, cluster))
+    torch.cuda.synchronize()
+    assert rrtc_mega_cuda.LAST_LAUNCH["cluster"] == cluster
+    assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1]), cluster
+    W = rrtc_mega_cuda.WORK
+    assert torch.equal(got[2][:, :W], one[2][:, :W]), cluster
+    return got
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("cluster", CLUSTERS)
 @pytest.mark.parametrize("k,c,w", [(1, 1, 1), (4, 2, 2)])
-def test_rrtc_mega_matches_plain(cuda, k, c, w):
+def test_rrtc_mega_matches_plain(cuda, k, c, w, cluster):
     from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
     from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega
 
@@ -157,11 +182,13 @@ def test_rrtc_mega_matches_plain(cuda, k, c, w):
     s = _wall_settings(k, c, w)
 
     def both(g, budget):
+        _same_as_one_block(spec, envs, starts, g, masks, s, cluster, offs, budget)
         before = rrtc_mega_cuda.LAUNCHES
         got = rrtc_mega.plan_batch_mega(spec, envs, starts, g, masks, s, offs, budget=budget,
-                                        device=cuda)
+                                        device=cuda, shape=(None, None, cluster))
         torch.cuda.synchronize()
         assert rrtc_mega_cuda.LAUNCHES == before + 1
+        assert rrtc_mega_cuda.LAST_LAUNCH["cluster"] == cluster
         ref = rrtc.plan_batch(spec, envs, starts, g, masks, dataclasses.replace(
             s, max_iterations=budget or s.max_iterations), offs)
         for f in ("solved", "iterations", "size_start", "size_goal", "path_length"):
@@ -386,16 +413,16 @@ def _pc_wall_problem(device, B=2):
 
 
 @pytest.mark.gpu
-def test_rrtc_mega_pc_matches_plain(cuda):
-    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_rrtc_mega_pc_matches_plain(cuda, cluster):
     from vamp_mvt_tpu_torch.planning import rrtc, rrtc_mega
 
     spec, envs, starts, goals, masks = _pc_wall_problem(cuda)
     offs = torch.arange(2, device=cuda, dtype=torch.int32) * 100
     s = _wall_settings(4, 2, 2, max_iterations=1024, max_samples=512)
-    got = rrtc_mega.plan_batch_mega(spec, envs, starts, goals, masks, s, offs, device=cuda)
-    ctl, nodes0, _, _ = rrtc_mega.mega_inputs(spec, envs, starts, goals, masks, s, offs)
-    _, _, work = rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, s)
+    got = rrtc_mega.plan_batch_mega(spec, envs, starts, goals, masks, s, offs, device=cuda,
+                                    shape=(None, None, cluster))
+    _, _, work = _same_as_one_block(spec, envs, starts, goals, masks, s, cluster, offs)
     ref = rrtc.plan_batch(spec, envs, starts, goals, masks, s, offs)
     torch.cuda.synchronize()
     assert bool(ref.solved.any())
@@ -831,8 +858,9 @@ def test_roadmap_planners_card_match_cpu(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("cluster", CLUSTERS)
 @pytest.mark.parametrize("k,c,w", [(1, 1, 1), (4, 2, 2)])
-def test_rrtc_mega_interleave_matches_plain(cuda, k, c, w):
+def test_rrtc_mega_interleave_matches_plain(cuda, k, c, w, cluster):
     """The interleaved cadence (grow every step, an active chain riding
     along) on the wall problem: the kernel equals its plain version, the
     lockstep planner with interleave=True, exactly."""
@@ -842,8 +870,10 @@ def test_rrtc_mega_interleave_matches_plain(cuda, k, c, w):
     spec, envs, starts, goals, masks = _wall(cuda)
     offs = torch.arange(3, device=cuda, dtype=torch.int32) * 100
     s = _wall_settings(k, c, w, interleave=True)
+    _same_as_one_block(spec, envs, starts, goals, masks, s, cluster, offs)
     before = rrtc_mega_cuda.LAUNCHES
-    got = rrtc_mega.plan_batch_mega(spec, envs, starts, goals, masks, s, offs, device=cuda)
+    got = rrtc_mega.plan_batch_mega(spec, envs, starts, goals, masks, s, offs, device=cuda,
+                                    shape=(None, None, cluster))
     torch.cuda.synchronize()
     assert rrtc_mega_cuda.LAUNCHES == before + 1
     ref = rrtc.plan_batch_compact(spec, envs, starts, goals, masks, s, offs, device=cuda,
@@ -858,7 +888,8 @@ def test_rrtc_mega_interleave_matches_plain(cuda, k, c, w):
 
 
 @pytest.mark.gpu
-def test_rrtc_mega_interleave_matches_plain_on_cages(cuda, monkeypatch):
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_rrtc_mega_interleave_matches_plain_on_cages(cuda, monkeypatch, cluster):
     """The interleaved kernel on 16 Panda sphere cages at run_suite's mega
     settings against its plain version, whose nearest-neighbour dots are
     summed in index order as the kernel sums them (rrtc.IndexOrderTorch)."""
@@ -869,7 +900,9 @@ def test_rrtc_mega_interleave_matches_plain_on_cages(cuda, monkeypatch):
     envs, starts, goals, masks = mbm.build_batch(mbm.cage_suite(16)["problems"]["cage"],
                                                  device=cuda)
     s = dataclasses.replace(mbm.default_settings("panda", "mega"), interleave=True)
-    got = rrtc_mega.plan_batch_mega(spec, envs, starts, goals, masks, s, device=cuda)
+    _same_as_one_block(spec, envs, starts, goals, masks, s, cluster)
+    got = rrtc_mega.plan_batch_mega(spec, envs, starts, goals, masks, s, device=cuda,
+                                    shape=(None, None, cluster))
     torch.cuda.synchronize()
     monkeypatch.setattr(rrtc, "torch", rrtc.IndexOrderTorch())
     ref = rrtc.plan_batch_compact(spec, envs, starts, goals, masks, s, device=cuda,
@@ -1334,13 +1367,17 @@ def test_sharded_mega_planner_on_the_card(cuda):
 
 
 @pytest.mark.gpu
-def test_rrtc_mega_block_clocks(cuda):
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_rrtc_mega_block_clocks(cuda, cluster):
     """The planner kernel's %globaltimer columns (after the phase clocks) on
-    16 Panda cages, half of them start = goal rows that end at once: exit >=
-    entry on every block, a start = goal block under 1% of the slowest live
-    one (a start = goal block takes ~23 us on an H100, a cage 1-19 ms), and
-    the phase clocks where they were (a live block's cycles over its time
-    read as a clock rate)."""
+    16 Panda cages at `cluster` blocks a problem, half of them start = goal
+    rows that end at once: exit >= entry on every problem, a start = goal
+    problem under 1% of the slowest live one (a start = goal block takes ~23
+    us on an H100, a cage 1-19 ms), the blocks' summed time between one and
+    `cluster` times the problem's (every rank counted: a live cluster's ranks
+    run together, so at least 90% of `cluster` times it), and rank 0's phase
+    clocks where they were (a live problem's cycles over its time read as a
+    clock rate).  The scalars, paths and counters equal one block's."""
     from vamp_mvt_tpu_torch.bench import mbm
     from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
     from vamp_mvt_tpu_torch.planning import rrtc_mega
@@ -1351,13 +1388,15 @@ def test_rrtc_mega_block_clocks(cuda):
     still = torch.arange(16, device=cuda) % 2 == 1
     goals = torch.where(still[:, None, None], starts[:, None, :], goals)
     s = mbm.default_settings("panda", "mega")
-    ctl, nodes0, direct, _ = rrtc_mega.mega_inputs(spec, envs, starts, goals, masks, s)
-    _, scal, work = rrtc_mega_cuda.plan(spec, envs, ctl, nodes0, s)
-    torch.cuda.synchronize()
-    assert work.shape == (16, rrtc_mega_cuda.WORK_COLS) == (16, 14)
+    _, _, direct, _ = rrtc_mega.mega_inputs(spec, envs, starts, goals, masks, s)
+    _, scal, work = _same_as_one_block(spec, envs, starts, goals, masks, s, cluster)
+    assert work.shape == (16, rrtc_mega_cuda.WORK_COLS) == (16, 15)
     t = rrtc_mega_cuda.WORK + len(rrtc_mega_cuda.PHASES)
     dur = (work[:, t + 1] - work[:, t]).double().cpu()
+    busy = work[:, t + 2].double().cpu()
     assert bool((dur >= 0).all()) and bool((work[:, t] > 0).all())
+    assert bool((busy >= dur).all()) and bool((busy <= cluster * dur).all())
+    assert bool((busy[~still.cpu()] >= 0.9 * cluster * dur[~still.cpu()]).all())
     still, direct = still.cpu(), direct.cpu()
     assert bool(direct[still].all()) and not bool(direct[~still].any())
     live = dur[~still]
@@ -1374,10 +1413,12 @@ def test_run_suite_counts_the_retry_and_the_card(cuda):
     """run_suite(planner="mega")'s counts on 64 MBM-shaped problems at a
     budget of 256 samples: retry_live equals the rows the first launch left
     unsolved, the planner's blocks fill at most the card's slots, and the
-    retry launch (only) gives its slowest block's time an iteration."""
+    retry launch (only) gives its slowest problem's time an iteration and
+    its blocks, the live rows times its cluster size."""
     import dataclasses
 
     from vamp_mvt_tpu_torch.bench import mbm, scenes
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
     from vamp_mvt_tpu_torch.planning import rrtc_mega
 
     spec = registry.load("panda")
@@ -1393,6 +1434,9 @@ def test_run_suite_counts_the_retry_and_the_card(cuda):
     assert tm["retry_live"] == unsolved
     assert 0 < tm["planner_block_ns"] <= tm["planner_slot_ns"]
     assert tm["retry_iter_us"] > 0 and "plan_iter_us" not in tm
+    # the retry plans the live rows alone, each on a cluster of k blocks
+    assert rrtc_mega_cuda.LAST_LAUNCH["cluster"] > 1
+    assert tm["retry_blocks"] == unsolved * rrtc_mega_cuda.LAST_LAUNCH["cluster"]
     names = [x[1] for x in tm["spans"]]
     assert names.count("plan") == names.count("retry") == 1
     assert {"batch_assemble", "batch_to_device", "gather"} <= set(names)

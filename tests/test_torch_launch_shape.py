@@ -7,8 +7,9 @@ layouts, mirrored in Python (`smem_floats`; the launchers report the bytes
 their C `Layout` takes, and the wrappers raise on the card where the two
 differ).  Pinned here: the shape for the Panda, UR5, Fetch and Baxter on
 sphere cages, with four payload spheres and on a pointcloud; the ranking
-rule itself; the override the card tests use; and the refusal where no
-shape fits.
+rule itself; the override the card tests use; the refusal where no shape
+fits; and the planner kernel's cluster size rule (`cluster_size`) at the
+H100's figures, with the shapes a cluster takes.
 """
 
 import dataclasses
@@ -133,6 +134,58 @@ def test_nothing_fits_raises():
     big = dataclasses.replace(mbm.default_settings("panda", "mega"), max_path=70000)
     with pytest.raises(ValueError, match="no launch shape fits"):
         rrtc_mega_cuda.launch_shape(spec, envs, big)
+
+
+# The planner kernel's resident clusters of k = 1..8 blocks on an NVIDIA H100
+# 80GB HBM3 (cudaOccupancyMaxActiveClusters at run_suite's Panda settings,
+# each k at its own launch shape: (512, 4), (512, 8) at k = 8; one block an
+# SM): the card's 132 SMs sit in GPCs that hold whole clusters only.
+H100_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15)
+
+
+@pytest.mark.parametrize("B,k", [(700, 1), (133, 1), (67, 1), (66, 2), (64, 2), (49, 2),
+                                 (40, 2), (39, 3), (30, 4), (16, 6), (15, 8), (1, 8)])
+def test_cluster_size_rule(B, k):
+    """The most blocks a problem that keeps every one of B clusters resident
+    at once: the suite's first launch keeps one block a problem, its ~49 live
+    retry rows and the 64-problem paths get 2, one cloud 8."""
+    assert rrtc_mega_cuda.cluster_size(B, lambda k: H100_CLUSTERS[k - 1]) == k
+
+
+def test_cluster_size_never_passes_one_wave():
+    resident = lambda k: H100_CLUSTERS[k - 1]  # noqa: E731
+    for B in range(1, 800):
+        k = rrtc_mega_cuda.cluster_size(B, resident)
+        assert k == 1 or resident(k) >= B
+        assert all(resident(j) < B for j in range(k + 1, rrtc_mega_cuda.MAX_CLUSTER + 1))
+
+
+def test_cluster_size_asks_nothing_where_pairs_cannot_fit():
+    """A launch whose B clusters of 2 pass the card's block slots (132 SMs x
+    4 blocks of 512 threads) keeps one block a problem without asking the
+    card; a smaller one asks as before."""
+    def ask(k):
+        raise AssertionError("asked the card")
+
+    assert rrtc_mega_cuda.cluster_size(700, ask, slots=528) == 1
+    assert rrtc_mega_cuda.cluster_size(265, ask, slots=528) == 1
+    assert rrtc_mega_cuda.cluster_size(49, lambda k: H100_CLUSTERS[k - 1], slots=528) == 2
+    assert rrtc_mega_cuda.cluster_size(1, lambda k: H100_CLUSTERS[k - 1], slots=528) == 8
+
+
+def test_cluster_shapes():
+    """A cluster ranks its groups over the cluster's threads: the Panda's
+    512 points of a step take one round of 8 x 512 / 8 groups at k = 8, so
+    it takes 8 lanes a configuration there and keeps 4 at k = 2 (the same
+    shared memory as one block); a shape override may force k."""
+    spec = registry.load("panda")
+    envs = _tables("cages")
+    s = mbm.default_settings("panda", "mega")
+    picks = {k: rrtc_mega_cuda.launch_shape(spec, envs, s, cluster=k) for k in (1, 2, 8)}
+    assert [(p["threads"], p["group"]) for p in picks.values()] == [(512, 4), (512, 4), (512, 8)]
+    assert picks[2]["smem_bytes"] == picks[1]["smem_bytes"]
+    got = rrtc_mega_cuda.plan_shape(spec, envs, s, 3, None, shape=(None, 4, 8))
+    assert (got["threads"], got["group"], got["cluster"]) == (512, 4, 8)
 
 
 # ---------------------------------------------------------------------------

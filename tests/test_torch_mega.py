@@ -219,6 +219,44 @@ def test_plan_batch_mega_retry_call_matches_jax():
     assert (got.iterations.numpy()[~unsolved] == 0).all()
 
 
+def test_mega_solver_retry_of_the_live_rows_equals_the_relaunch():
+    """run_suite's mega retry plans the unsolved rows alone and writes them
+    back in place; a row's search does not depend on its place in the batch,
+    so the result equals the earlier relaunch of every row with the solved
+    rows' goals replaced by their starts.  Five wall problems: one solved
+    at the first budget, three by the 32x retry, one never (its goal inside
+    a wall sphere)."""
+    B = 5
+    b = envmod.EnvironmentBuilder()
+    for y in np.linspace(-3, 3, 13):
+        for z in np.linspace(0, 3, 7):
+            if not (y > 2.0 and z > 2.0):
+                b.add_sphere([0.0, y, z], 0.3)
+    envs = envmod.broadcast_environment(b.build(device="cpu"), B)
+    starts = torch.tensor([[-2.0, 0.0, 1.0]] * B) + torch.arange(B)[:, None] * 0.07
+    goals = torch.tensor([[[2.0, 0.0, 1.0]]] * B) + torch.arange(B)[:, None, None] * 0.05
+    goals[0, 0] = torch.tensor([-2.0, 1.0, 1.5])
+    goals[2, 0] = torch.tensor([0.0, 0.0, 1.0])
+    masks = torch.ones((B, 1), dtype=torch.bool)
+    spec = registry.sphere_spec(lows=(-3, -3, 0), highs=(3, 3, 3), radius=0.1)
+    s = rrtc.RRTCSettings(**_wall_settings(4, 2, 2, max_iterations=16))
+
+    def plan_fn(e, s_, g, m, budget, iter_count=None, block_count=None):
+        return rrtc_mega.plan_batch_mega(spec, e, s_, g, m, s, budget=budget, device="cpu")
+
+    got = mbm._mega_solver(plan_fn, s, 32, lambda: None)(envs, starts, goals, masks)
+    first = plan_fn(envs, starts, goals, masks, 16)
+    um = ~first.solved
+    again = plan_fn(envs, starts, torch.where(um[:, None, None], goals, starts[:, None]), masks,
+                    32 * 16)
+    ref = type(first)(*(torch.where(um.reshape(um.shape + (1,) * (o.dim() - 1)), n, o)
+                        for o, n in zip(first, again)))
+    assert first.solved.tolist() == [True, False, False, False, False]
+    assert ref.solved.tolist() == [True, True, False, True, True]
+    for f in ref._fields:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
 @pytest.mark.parametrize("k,c,w", [(1, 1, 1), (4, 2, 2)])
 def test_plan_batch_mega_interleave_matches_jax(k, c, w):
     """The interleaved cadence (grow every step, an active chain riding

@@ -188,31 +188,43 @@ def test_a_recorder_without_counts_keeps_its_spans():
 
 def test_mega_solver_counts_the_retry_launch_only():
     """The mega path's solve_batch under a recorder counts retry_live and
-    asks plan_fn (plan_batch_mega) to count retry_iter_us for the retry
-    launch alone (a stand-in plan_fn on the CPU)."""
+    asks plan_fn (plan_batch_mega) to count retry_iter_us and retry_blocks
+    for the retry launch alone, which plans the unsolved rows alone (a
+    stand-in plan_fn on the CPU that returns as many rows as it is given
+    and counts its blocks as a launch at cluster size 2 would)."""
     from vamp_mvt_tpu_torch.bench import mbm
+    from vamp_mvt_tpu_torch.collision import environment as envmod
     from vamp_mvt_tpu_torch.planning import rrtc
 
     B, d = 4, 7
     calls = []
 
-    def plan_fn(e, s_, g, m, budget, iter_count=None):
+    def plan_fn(e, s_, g, m, budget, iter_count=None, block_count=None):
+        n = s_.shape[0]
         retry = bool(calls)
-        calls.append((budget, iter_count))
-        ones = torch.ones(B, dtype=torch.int32)
+        calls.append((n, budget, iter_count, block_count))
+        if block_count is not None:
+            profiling.count(block_count, 2 * n)
+        ones = torch.ones(n, dtype=torch.int32)
         solved = torch.tensor([True, False, True, False]) | retry
-        return rrtc.RRTCResult(solved, torch.zeros(B, 2, d), 2 * ones, torch.zeros(B),
-                               100 * ones, ones, ones, ones)
+        return rrtc.RRTCResult(solved[:n], s_[:, None].expand(n, 2, d).clone(), 2 * ones,
+                               torch.zeros(n), (100 + 900 * retry) * ones, ones, ones, ones)
 
     settings = mbm.default_settings("panda", "mega")
     solve = mbm._mega_solver(plan_fn, settings, 32, lambda: None)
-    s_, g, m = torch.zeros(B, d), torch.ones(B, 1, d), torch.ones(B, 1, dtype=torch.bool)
+    s_ = torch.arange(B, dtype=torch.float32)[:, None].expand(B, d).contiguous()
+    g, m = torch.ones(B, 1, d), torch.ones(B, 1, dtype=torch.bool)
+    e = envmod.broadcast_environment(envmod.EnvironmentBuilder().build(device="cpu"), B)
     into = {}
     with profiling.recording(into):
-        assert bool(solve(None, s_, g, m).solved.all())
+        got = solve(e, s_, g, m)
+    assert bool(got.solved.all())
+    assert got.iterations.tolist() == [100, 1000, 100, 1000]
+    assert torch.equal(got.path[:, 0], s_)  # each retried row written back to its place
     budget = settings.max_iterations
-    assert calls == [(budget, None), (32 * budget, "retry_iter_us")]
-    assert into["retry_live"] == 2.0
+    assert calls == [(B, budget, None, None), (2, 32 * budget, "retry_iter_us", "retry_blocks")]
+    assert into["retry_live"] == 2.0 and into["retry_blocks"] == 4.0
+    assert _reader("retry_cluster_k.suite")(_Run([{"timings": into}])) == 2.0
 
 
 def test_slowest_iter_us_reads_the_slowest_block():
@@ -290,7 +302,8 @@ class _Run:
         self.items = items
 
 
-@pytest.mark.parametrize("name", sorted(NEW_READERS) + ["planner_fill_pct.suite"])
+@pytest.mark.parametrize("name", sorted(NEW_READERS) + ["planner_fill_pct.suite",
+                                                         "retry_cluster_k.suite"])
 def test_span_readers_read_the_runner_keys_or_nothing(name):
     """The benchmark's readers of these spans and counts: the mean over the
     window's items of the key they read (ms for a span), and nothing from a
@@ -302,6 +315,11 @@ def test_span_readers_read_the_runner_keys_or_nothing(name):
         tms = [{"planner_block_ns": 3.0e9, "planner_slot_ns": 12.0e9},
                {"planner_block_ns": 1.0e9, "planner_slot_ns": 4.0e9}]
         assert read(_Run([{"timings": t} for t in tms])) == pytest.approx(25.0)
+        return
+    if name == "retry_cluster_k.suite":  # the rows' blocks over the rows, summed
+        tms = [{"retry_live": 49.0, "retry_blocks": 98.0},
+               {"retry_live": 1.0, "retry_blocks": 8.0}, {"retry_live": 0.0}]
+        assert read(_Run([{"timings": t} for t in tms])) == pytest.approx(106.0 / 50.0)
         return
     key, mean = NEW_READERS[name]
     scale = 1e-3 if name.endswith(".cloud") else 1.0

@@ -578,7 +578,8 @@ def run_suite(
     gather; the log of them under "spans"), and the counts: retry_live (rows
     the retry plans with their own goals), and on the mega path
     planner_block_ns, planner_slot_ns and, for the retry launch,
-    retry_iter_us (`rrtc_mega.plan_batch_mega`).  Runs on `device` (default: the GPU).
+    retry_iter_us and retry_blocks, its blocks (`rrtc_mega.plan_batch_mega`:
+    rows x cluster size).  Runs on `device` (default: the GPU).
     """
     dev = resolve_device(device)
     spec = registry.load(robot)
@@ -616,9 +617,10 @@ def run_suite(
 
     if planner == "mega":
 
-        def plan_fn(e, s_, g, m, budget, iter_count=None):
+        def plan_fn(e, s_, g, m, budget, iter_count=None, block_count=None):
             return rrtc_mega.plan_batch_mega(spec, e, s_, g, m, settings, budget=budget,
-                                             device=dev, iter_count=iter_count)
+                                             device=dev, iter_count=iter_count,
+                                             block_count=block_count)
 
         solve_batch = _mega_solver(plan_fn, settings, 32, sync)
 
@@ -668,7 +670,7 @@ def run_suite(
                 # build and load every kernel outside the timed phases; the mega
                 # path launches each of its kernels once on the first problem, at
                 # both budgets (the retry's on its start-replaced goal, which ends
-                # at once)
+                # at once), the planner's as a cluster launch (one problem: k = 8)
                 fkcc_cuda.library()
                 if planner == "mega":
                     e0, s0, g0, m0 = envs.map(lambda t: t[:1]), starts[:1], goals[:1], masks[:1]
@@ -768,9 +770,10 @@ def run_suite_pointcloud(
 
     if use_mega:
 
-        def plan_fn(e, s_, g, m, budget, iter_count=None):
+        def plan_fn(e, s_, g, m, budget, iter_count=None, block_count=None):
             return rrtc_mega.plan_batch_mega(spec, e, s_, g, m, settings, budget=budget,
-                                             device=dev, iter_count=iter_count)
+                                             device=dev, iter_count=iter_count,
+                                             block_count=block_count)
 
         solve_batch = _mega_solver(plan_fn, settings, retry_factor, sync)
         if simplify_mega.supports(simp_settings):
@@ -873,11 +876,13 @@ def run_suite_pointcloud(
 
 def _mega_solver(plan_fn, settings, factor: int, sync):
     """solve_batch of the mega path: plan at the budget, then replan the
-    unsolved problems with the same kernel at `factor` x the budget (solved
-    rows get start == goal problems that the direct check ends at once).
-    Under a recorder it counts retry_live, the rows the retry plans with
-    their own goals, and has plan_fn count retry_iter_us, the retry
-    launch's slowest block's us an iteration (rrtc_mega.plan_batch_mega)."""
+    unsolved problems alone with the same kernel at `factor` x the budget
+    and write their results back in place (a row's search does not depend
+    on its place in the batch, so the kernel gives the few live rows whole
+    clusters of SMs, rrtc_mega_cuda.cluster_size).  Under a recorder it
+    counts retry_live, the rows the retry plans, and has plan_fn count the
+    retry launch's retry_iter_us, its slowest problem's us an iteration, and
+    retry_blocks, its blocks (rrtc_mega.plan_batch_mega)."""
 
     def solve_batch(e, s_, g, m):
         with profiling.span("plan"):
@@ -889,13 +894,11 @@ def _mega_solver(plan_fn, settings, factor: int, sync):
                 profiling.count("retry_live", um.sum())
             if bool(um.any()):
                 _check_retry_room(pr, um, m, settings, factor)
-                g2 = torch.where(um[:, None, None], g, s_[:, None, :])
-                rr = plan_fn(e, s_, g2, m, factor * settings.max_iterations,
-                             iter_count="retry_iter_us")
-                pr = type(pr)(*(
-                    torch.where(um.reshape(um.shape + (1,) * (o.dim() - 1)), n, o)
-                    for o, n in zip(pr, rr)
-                ))
+                idx = torch.nonzero(um).squeeze(1)
+                rr = plan_fn(e.map(lambda t: t[idx]), s_[idx], g[idx], m[idx],
+                             factor * settings.max_iterations, iter_count="retry_iter_us",
+                             block_count="retry_blocks")
+                pr = type(pr)(*(o.index_copy(0, idx, n) for o, n in zip(pr, rr)))
                 sync()
         return pr
 

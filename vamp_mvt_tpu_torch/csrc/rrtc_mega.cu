@@ -2,9 +2,10 @@
 // dynamic-domain, balanced, bidirectional RRT-Connect solve per block.
 //
 // Replaces the TPU kernel vamp_mvt_tpu/planning/rrtc_mega.py::_run_mega
-// (its body _make_mega_kernel).  The grid is one block per problem; the
-// block loops until its own problem is solved, out of sample budget or out
-// of node capacity, so a finished problem frees its SM at once.  One step
+// (its body _make_mega_kernel).  The grid is one block (or one cluster of k
+// blocks, below) per problem; the block loops until its own problem is
+// solved, out of sample budget or out of node capacity, so a finished
+// problem frees its SM at once.  One step
 // mirrors the lockstep plain version, vamp_mvt_tpu_torch/planning/rrtc.py
 // (_make_step), which the tests hold it against.  A step has a grow part
 // and a connect part:
@@ -42,28 +43,52 @@
 // checked, node-sample pairs scanned, and the pointcloud's spheres gated,
 // chunk bounds tested and points evaluated), the cycles of each phase of
 // a step, read by thread 0 at barriers the step passes anyway, and the
-// card's %globaltimer (ns) as the block enters and as it leaves.  A pointcloud
+// card's %globaltimer (ns) as the block (cluster) enters and as it leaves,
+// and the SM time its blocks held.  A pointcloud
 // (fkcc_device.cuh) and a heightfield's heights stay in global memory; a
 // heightfield's meta rows (10 floats a field), an attachment's payload rows
 // and the robot tables go to shared memory, and each payload sphere adds 3
 // floats a group to the FK scratch.
 //
 // Node memory.  On the TPU the (M + 32, 128) node buffer lived in VMEM.  Here
-// each problem owns M rows of (d + 4) floats in global memory (configuration,
+// each block owns M rows of (d + 4) floats in global memory (configuration,
 // in_start flag, dynamic-domain radius, parent index as int bits, squared
 // norm); only the live prefix is ever read, and for the trees of a typical
 // problem it stays in L1/L2.  Nearest-neighbour scans stage 128 node rows at
-// a time into shared memory.
+// a time into shared memory.  A problem planned by a cluster of k blocks
+// (below) has k replicas of its rows, one a block: every block runs the same
+// deterministic state machine on the same data and writes the same inserts,
+// so no block reads rows another SM wrote (which would need the SMs' L1
+// lines kept coherent).
+//
+// Clusters.  The launcher may run each problem on a thread-block cluster of
+// k blocks (k a launch attribute, 1 to 8; problem = blockIdx.x / k, rank =
+// the block's rank in the cluster), each on its own SM.  The ranks split the
+// two expensive phases and merge through distributed shared memory (DSMEM),
+// one cluster barrier an exchange (the edge flags' arrays double-buffered):
+//   - the FK + collision pass: rank r takes points r * T / G + group, step
+//     k * T / G, and the ranks OR their edge flags together;
+//   - both nearest-neighbour scans: rank r scans node chunks r, r + k, ...,
+//     and every rank merges the k partial (d^2, index) minima, lower d^2 then
+//     lower index, which is the node one scan in index order finds.
+// The rest of a step (sampling, prefilter, edges, inserts, state) every rank
+// repeats.  So solved flags, iterations, trees and paths are bit-identical
+// at every k.  Rank 0 exports the path, the scalars and its phase clocks;
+// the work counters are the ranks' sums.  At k = 1 no cluster barrier and
+// no DSMEM access runs: the kernel takes the one-block path.
 //
 // What bounds it.  Per step the block evaluates up to K grow edges and C
 // chain increments of 8 * ceil(length * resolution / 8) points each through
 // FK + collision (some 18k-30k FP32 operations per Panda configuration) and
 // scans the live tree once per sample (2d + 3 operations per node-sample
 // pair): FP32 arithmetic and the shared-memory loads that feed it, in either
-// cadence; the node rows it reads are a few KB a step.  The FK + collision
-// pass takes about 90% of a block's cycles (the phase clocks), and the
-// kernel ends when its slowest problem does (that block's cycles match the
-// kernel's time), so the design cuts one problem's step latency:
+// cadence; the node rows it reads are a few KB a step.  On the first budget
+// the FK + collision pass takes about 90% of a block's cycles (the phase
+// clocks); the retry's trees grow to thousands of rows, so its scans, linear
+// in the tree, take a larger share.  The kernel ends when its slowest
+// problem does (that block's cycles match the kernel's time), so the design
+// cuts one problem's step latency; where a launch has fewer problems than
+// the card has SMs (the retry, one cloud) a cluster puts k SMs on each:
 //   - a block of T threads (512 for every robot; launch_shape in
 //     ops/kernels/rrtc_mega_cuda.py picks T and G) checks T / G
 //     configurations at a time, G lanes of a warp each
@@ -80,7 +105,8 @@
 //     6 block barriers besides the scans', a connect step 3 (11 and 5
 //     before);
 //   - the nearest-neighbour scans split each query's nodes over the T / 128
-//     threads that would otherwise wait, and merge their minima.
+//     threads that would otherwise wait, and merge their minima;
+//   - the cluster split above divides both by k.
 //
 // Numerics.  --fmad=false; every sum in the plain version's order (sum_last
 // is left to right); `range / x` is computed as reciprocal(x) * range and
@@ -88,11 +114,14 @@
 // plain version's dot products go through cuBLAS, whose order is its own, so
 // a near tie in a nearest-neighbour scan can resolve differently.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstring>
 
 #include "fkcc_device.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -108,8 +137,21 @@ constexpr int kWork = 5;
 // Phase clocks (cycles of clock64() summed per block, read by thread 0 at
 // barriers the step passes anyway), exported after the work counters.
 enum Phase { kSampling, kNnA, kPrefilter, kEdges, kFkcc, kNnB, kInserts, kPhases };
-// Then the block's entry and exit on the card's %globaltimer (ns).
-constexpr int kTimes = 2;
+// Then the cluster's first entry and last exit on the card's %globaltimer
+// (ns), and its blocks' exit - entry summed (the SM time it held).
+constexpr int kTimes = 3;
+constexpr int kMaxCluster = 8;  // blocks a cluster (the portable limit)
+// A cluster block's exchange arrays (static shared memory): one for each
+// nearest-neighbour scan (a minimum and its index for each of
+// kMaxLanes queries), then two for the edge flags, taken by the step's
+// parity.  Every exchange writes its array, passes one cluster barrier and
+// reads the other ranks' copies.  A rank writes an array again only past
+// another exchange's barrier (every step has an edge-flag exchange), which
+// every reader of its last use has reached, so one barrier an exchange is
+// enough.
+constexpr int kXchScan = 2 * kMaxLanes;
+constexpr int kXchNnA = 0, kXchNnB = kXchScan, kXchBad = 2 * kXchScan;
+constexpr int kXchFloats = 2 * kXchScan + 2 * kMaxEdges;
 constexpr int kWorkCols = kWork + kPhases + kTimes;
 // Radius of a node never updated: a finite stand-in for infinity, as in the
 // TPU kernel's node rows (mega_inputs writes it for the roots).
@@ -138,6 +180,7 @@ struct State {
   int iters, sample_idx, n_nodes, size_start, size_goal, a_is_start, connect;
   int c_tip, c_rem, c_other, done, junc_a, junc_b, a_j_start, gsteps, csteps;
   int budget, consumed, inc;  // inc: which half of s_inc holds the chain's increment
+  int step;                   // steps taken (its parity picks the edge-flag exchange)
   float c_len;
 };
 
@@ -180,6 +223,27 @@ struct Layout {
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
+// The block's rank in its problem's cluster and the cluster's blocks (1
+// without a cluster launch), written by thread 0 as the block enters and
+// read from shared memory where used, as are the exchange arrays: nothing
+// of the cluster is held in a register across a step, so the one-block
+// path keeps the registers it had.
+__shared__ int s_cluster[2];
+__shared__ float s_xch[kXchFloats];
+__device__ __forceinline__ int cluster_rank() { return s_cluster[0]; }
+__device__ __forceinline__ int cluster_blocks() { return s_cluster[1]; }
+
+// The cluster barrier: every thread of every rank arrives; release /
+// acquire, so each rank's shared-memory writes before it are visible to the
+// others' reads after it.
+__device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
+
+// `p` (this block's shared memory) in rank r's shared memory (DSMEM).
+template <class V>
+__device__ __forceinline__ const V* in_rank(const V* p, int r) {
+  return cg::this_cluster().map_shared_rank(const_cast<V*>(p), r);
+}
+
 // Left-to-right sum of squares (validate.sum_last of v * v).
 __device__ __forceinline__ float sum_sq(const float* v, int d) {
   float acc = v[0] * v[0];
@@ -200,20 +264,22 @@ __device__ __forceinline__ float dot(const float* a, const float* b, int d) {
 // squared norms qn2, Tq = min(T, kMaxLanes); a block of more threads splits
 // each staged chunk's rows among its T / Tq parts and merges the parts'
 // minima through s_part (2 T floats), lowest node index on ties, as one
-// scan in index order finds them.  Best d2 / index per query in best[] /
-// bidx[] (complete in part 0: threads tid < Tq).  Every thread of the
-// block must call it.
+// scan in index order finds them.  In a cluster of k > 1 blocks the block
+// of rank r scans chunks r, r + k, ... and the ranks merge their minima
+// through DSMEM by the same rule, in the exchange array s_xch.  Best d2 / index per query in best[] / bidx[]
+// (complete in part 0: threads tid < Tq).  Every thread of the block (of
+// every rank) must call it.
 __device__ void nearest_scan(const float* nb, int RS, int d, int n_nodes, float want,
                              bool in_tree, const float* s_queries, const float* s_qn2,
                              int nq, float* s_chunk, float* s_part, float best[kLanesPerThread],
-                             int bidx[kLanesPerThread], long long& pairs) {
+                             int bidx[kLanesPerThread], long long& pairs, float* s_xch) {
   const int T = blockDim.x, tid = threadIdx.x;
   const int Tq = min(T, kMaxLanes), parts = T / Tq, part = tid / Tq, q0 = tid - part * Tq;
   for (int r = 0; r < kLanesPerThread; ++r) {
     best[r] = inf_f();
     bidx[r] = 0;
   }
-  for (int base = 0; base < n_nodes; base += kChunk) {
+  for (int base = cluster_rank() * kChunk; base < n_nodes; base += cluster_blocks() * kChunk) {
     const int cnt = min(kChunk, n_nodes - base);
     __syncthreads();
     for (int i = tid; i < cnt * (d + 2); i += T) {
@@ -258,6 +324,38 @@ __device__ void nearest_scan(const float* nb, int RS, int d, int n_nodes, float 
       }
     }
   }
+  const int ck = cluster_blocks();
+  if (ck > 1) {  // part 0 publishes its minima, then merges the other ranks'
+    float* xd = s_xch;
+    int* xi = reinterpret_cast<int*>(xd + kMaxLanes);
+    if (part == 0) {
+      for (int r = 0; r < kLanesPerThread; ++r) {
+        const int qi = q0 + r * Tq;
+        if (qi >= nq) break;
+        xd[qi] = best[r];
+        xi[qi] = bidx[r];
+      }
+    }
+    cluster_sync();
+    if (part == 0) {
+      const int rank = cluster_rank();
+      for (int q = 0; q < ck; ++q) {
+        if (q == rank) continue;
+        const float* od = in_rank(xd, q);
+        const int* oi = in_rank(xi, q);
+        for (int r = 0; r < kLanesPerThread; ++r) {
+          const int qi = q0 + r * Tq;
+          if (qi >= nq) break;
+          const float pd = od[qi];
+          const int pi = oi[qi];
+          if (pd < best[r] || (pd == best[r] && pi < bidx[r])) {
+            best[r] = pd;
+            bidx[r] = pi;
+          }
+        }
+      }
+    }
+  }
   __syncthreads();
 }
 
@@ -280,12 +378,18 @@ rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
                  float* __restrict__ nodes, float* __restrict__ out_path,
                  int* __restrict__ out_scal, long long* __restrict__ out_work) {
   extern __shared__ float smem[];
-  __shared__ long long s_enter;  // thread 0's %globaltimer as the block enters
-  if (threadIdx.x == 0) s_enter = globaltimer();
+  __shared__ long long s_enter, s_exit;  // thread 0's %globaltimer as the block enters, leaves
+  if (threadIdx.x == 0) {
+    s_enter = globaltimer();
+    s_cluster[0] = (int)cg::this_cluster().block_rank();
+    s_cluster[1] = (int)cg::this_cluster().num_blocks();
+  }
   __shared__ State st;
   __shared__ unsigned long long s_work[kWork - 1];  // pairs, gates, chunks, points
   __shared__ long long s_ph[kPhases + 1];            // the phases' cycles, then the last read
-  const int T = blockDim.x, tid = threadIdx.x, b = blockIdx.x, lane = tid & 31;
+  // problem b, on a cluster of blocks (one without a cluster launch)
+  const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
+  const int b = blockIdx.x / (int)cg::this_cluster().num_blocks();
   const int d = p.d, K = p.K, C = p.C, KW = p.KW, M = p.M, RS = d + kMeta;
   const Layout L(p, et, robot, T, G);
   const fkcc::Env env = fkcc::load_env(et, b, smem + L.env);
@@ -314,7 +418,7 @@ rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
   unsigned* s_words = reinterpret_cast<unsigned*>(smem + L.words);
   int* s_pathidx = reinterpret_cast<int*>(smem + L.pathidx);
 
-  float* nb = nodes + (long long)b * M * RS;
+  float* nb = nodes + (long long)blockIdx.x * M * RS;  // this block's replica
   long long configs = 0, pairs = 0;
   fkcc::Work pcw{0, 0, 0};
 
@@ -344,6 +448,7 @@ rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
     st.csteps = 0;
     st.budget = c[3];
     st.inc = 0;
+    st.step = 0;
     st.c_len = 1.0f;
     for (int i = 0; i < kWork - 1; ++i) s_work[i] = 0;
     for (int i = 0; i < kPhases; ++i) s_ph[i] = 0;
@@ -412,7 +517,7 @@ rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
       float best[kLanesPerThread];
       int bidx[kLanesPerThread];
       nearest_scan(nb, RS, d, n_nodes, af, true, s_samp, s_s2, KW, s_chunk, s_part, best,
-                   bidx, pairs);
+                   bidx, pairs, s_xch + kXchNnA);
       tick(kNnA);
 
       // --- dynamic-domain prefilter, ballot scan of the kept samples
@@ -497,10 +602,12 @@ rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
     tick(kEdges);
 
     // --- FK + collision of every interpolation point of both kinds of
-    // edge, one configuration a group of G lanes
+    // edge, one configuration a group of G lanes (the cluster's groups
+    // rank by rank)
     const int total = s_eoff[n_edges];
     if (tid == 0) configs += total;
-    for (int pt = tid / G; pt < total; pt += n_groups) {
+    for (int pt = cluster_rank() * n_groups + tid / G; pt < total;
+         pt += cluster_blocks() * n_groups) {
       int lo = 0, hi = n_edges - 1;  // the edge e with s_eoff[e] <= pt < s_eoff[e + 1]
       while (lo < hi) {
         const int m = (lo + hi + 1) >> 1;
@@ -522,6 +629,18 @@ rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
       if (gl == 0 && v < 0.0f) s_ebad[e] = 1;
     }
     __syncthreads();
+    if (cluster_blocks() > 1) {  // OR the ranks' edge flags together
+      int* xb = reinterpret_cast<int*>(s_xch + kXchBad) + (st.step & 1) * kMaxEdges;
+      for (int e = tid; e < n_edges; e += T) xb[e] = s_ebad[e];
+      cluster_sync();
+      const int rank = cluster_rank(), ck = cluster_blocks();
+      for (int e = tid; e < n_edges; e += T) {
+        int bad = xb[e];
+        for (int q = 0; q < ck; ++q) bad |= q == rank ? 0 : in_rank(xb, q)[e];
+        s_ebad[e] = bad;
+      }
+      __syncthreads();
+    }
     tick(kFkcc);
 
     // --- insert positions: the chain's leading run of valid increments at
@@ -548,7 +667,7 @@ rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
       float best[kLanesPerThread];
       int bidx[kLanesPerThread];
       nearest_scan(nb, RS, d, n_nodes, af, false, s_enew, s_eq2, n_acc, s_chunk, s_part,
-                   best, bidx, pairs);
+                   best, bidx, pairs, s_xch + kXchNnB);
       for (int r = 0; r < kLanesPerThread; ++r) {
         const int e = tid + r * T;
         if (e < n_acc) {
@@ -665,14 +784,18 @@ rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
         st.gsteps += 1;
       }
       if (do_conn) st.csteps += 1;
+      st.step += 1;
     }
   }
 
   // ------------------------------ path export -----------------------------
   // rows 0..la-1: chain A root..junction; la..la+lb-1: chain B junction..root
-  // (the positions rrtc._recover_path scatters to); other rows are zero
+  // (the positions rrtc._recover_path scatters to); other rows are zero.
+  // Rank 0 of a cluster exports the path and the scalars.
   const int PP = p.max_path;
-  if (tid == 0) {
+  const bool lead = cluster_rank() == 0;
+  const int pb = blockIdx.x / cluster_blocks();  // b, read again here
+  if (tid == 0 && lead) {
     for (int i = 0; i < PP; ++i) s_pathidx[i] = -1;
     int la = -1, lb = -1, cur = st.junc_a;
     for (int i = 0; i < PP; ++i) {
@@ -698,7 +821,7 @@ rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
       s_pathidx[la + k] = cur;
       cur = __float_as_int(nb[(long long)cur * RS + d + 2]);
     }
-    int* sc = out_scal + (long long)b * kScalars;
+    int* sc = out_scal + (long long)pb * kScalars;
     sc[0] = st.done;
     sc[1] = st.junc_a;
     sc[2] = st.junc_b;
@@ -721,19 +844,38 @@ rrtc_mega_kernel(fkcc::EnvTables et, fkcc::Robot robot, PlanParams p,
   atomicAdd(&s_work[2], (unsigned long long)pcw.chunks);
   atomicAdd(&s_work[3], (unsigned long long)pcw.points);
   __syncthreads();
-  for (int i = tid; i < PP * d; i += T) {
+  for (int i = tid; i < PP * d && lead; i += T) {
     const int row = i / d, col = i % d;
     const int node = s_pathidx[row];
-    out_path[(long long)b * PP * d + i] = node >= 0 ? nb[(long long)node * RS + col] : 0.0f;
+    out_path[(long long)pb * PP * d + i] = node >= 0 ? nb[(long long)node * RS + col] : 0.0f;
   }
-  if (tid == 0) {
-    long long* w = out_work + (long long)b * kWorkCols;
+  if (tid == 0) s_exit = globaltimer();
+  const int ck = cluster_blocks();
+  if (ck > 1) cluster_sync();  // every rank's counters and times are final
+  // rank 0: the configurations checked (every rank counts them all), the
+  // ranks' other counters summed, its phase clocks, the cluster's first
+  // entry and last exit, and its blocks' times summed
+  if (tid == 0 && lead) {
+    long long enter = s_enter, leave = s_exit, busy = s_exit - s_enter;
+    unsigned long long sw[kWork - 1];
+    for (int i = 0; i < kWork - 1; ++i) sw[i] = s_work[i];
+    for (int q = 1; q < ck; ++q) {
+      const long long qe = *in_rank(&s_enter, q), qx = *in_rank(&s_exit, q);
+      enter = min(enter, qe);
+      leave = max(leave, qx);
+      busy += qx - qe;
+      const unsigned long long* qw = in_rank(s_work, q);
+      for (int i = 0; i < kWork - 1; ++i) sw[i] += qw[i];
+    }
+    long long* w = out_work + (long long)pb * kWorkCols;
     w[0] = configs;
-    for (int i = 0; i < kWork - 1; ++i) w[1 + i] = (long long)s_work[i];
+    for (int i = 0; i < kWork - 1; ++i) w[1 + i] = (long long)sw[i];
     for (int i = 0; i < kPhases; ++i) w[kWork + i] = s_ph[i];
-    w[kWork + kPhases] = s_enter;
-    w[kWork + kPhases + 1] = globaltimer();
+    w[kWork + kPhases] = enter;
+    w[kWork + kPhases + 1] = leave;
+    w[kWork + kPhases + 2] = busy;
   }
+  if (ck > 1) cluster_sync();  // no rank leaves while rank 0 reads its shared memory
 }
 
 using Kernel = void (*)(fkcc::EnvTables, fkcc::Robot, PlanParams, const int*, const float*,
@@ -752,15 +894,53 @@ Kernel kernel_for(int G) {
   }
 }
 
+// A launch configuration of clusters of k blocks of T threads (attr: its
+// one attribute, the cluster's shape).
+cudaLaunchConfig_t cluster_config(int blocks, int T, int bytes, int k, void* stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(T);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = k;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 }  // namespace
 
-// Launch one block of T threads per problem, G lanes a configuration in the
-// FK pass, on `stream`; returns the CUDA error code of the launch (0 = ok),
-// or -1 when the shape is not one the kernel runs (T a multiple of 32 up to
-// kMaxThreads, G a power of two up to 32) or its shared memory does not fit
-// in max_smem bytes.  ip / fp are host arrays in PlanParams order.
-// launch_info receives the dynamic shared memory in bytes, the blocks the
-// card keeps resident on one SM and the kernel's registers a thread.
+// The clusters of k blocks of T threads with `bytes` of dynamic shared
+// memory that the card keeps resident at once (cudaOccupancyMaxActiveClusters)
+// for the kernel of this cadence and G, in *clusters; returns the CUDA error
+// code (0 = ok), or -1 for a shape or k the kernel does not run.
+extern "C" int rrtc_mega_clusters(int inter, int G, int T, int bytes, int k, int* clusters) {
+  const Kernel kernel = inter ? kernel_for<true>(G) : kernel_for<false>(G);
+  if (kernel == nullptr || T % 32 != 0 || T < 32 || T > kMaxThreads || k < 1 ||
+      k > kMaxCluster)
+    return -1;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(k, T, bytes, k, nullptr, &attr);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
+}
+
+// Launch one cluster of k blocks of T threads per problem (k = 1: one block,
+// no cluster), G lanes a configuration in the FK pass, on `stream`; returns
+// the CUDA error code of the launch (0 = ok), or -1 when the shape is not
+// one the kernel runs (T a multiple of 32 up to kMaxThreads, G a power of
+// two up to 32, k from 1 to kMaxCluster) or its shared memory does not fit
+// in max_smem bytes.  ip / fp are host arrays in PlanParams order; `nodes`
+// holds B * k blocks' rows.  launch_info receives the dynamic shared memory
+// in bytes, the blocks the card keeps resident on one SM and the kernel's
+// registers a thread.
 extern "C" int rrtc_mega_launch(
     const float* sph, const float* cap, const float* zcap, const float* cub,
     const float* zcub, int ns, int nc, int nzc, int nb, int nzb, int env_batched,
@@ -773,7 +953,7 @@ extern "C" int rrtc_mega_launch(
     const float* pair_thr, int P, const float* sphere_pc, int ee_frame, const int* att_check,
     int n_att_check, const int* ip, const float* fp,
     const int* ctl, const float* nodes0, float* nodes, float* out_path, int* out_scal,
-    long long* out_work, int T, int G, int max_smem, int* launch_info, void* stream) {
+    long long* out_work, int T, int G, int k, int max_smem, int* launch_info, void* stream) {
   const fkcc::EnvTables et{sph, cap, zcap, cub, zcub, ns, nc, nzc, nb, nzb, env_batched,
                            bitmap, chunks, points, pc_meta, rrows, nch, pc_batched,
                            att, att_pc, A, att_batched, hf_meta, hf_data, nh, hf_cells,
@@ -784,7 +964,9 @@ extern "C" int rrtc_mega_launch(
   memcpy(&p, ip, kIntParams * 4);
   memcpy(reinterpret_cast<char*>(&p) + kIntParams * 4, fp, kFloatParams * 4);
   const Kernel kernel = p.inter ? kernel_for<true>(G) : kernel_for<false>(G);
-  if (kernel == nullptr || T % 32 != 0 || T < 32 || T > kMaxThreads) return -1;
+  if (kernel == nullptr || T % 32 != 0 || T < 32 || T > kMaxThreads || k < 1 ||
+      k > kMaxCluster)
+    return -1;
   const int bytes = Layout(p, et, robot, T, G).total * 4;
   if (bytes > max_smem) return -1;
   cudaError_t err = cudaFuncSetAttribute(
@@ -802,7 +984,14 @@ extern "C" int rrtc_mega_launch(
     return (int)err;
   }
   launch_info[2] = attr.numRegs;
-  kernel<<<p.B, T, bytes, (cudaStream_t)stream>>>(et, robot, p, ctl, nodes0, nodes, out_path,
-                                                  out_scal, out_work);
+  cudaLaunchAttribute cattr;
+  cudaLaunchConfig_t cfg = cluster_config(p.B * k, T, bytes, k, stream, &cattr);
+  if (k == 1) cfg.numAttrs = 0;  // one block a problem: a plain launch, no cluster
+  err = cudaLaunchKernelEx(&cfg, kernel, et, robot, p, ctl, nodes0, nodes, out_path, out_scal,
+                           out_work);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
   return (int)cudaGetLastError();
 }

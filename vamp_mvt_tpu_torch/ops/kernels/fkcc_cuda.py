@@ -354,23 +354,25 @@ def blocks_per_sm(T: int, smem_bytes: int, static_bytes: int) -> int:
 
 
 def choose_shape(smem_bytes, static_bytes: int, max_smem: int, points: int,
-                 min_group: int = 1, shape=None) -> dict:
+                 min_group: int = 1, shape=None, cluster: int = 1) -> dict:
     """The launch shape of a megakernel: `smem_bytes(T, G)` is its dynamic
-    shared memory, `points` the configurations a typical FK pass checks.
+    shared memory, `points` the configurations a typical FK pass checks,
+    `cluster` the blocks that share a problem's FK pass.
     Of the shapes (T in MEGA_THREADS, G in MEGA_GROUPS, G <= T) whose
     shared memory is at most `max_smem` (the card refuses a launch above a
     block's 227 KB, whatever `max_smem` says), take G at least `min_group`
     where one fits, then the most threads (a block runs one problem, and the
     slowest problem's latency sets the kernel's end), then the fewest rounds
-    of T / G configurations for `points`, then the most lanes a
+    of cluster x T / G configurations for `points`, then the most lanes a
     configuration at that count (each lane's share of a check shrinks with
     G).  `shape` = (T, G) takes that shape
-    instead, if it fits, and (None, G) the best T for that G.  Returns threads, group, smem_bytes, blocks_per_sm
+    instead, if it fits, and None for either the best of it.  Returns threads, group, smem_bytes, blocks_per_sm
     and warps_per_sm; raises ValueError when no shape fits."""
     cands = []
     for T in MEGA_THREADS:
         for G in MEGA_GROUPS:
-            if G > T or (shape is not None and (G != shape[1] or shape[0] not in (None, T))):
+            if G > T or (shape is not None and (shape[1] not in (None, G)
+                                                or shape[0] not in (None, T))):
                 continue
             nbytes = smem_bytes(T, G)
             if nbytes > max_smem:
@@ -382,7 +384,8 @@ def choose_shape(smem_bytes, static_bytes: int, max_smem: int, points: int,
         raise ValueError("no launch shape fits" if shape is None
                          else f"launch shape {tuple(shape)} does not fit")
     return max(cands, key=lambda c: (c["group"] >= min_group, c["threads"],
-                                     -points * c["group"] // c["threads"], c["group"]))
+                                     -points * c["group"] // (cluster * c["threads"]),
+                                     c["group"]))
 
 
 # ---------------------------------------------------------------------------

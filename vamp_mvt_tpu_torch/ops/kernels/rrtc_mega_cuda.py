@@ -10,7 +10,7 @@ part every step with an active chain riding along).
 
   plan(spec, envs, ctl, nodes0, settings, shape=None)
       ctl (B, 8) int32, nodes0 (B, 1 + G, d + 4) float32, CUDA tensors
-      -> path (B, max_path, d) float32, scal (B, 16) int32, work (B, 14) int64
+      -> path (B, max_path, d) float32, scal (B, 16) int32, work (B, 15) int64
 
 `scal` holds done, junction a, junction b, a-tree-was-start at the join,
 iterations, samples drawn, nodes, start-tree size, goal-tree size, grow steps,
@@ -19,13 +19,20 @@ checked, the node-sample pairs scanned and the pointcloud's spheres gated,
 chunk bounds tested and points evaluated (zero without a pointcloud,
 `envs.pck`), then the block's clock cycles in each phase of a step
 (`PHASES`; `fkcc_cuda.phase_split` sums them over the batch), then the
-card's %globaltimer in ns as the block entered and as it left (`TIMES`).
+card's %globaltimer in ns as the problem's first block entered and as its
+last left, and the ns its blocks held their SMs, summed (`TIMES`).
 A failed build or launch raises.
 
 The launch shape, T threads a block and G lanes of a warp a configuration
 of the FK + collision pass, comes from `launch_shape` (a pure function of
-the robot, the tables and the settings, mirroring the kernel's shared-memory
-`Layout`); `shape=(T, G)` overrides it (the card tests run every G).
+the robot, the tables, the settings and the cluster size, mirroring the
+kernel's shared-memory `Layout`).  Each problem runs on a thread-block
+cluster of k blocks, k from `cluster_size`: the most SMs a problem while all
+B clusters stay resident at once, so the retry's few live rows and a single
+cloud get up to 8 SMs each, and a full batch keeps one block a problem.
+Results are bit-identical at every k.  `shape=(T, G)` overrides the shape
+and `(T, G, k)` the cluster size too (None for any of them: the pick); the
+card tests run every G and several k.
 """
 
 from __future__ import annotations
@@ -48,13 +55,17 @@ SCALARS = 16
 WORK = 5
 # the phases of a planner step whose cycles follow the work counters
 PHASES = ("sampling", "nn_a", "prefilter", "edges", "fkcc", "nn_b", "inserts")
-# then the block's entry and exit on the card's %globaltimer (ns)
-TIMES = ("enter_ns", "exit_ns")
+# then the problem's first entry and last exit on the card's %globaltimer
+# and its blocks' SM time summed (ns)
+TIMES = ("enter_ns", "exit_ns", "busy_ns")
 WORK_COLS = WORK + len(PHASES) + len(TIMES)
-# the kernel's static shared memory (state) comes on top of the dynamic part
-_STATIC_SMEM = 1024
+# the kernel's static shared memory (its state and the cluster's exchange
+# arrays, about 2.8 KB) comes on top of the dynamic part
+_STATIC_SMEM = 3072
 # node rows staged per nearest-neighbour pass (kChunk)
 CHUNK = 128
+# blocks a cluster, at most (kMaxCluster: the portable limit)
+MAX_CLUSTER = 8
 
 # Kernel launches made by this process; callers reset it to 0 around a run.
 LAUNCHES = 0
@@ -62,9 +73,9 @@ LAUNCHES = 0
 # set it to None: (3,) int64 on the card (spheres gated, chunk bounds tested,
 # points evaluated).
 PC_WORK = None
-# The last launch's threads a block, lanes a configuration (group), dynamic
-# shared memory (bytes), the blocks and warps the card keeps resident on one
-# SM and the kernel's registers a thread.
+# The last launch's threads a block, lanes a configuration (group), blocks
+# a problem (cluster), dynamic shared memory (bytes), the blocks and warps
+# the card keeps resident on one SM and the kernel's registers a thread.
 LAST_LAUNCH: dict = {}
 _LIB = None
 
@@ -79,10 +90,12 @@ def library() -> ctypes.CDLL:
             P, P,                    # integer and float parameters (host)
             P, P, P,                 # ctl, nodes0, node buffer
             P, P, P,                 # path, scalars, work counters
-            I, I,                    # threads a block, lanes a configuration
+            I, I, I,                 # threads a block, lanes a configuration, cluster
             I, P, P,                 # max shared memory, launch info, stream
         ]
         lib.rrtc_mega_launch.restype = ctypes.c_int
+        lib.rrtc_mega_clusters.argtypes = [I, I, I, I, I, P]
+        lib.rrtc_mega_clusters.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -129,17 +142,72 @@ def smem_floats(spec: RobotSpec, envs: Environment, s, T: int, G: int) -> int:
             + 3 * d + MAX_LANES // 32 + s.max_path)            # tip, increments, words, path
 
 
-def launch_shape(spec: RobotSpec, envs: Environment, s, shape=None) -> dict:
+def launch_shape(spec: RobotSpec, envs: Environment, s, shape=None, cluster: int = 1) -> dict:
     """The kernel's launch shape for this robot, these tables and settings
-    (fkcc_cuda.choose_shape: the most threads, the fewest rounds of a
-    typical step's points, the most lanes a configuration at that count, at
-    least MEGA_PC_MIN_GROUP on a pointcloud); `shape` = (T, G) overrides it.  A typical step checks K edges of range *
-    resolution points each."""
+    in clusters of `cluster` blocks (fkcc_cuda.choose_shape: the most
+    threads, the fewest rounds of a typical step's points over the
+    cluster's groups, the most lanes a configuration at that count, at
+    least MEGA_PC_MIN_GROUP on a pointcloud); `shape` = (T, G) overrides it
+    (its third entry, the cluster size, is plan_shape's).  A typical step
+    checks K edges of range * resolution points each."""
     points = s.samples_per_step * 8 * int(np.ceil(s.range * spec.resolution / 8.0))
     return fkcc_cuda.choose_shape(lambda T, G: 4 * smem_floats(spec, envs, s, T, G),
                                   _STATIC_SMEM, fkcc_cuda.MAX_SMEM - _STATIC_SMEM, points,
                                   fkcc_cuda.MEGA_PC_MIN_GROUP if envs.pck is not None else 1,
-                                  shape)
+                                  None if shape is None else tuple(shape[:2]), cluster)
+
+
+def cluster_size(B: int, resident, slots: int | None = None) -> int:
+    """Blocks a problem for a launch of B problems: the largest k from 1 to
+    MAX_CLUSTER for which the card keeps at least B clusters of k blocks
+    resident at once (`resident(k)`, its cudaOccupancyMaxActiveClusters at
+    k's launch shape), so that every problem gets k SMs in one wave; 1
+    where none does.  `slots`, the blocks of the launch's threads the card
+    holds at once (every k's shape has the same threads), answers 1 without
+    asking where even B clusters of 2 pass it: a full batch then skips the
+    seven shape picks (PERF.md, PR 16)."""
+    if slots is not None and 2 * B > slots:
+        return 1
+    for k in range(MAX_CLUSTER, 1, -1):
+        if resident(k) >= B:
+            return k
+    return 1
+
+
+# (device, cadence, G, T, bytes, k) -> clusters the card keeps resident
+_RESIDENT: dict = {}
+
+
+def _resident(s, ls: dict, k: int, dev) -> int:
+    """Clusters of k blocks at launch shape `ls` that the card `dev` keeps
+    resident, asked once a shape."""
+    dev = torch.device(dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (index, int(s.interleave), ls["group"], ls["threads"], ls["smem_bytes"], k)
+    if key not in _RESIDENT:
+        got = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = library().rrtc_mega_clusters(*key[1:], ctypes.byref(got))
+        if err != 0:
+            raise RuntimeError(f"rrtc_mega: the cluster occupancy query failed with CUDA "
+                               f"error {err}")
+        _RESIDENT[key] = got.value
+    return _RESIDENT[key]
+
+
+def plan_shape(spec: RobotSpec, envs: Environment, s, B: int, dev, shape=None) -> dict:
+    """The launch shape of B problems on `dev`: `launch_shape` at the
+    cluster size `cluster_size` picks (or shape's third entry), with it
+    under "cluster"."""
+    k = shape[2] if shape is not None and len(shape) > 2 else None
+    one = launch_shape(spec, envs, s, shape)
+    if k is None:
+        props = torch.cuda.get_device_properties(dev)
+        slots = props.multi_processor_count * (props.max_threads_per_multi_processor
+                                               // one["threads"])
+        k = cluster_size(B, lambda k: _resident(s, launch_shape(spec, envs, s, shape, k), k, dev),
+                         slots)
+    return dict(one if k == 1 else launch_shape(spec, envs, s, shape, k), cluster=k)
 
 
 def _check(spec, envs: Environment, ctl, nodes0, s):
@@ -163,27 +231,29 @@ def _check(spec, envs: Environment, ctl, nodes0, s):
 
 def plan(spec: RobotSpec, envs: Environment, ctl: torch.Tensor, nodes0: torch.Tensor,
          settings, shape=None):
-    """Launch the planner megakernel, one block per problem (see module doc)."""
+    """Launch the planner megakernel, one cluster of blocks per problem (see
+    module doc)."""
     global LAUNCHES, PC_WORK
     _check(spec, envs, ctl, nodes0, settings)
-    ls = launch_shape(spec, envs, settings, shape)
     B, G1, _ = nodes0.shape
     d, M, P = spec.dimension, settings.max_samples, settings.max_path
     dev = ctl.device
     ip, fp = params(spec, settings, G1, B)
-    nodes = torch.empty((B, M, d + 4), dtype=torch.float32, device=dev)
     path = torch.empty((B, P, d), dtype=torch.float32, device=dev)
     scal = torch.empty((B, SCALARS), dtype=torch.int32, device=dev)
     work = torch.empty((B, WORK_COLS), dtype=torch.int64, device=dev)
     if B == 0:
         return path, scal, work
     lib = library()
+    ls = plan_shape(spec, envs, settings, B, dev, shape)
+    k = ls["cluster"]
+    nodes = torch.empty((B * k, M, d + 4), dtype=torch.float32, device=dev)  # a replica a block
     env, robot, _keep = fkcc_cuda.table_args(spec, envs, dev)
     info = (ctypes.c_int * 3)()
     err = lib.rrtc_mega_launch(
         *env, *robot, ip.ctypes.data, fp.ctypes.data, ctl.data_ptr(), nodes0.data_ptr(),
         nodes.data_ptr(), path.data_ptr(), scal.data_ptr(), work.data_ptr(),
-        ls["threads"], ls["group"], fkcc_cuda.MAX_SMEM - _STATIC_SMEM, info,
+        ls["threads"], ls["group"], k, fkcc_cuda.MAX_SMEM - _STATIC_SMEM, info,
         build.stream_handle(dev),
     )
     if err == -1:
@@ -196,7 +266,7 @@ def plan(spec: RobotSpec, envs: Environment, ctl: torch.Tensor, nodes0: torch.Te
     LAUNCHES += 1
     if envs.pck is not None:
         PC_WORK = fkcc_cuda.tally_pc_work(PC_WORK, work[:, 2:5])
-    LAST_LAUNCH.update(threads=ls["threads"], group=ls["group"], smem_bytes=info[0],
+    LAST_LAUNCH.update(threads=ls["threads"], group=ls["group"], cluster=k, smem_bytes=info[0],
                        blocks_per_sm=info[1], warps_per_sm=info[1] * ls["threads"] // 32,
                        registers=info[2])
     return path, scal, work

@@ -2,8 +2,9 @@
 
 Port of `vamp_mvt_tpu/planning/rrtc_mega.py`.  The kernel
 (`csrc/rrtc_mega.cu`, bound in `ops/kernels/rrtc_mega_cuda.py`) runs one
-whole solve per block and stops the moment its problem is done, so finished
-problems cost nothing.  This module builds its inputs (the direct-goal
+whole solve per block, or per cluster of blocks where the batch leaves SMs
+free, and stops the moment its problem is done, so finished problems cost
+nothing.  This module builds its inputs (the direct-goal
 check, the control word and the initial node rows, `mega_inputs`) and turns
 its outputs into an `RRTCResult` (`_finalize_mega`).
 
@@ -11,7 +12,7 @@ On CUDA tensors `plan_batch_mega` launches the kernel; on CPU tensors it runs
 the plain version, the lockstep planner `planning/rrtc.py` in the cadence
 `settings.interleave` names, which the kernel matches step for step.  The
 sample budget is a runtime value of the control word, so the 32x-budget
-retry of `run_suite` reuses the same kernel.
+retry of `run_suite` reuses the same kernel on the unsolved rows.
 """
 
 from __future__ import annotations
@@ -145,13 +146,16 @@ def plan_batch_mega(
     device=None,
     shape=None,
     iter_count: str | None = None,
+    block_count: str | None = None,
 ) -> RRTCResult:
     """Solve a batch with the planner megakernel, on `device` (default: the
     GPU).  `budget` replaces settings.max_iterations (the sample budget);
-    `shape` overrides the kernel's launch shape (rrtc_mega_cuda.plan).
+    `shape` overrides the kernel's launch shape and (T, G, k) its cluster
+    size (rrtc_mega_cuda.plan).
     Under a runner's recorder that counts, the launch's block times are
-    counted (`_count_blocks`), and with `iter_count` its slowest block's us
-    an iteration under that name (`slowest_iter_us`)."""
+    counted (`_count_blocks`), with `iter_count` its slowest block's us an
+    iteration under that name (`slowest_iter_us`), and with `block_count`
+    its blocks (problems x cluster size) under that name."""
     _check_settings(settings)
     _kernel_config(spec, settings, goals.shape[1])
     dev = resolve_device(device)
@@ -175,6 +179,8 @@ def plan_batch_mega(
         _count_blocks(work)
         if iter_count is not None:
             profiling.count(iter_count, slowest_iter_us(work, scal[:, 4]))
+        if block_count is not None:
+            profiling.count(block_count, work.shape[0] * rrtc_mega_cuda.LAST_LAUNCH["cluster"])
     return _finalize_mega(paths, scal, starts, goals, any_direct, first_direct)
 
 
@@ -185,22 +191,22 @@ def _sm_count(dev: torch.device) -> int:
 
 def _count_blocks(work) -> None:
     """One launch's counts for the active recorder (utils/profiling.py),
-    from its blocks' %globaltimer columns, summed on the card:
-    planner_block_ns, the blocks' time (exit - entry, summed), and
-    planner_slot_ns, the launch's span (last exit - first entry) times the
-    blocks the card holds at once (SMs x blocks an SM), so that their ratio
-    is how full the card was."""
+    from its problems' %globaltimer columns, summed on the card:
+    planner_block_ns, the blocks' time (exit - entry of every block of every
+    problem's cluster, summed), and planner_slot_ns, the launch's span (last
+    exit - first entry) times the blocks the card holds at once (SMs x
+    blocks an SM), so that their ratio is how full the card was."""
     t = rrtc_mega_cuda.WORK + len(rrtc_mega_cuda.PHASES)
     enter, leave = work[:, t], work[:, t + 1]
-    profiling.count("planner_block_ns", (leave - enter).sum())
+    profiling.count("planner_block_ns", work[:, t + 2].sum())
     slots = _sm_count(work.device) * rrtc_mega_cuda.LAST_LAUNCH["blocks_per_sm"]
     profiling.count("planner_slot_ns", (leave.max() - enter.min()) * slots)
 
 
 def slowest_iter_us(work: torch.Tensor, iterations: torch.Tensor) -> torch.Tensor:
-    """A launch's slowest block's microseconds an iteration, from its `work`
-    and its rows' iterations (`scal[:, 4]`); a 0-dim float64 tensor on the
-    card, no sync."""
+    """A launch's slowest problem's microseconds an iteration, from its
+    `work` (its cluster's first entry to last exit) and its rows' iterations
+    (`scal[:, 4]`); a 0-dim float64 tensor on the card, no sync."""
     t = rrtc_mega_cuda.WORK + len(rrtc_mega_cuda.PHASES)
     dur = work[:, t + 1] - work[:, t]
     slow = dur.argmax().view(1)
