@@ -39,15 +39,17 @@ def main(argv=None) -> int:
     import torch
 
     from planbench import faults, harness
+    from planbench.reference import robot as ref_robot
 
     if not torch.cuda.is_available():
         print("calibrate: no CUDA device", file=sys.stderr)
         return 2
     cell = harness.Cell(args.workload)
     device = torch.device("cuda", 0)
+    robot = ref_robot.load(cell.config["robot"])
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
-        fault = (faults.planted(faults.FAULTS[args.fault]) if args.fault
+        fault = (faults.planted(faults.FAULTS[args.fault](robot)) if args.fault
                  else contextlib.nullcontext())
         with fault:
             res = harness.execute(cell, seed, args.seconds, False, device, t0, control=True)

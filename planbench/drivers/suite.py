@@ -24,7 +24,8 @@ class Driver:
         pool = generator.pool(run.robot, self.traffic, self.config, run.seed, run.device)
         # a pool fixed in the traffic file is taken in an order drawn from the seed
         rng = np.random.default_rng(generator.seed_seq(run.seed, 5))
-        self.suites = [generator.as_suite([p[i] for i in rng.permutation(len(p))])
+        self.suites = [generator.as_suite([p[i] for i in rng.permutation(len(p))],
+                                          self.config["robot"])
                        for p in pool]
         self.pool_len = len(self.suites)
         self.order = np.random.default_rng(

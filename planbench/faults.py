@@ -26,8 +26,8 @@ def none_solved(res):
 
 
 def self_contact(robot) -> np.ndarray:
-    """The Panda configuration of 4096 seeded uniform draws deepest in
-    self-contact, by the reference."""
+    """The configuration of `robot` (a reference table) deepest in
+    self-contact among 4096 seeded uniform draws, by the reference."""
     import torch
 
     q = np.random.default_rng(0).uniform(robot.low, robot.high, (4096, robot.dimension))
@@ -36,20 +36,26 @@ def self_contact(robot) -> np.ndarray:
     return q[int(np.argmin(v))]
 
 
-def altered_vertex(res):
+def altered_vertex(robot):
     """An answer altered where it is produced: each path's first vertex
-    replaced by a configuration in self-contact."""
+    replaced by a configuration of `robot`, the cell's robot, in
+    self-contact."""
     import torch
 
-    from planbench.reference import robot as ref_robot
+    bad = self_contact(robot)
 
-    bad = self_contact(ref_robot.load("panda"))
-    path = res.path.clone() if torch.is_tensor(res.path) else res.path.copy()
-    path[..., 0, :] = torch.as_tensor(bad, dtype=path.dtype) if torch.is_tensor(path) else bad
-    return res._replace(path=path)
+    def change(res):
+        path = res.path.clone() if torch.is_tensor(res.path) else res.path.copy()
+        path[..., 0, :] = (torch.as_tensor(bad, dtype=path.dtype) if torch.is_tensor(path)
+                           else bad)
+        return res._replace(path=path)
+
+    return change
 
 
-FAULTS = {"half_unsolved": half_unsolved, "none_solved": none_solved,
+# each fault by name, made for the cell's robot (its reference table)
+FAULTS = {"half_unsolved": lambda robot: half_unsolved,
+          "none_solved": lambda robot: none_solved,
           "altered_vertex": altered_vertex}
 
 

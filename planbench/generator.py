@@ -1,10 +1,14 @@
-"""The one traffic generator: seeded MotionBenchMaker-shaped Panda problems.
+"""The one traffic generator: seeded MotionBenchMaker-shaped problems for
+the configuration's robot.
 
 Scenes are a frozen copy of the port's `bench/scenes.py::mbm_shaped_problems`
 (MotionBenchMaker's object counts and kinds: 1-3 spheres, 2-6 cylinders and
-4-16 boxes in front of the robot, the seven scenario names in turn).  The
-endpoints are the benchmark's own, checked by the plain reference
-(`reference/`), never by the program:
+4-16 boxes in front of the robot, the seven scenario names in turn).  Every
+object's centre is drawn in the configuration's `scene_box`, `[[x0, y0, z0],
+[x1, y1, z1]]` in metres in the robot's base frame; without one, in the
+Panda's workspace (`PANDA_BOX`, the port's own box).  The endpoints are the
+benchmark's own, checked by the plain reference (`reference/`), never by the
+program:
 
 - start and goal: the first two of a problem's `DRAWS` uniform draws within
   the joint limits that the reference finds free.  Nothing else shapes them:
@@ -34,15 +38,20 @@ from planbench.reference import check, geometry
 # free room gives two
 DRAWS = 32
 
+# where the objects of a configuration without a `scene_box` go: the port's
+# box in front of the Panda
+PANDA_BOX = ((0.2, -0.6, 0.0), (0.9, 0.6, 1.2))
+
 SCENARIOS = ("bookshelf_small", "bookshelf_tall", "bookshelf_thin", "box", "cage",
              "table_pick", "table_under_pick")
 
 
-def mbm_shaped_problems(n: int, seed: int, low, high) -> list[dict]:
+def mbm_shaped_problems(n: int, seed: int, low, high, box=PANDA_BOX) -> list[dict]:
     """Frozen copy of the port's bench/scenes.py::mbm_shaped_problems (the
-    same draws in the same order, so the same scenes for the same seed)."""
+    same draws in the same order, so the same scenes for the same seed), with
+    the objects' centres drawn in `box` (the port's at the default)."""
     rng = np.random.default_rng(seed)
-    lo, hi = np.array([0.2, -0.6, 0.0]), np.array([0.9, 0.6, 1.2])
+    lo, hi = np.asarray(box, dtype=np.float64)
     problems = []
     for i in range(n):
         p = {"problem": SCENARIOS[i % len(SCENARIOS)], "index": i,
@@ -118,6 +127,10 @@ def pool(robot, traffic: dict, config: dict, seed: int, device) -> list[list[dic
     base = int(traffic["pool_seed"]) if "pool_seed" in traffic else seed
     kind = config["obstacles"]
     pad = float(config.get("pad", 0.0))
+    box = np.asarray(config.get("scene_box", PANDA_BOX), dtype=np.float64)
+    if box.shape != (2, 3) or not (box[0] < box[1]).all():
+        raise ValueError("scene_box is [[x0, y0, z0], [x1, y1, z1]] with each low below "
+                         f"its high; got {config['scene_box']!r}")
     out = []
     for k in range(items):
         ss = seed_seq(base, k)
@@ -128,7 +141,7 @@ def pool(robot, traffic: dict, config: dict, seed: int, device) -> list[list[dic
         while len(got) < n:
             want = n - len(got)
             extra = mbm_shaped_problems(m + want + want // 4 + 4, scene_seed,
-                                        robot.low, robot.high)[m:]
+                                        robot.low, robot.high, box)[m:]
             m += len(extra)
             obs = scene_obstacles(extra, kind, pad)
             got += endpoints(robot, extra, obs, rng, device,
@@ -143,10 +156,10 @@ def pool(robot, traffic: dict, config: dict, seed: int, device) -> list[list[dic
     return out
 
 
-def as_suite(problems: list[dict]) -> tuple[dict, list[dict]]:
-    """A pool item in the MBM data layout that run_suite reads, and its
-    problems in the order of run_suite's result rows."""
+def as_suite(problems: list[dict], robot: str) -> tuple[dict, list[dict]]:
+    """A pool item in the MBM data layout that run_suite reads, for `robot`
+    (its name), and its problems in the order of run_suite's result rows."""
     by: dict = {}
     for p in problems:
         by.setdefault(p["problem"], []).append(p)
-    return {"robot": "panda", "problems": by}, [p for ps in by.values() for p in ps]
+    return {"robot": robot, "problems": by}, [p for ps in by.values() for p in ps]

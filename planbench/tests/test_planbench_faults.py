@@ -14,6 +14,7 @@ port's plain versions, and breaks the port where it produces its answer:
   still right.
 """
 
+import collections
 import time
 
 import numpy as np
@@ -26,6 +27,10 @@ from planbench.reference import robot as ref_robot
 
 ROBOT = ref_robot.load("panda")
 SEED = 2**31 + 77
+# the Panda configuration the altered-vertex fault has always planted
+PANDA_SELF_CONTACT = [0.4264270438343436, -1.5491468227299636, 2.8316195305892133,
+                      -2.7840273895593812, -0.04700816742091929, 0.031980318547661604,
+                      -0.5588801478217778]
 
 
 def _cell(name: str) -> harness.Cell:
@@ -64,7 +69,7 @@ def test_sound_run_is_correct(name):
 
 @pytest.mark.parametrize("name", ["panda_prim_suite", "panda_cloud_query"])
 def test_altered_answer_is_not_correct(name):
-    with faults.planted(faults.altered_vertex):
+    with faults.planted(faults.altered_vertex(ref_robot.load(_cell(name).config["robot"]))):
         res = _run(name)
     assert not res["correct"], res["compared"]
 
@@ -115,3 +120,25 @@ def test_nothing_solved_is_not_correct(name):
     with faults.planted(faults.none_solved):
         res = _run(name)
     assert not res["correct"], res["compared"]
+
+
+@pytest.mark.parametrize("name", ["panda", "fetch"])
+def test_altered_vertex_plants_a_self_contact_of_the_cells_robot(name):
+    """The fault made for a cell's robot plants a configuration of that
+    robot's dimension that the reference finds in self-contact, in numpy and
+    torch results alike; for the Panda, the one it always planted."""
+    robot = ref_robot.load(name)
+    Res = collections.namedtuple("Res", "path solved")
+    path = np.zeros((3, 5, robot.dimension))
+    change = faults.FAULTS["altered_vertex"](robot)
+    got = change(Res(path, np.ones(3, bool))).path
+    assert (path == 0).all() and got.shape == path.shape and (got[:, 1:] == 0).all()
+    bad = got[0, 0]
+    assert (got[:, 0] == bad).all()
+    rt = robot.tensors(torch.float64, "cpu")
+    assert robot.self_vmin(robot.spheres(torch.tensor(bad[None]), rt), rt)[0] < 0
+    assert np.all((bad >= robot.low) & (bad <= robot.high))
+    on_torch = change(Res(torch.zeros(3, 5, robot.dimension), np.ones(3, bool))).path
+    assert torch.equal(on_torch[:, 0], torch.tensor(bad, dtype=torch.float32).expand(3, -1))
+    if name == "panda":
+        assert bad.tolist() == PANDA_SELF_CONTACT

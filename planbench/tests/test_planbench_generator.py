@@ -2,6 +2,7 @@
 reference finds free (and the asked-for goals in contact)."""
 
 import numpy as np
+import pytest
 import torch
 
 from planbench import generator
@@ -54,3 +55,9 @@ def test_cloud_endpoints_clear_the_grown_shapes():
     ok = check.reference_valid(ROBOT, [p["start"] for p in probs],
                                [p["goals"][0] for p in probs], scene, "cpu")
     assert ok.all()
+
+
+@pytest.mark.parametrize("box", [[[0.5, 0.0, 0.0], [0.4, 0.6, 1.0]], [[0.2, -0.6], [0.9, 0.6]]])
+def test_a_malformed_scene_box_is_refused(box):
+    with pytest.raises(ValueError, match="scene_box"):
+        generator.pool(ROBOT, TRAFFIC, dict(PRIM, scene_box=box), 1, "cpu")

@@ -76,6 +76,33 @@ def test_fk_matches_the_port():
     assert np.abs(ours - theirs).max() < 2e-5
 
 
+def test_fetch_fk_matches_the_port():
+    """Fetch's frozen table (8 joints, the first the prismatic torso) poses
+    its 111 spheres as the port does, with the torso across its 0-0.386 m."""
+    from vamp_mvt_tpu_torch.ops import fk
+    from vamp_mvt_tpu_torch.robots import registry
+
+    fetch = ref_robot.load("fetch")
+    assert (fetch.dimension, len(fetch.sphere_radius)) == (8, 111)
+    q = np.random.default_rng(0).uniform(fetch.low, fetch.high, (64, 8))
+    q[:, 0] = np.linspace(fetch.low[0], fetch.high[0], 64)
+    ours = fetch.spheres(torch.tensor(q), fetch.tensors(torch.float64, "cpu")).numpy()
+    theirs = fk.sphere_positions(registry.load("fetch"),
+                                 torch.tensor(q, dtype=torch.float32)).numpy()
+    assert np.abs(ours - theirs).max() < 2e-5
+    # the torso lifts all above the base straight up by its travel, and
+    # leaves the base's spheres where they are
+    ends = np.repeat(q[:1], 2, 0)
+    ends[:, 0] = fetch.low[0], fetch.high[0]
+    lo, hi = fetch.spheres(torch.tensor(ends), fetch.tensors(torch.float64, "cpu")).numpy()
+    rise = hi - lo
+    assert np.allclose(rise[:, :2], 0, atol=1e-12)
+    up = rise[:, 2] > 0
+    assert 0 < up.sum() < len(up)
+    assert np.allclose(rise[up, 2], fetch.high[0] - fetch.low[0], atol=1e-12)
+    assert np.allclose(rise[~up, 2], 0, atol=1e-12)
+
+
 def test_validity_matches_the_port_away_from_contact():
     from vamp_mvt_tpu_torch.bench import mbm
     from vamp_mvt_tpu_torch.planning import validate
