@@ -18,6 +18,7 @@ of one block a problem bit for bit (`_same_as_one_block`).
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -1440,3 +1441,58 @@ def test_run_suite_counts_the_retry_and_the_card(cuda):
     names = [x[1] for x in tm["spans"]]
     assert names.count("plan") == names.count("retry") == 1
     assert {"batch_assemble", "batch_to_device", "gather"} <= set(names)
+
+
+@pytest.mark.gpu
+def test_run_suite_fetch_at_its_defaults(cuda, monkeypatch):
+    """run_suite("fetch", planner="mega") at its default settings on 32
+    problems drawn as the `fetch_prim_suite` cell draws them (its scene box,
+    one goal in contact): the 32x retry runs without the node-room guard
+    refusing it, every answer passes the plain reference's float64 check at
+    the cell's limits, and under a recorder the phase-clock counts equal
+    `fkcc_cuda.phase_split` of the same launches' work, the FK + collision
+    pass and the two scans each within the whole."""
+    from planbench import generator, harness
+    from planbench.reference import check, geometry
+    from planbench.reference import robot as ref_robot
+    from vamp_mvt_tpu_torch.bench import mbm
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
+
+    cell = harness.Cell("fetch_prim_suite")
+    robot = ref_robot.load("fetch")
+    pool = generator.pool(robot, dict(cell.traffic, problems=32, pool=1), cell.config,
+                          2**31 + 19, cuda)[0]
+    data, probs = generator.as_suite(pool, "fetch")
+    works = []
+    plan = rrtc_mega_cuda.plan
+
+    def keep_work(*a, **kw):
+        out = plan(*a, **kw)
+        works.append(out[2])
+        return out
+
+    monkeypatch.setattr(rrtc_mega_cuda, "plan", keep_work)
+    tm = {}
+    res = mbm.run_suite("fetch", data=data, batch_size=32, planner="mega", warmup=False,
+                        timings=tm, device=cuda)
+    assert tm["retry_live"] >= 1 and len(works) == 2  # the goal in contact is retried
+    suite = harness.load_module(harness.PLANBENCH / "drivers" / "suite.py", "suite_driver")
+    dec = check.Decisions(robot.dimension)
+    solved = np.asarray(res.plan.solved) & res.valid
+    for r, p in enumerate(probs):
+        suite.add_answer(dec, r, p, res, r, res.valid[r], solved[r], robot.resolution)
+    verdict = check.judge(robot, dec, ("obstacles", [geometry.obstacles(p) for p in probs]), cuda)
+    limits = cell.limits["limits"]
+    assert solved.sum() >= 16 and (~res.valid).sum() == 1
+    assert verdict["verdict_gap_m2"] <= limits["verdict_gap_m2"], verdict
+    assert verdict["cost_rel_gap"] <= limits["cost_rel_gap"], verdict
+    cyc = {n: 0 for n in rrtc_mega_cuda.PHASES}
+    for w in works:
+        for n, c in fkcc_cuda.phase_split(w, rrtc_mega_cuda.WORK,
+                                          rrtc_mega_cuda.PHASES)["cycles"].items():
+            cyc[n] += c
+    assert tm["planner_cyc"] == sum(cyc.values()) > 0
+    assert tm["planner_fkcc_cyc"] == cyc["fkcc"] <= tm["planner_cyc"]
+    assert tm["planner_nn_cyc"] == cyc["nn_a"] + cyc["nn_b"] <= tm["planner_cyc"]
+    print(f"fetch: {int(solved.sum())} of {int(res.valid.sum())} valid solved; phases "
+          + json.dumps({n: c / sum(cyc.values()) for n, c in cyc.items()}))

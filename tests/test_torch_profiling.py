@@ -243,6 +243,38 @@ def test_slowest_iter_us_reads_the_slowest_block():
     assert float(rrtc_mega.slowest_iter_us(work[:1], iters[:1])) == pytest.approx(23.0)
 
 
+def test_count_blocks_sums_the_phase_clocks(monkeypatch):
+    """Under a recorder, a planner launch's counts: its blocks' time and
+    slots from the %globaltimer columns, and from rank 0's phase clocks,
+    planner_cyc (every phase), planner_fkcc_cyc (the FK + collision pass)
+    and planner_nn_cyc (both nearest-neighbour scans), equal to
+    fkcc_cuda.phase_split of the same work; a second launch adds to them."""
+    from vamp_mvt_tpu_torch.ops.kernels import rrtc_mega_cuda
+    from vamp_mvt_tpu_torch.planning import rrtc_mega
+
+    monkeypatch.setattr(rrtc_mega, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(rrtc_mega_cuda, "LAST_LAUNCH", {"blocks_per_sm": 1})
+    first = rrtc_mega_cuda.WORK
+    t = first + len(rrtc_mega_cuda.PHASES)
+    work = torch.zeros((3, rrtc_mega_cuda.WORK_COLS), dtype=torch.int64)
+    work[:, first:t] = torch.arange(21).reshape(3, 7) * 1000 + 7
+    work[:, t] = torch.tensor([10, 20, 30])
+    work[:, t + 1] = torch.tensor([110, 70, 90])
+    work[:, t + 2] = torch.tensor([100, 50, 60])
+    split = fkcc_cuda.phase_split(work, first, rrtc_mega_cuda.PHASES)["cycles"]
+    into = {}
+    with profiling.recording(into):
+        rrtc_mega._count_blocks(work)
+        rrtc_mega._count_blocks(work[:1])
+    once = {n: float(work[0, first + i]) for i, n in enumerate(rrtc_mega_cuda.PHASES)}
+    assert into["planner_cyc"] == sum(split.values()) + sum(once.values())
+    assert into["planner_fkcc_cyc"] == split["fkcc"] + once["fkcc"]
+    assert into["planner_nn_cyc"] == (split["nn_a"] + split["nn_b"]
+                                      + once["nn_a"] + once["nn_b"])
+    assert into["planner_block_ns"] == 210 + 100
+    assert into["planner_slot_ns"] == (110 - 10) * 132 + (110 - 10) * 132
+
+
 def test_run_suite_pointcloud_spans_add_up(monkeypatch):
     """The five pc_* spans inside pointcloud on two CPU problems (the kernel
     form, built on the card's path only, built here too) cover the phase."""
@@ -303,7 +335,9 @@ class _Run:
 
 
 @pytest.mark.parametrize("name", sorted(NEW_READERS) + ["planner_fill_pct.suite",
-                                                         "retry_cluster_k.suite"])
+                                                         "retry_cluster_k.suite",
+                                                         "planner_fkcc_pct.suite",
+                                                         "planner_nn_pct.suite"])
 def test_span_readers_read_the_runner_keys_or_nothing(name):
     """The benchmark's readers of these spans and counts: the mean over the
     window's items of the key they read (ms for a span), and nothing from a
@@ -320,6 +354,16 @@ def test_span_readers_read_the_runner_keys_or_nothing(name):
         tms = [{"retry_live": 49.0, "retry_blocks": 98.0},
                {"retry_live": 1.0, "retry_blocks": 8.0}, {"retry_live": 0.0}]
         assert read(_Run([{"timings": t} for t in tms])) == pytest.approx(106.0 / 50.0)
+        return
+    if name in ("planner_fkcc_pct.suite", "planner_nn_pct.suite"):
+        # a phase's cycles over all phases' cycles, summed over the window
+        tms = [{"planner_cyc": 100.0, "planner_fkcc_cyc": 30.0, "planner_nn_cyc": 60.0},
+               {"planner_cyc": 300.0, "planner_fkcc_cyc": 90.0, "planner_nn_cyc": 150.0},
+               {"plan": 1.0}]
+        want = 30.0 if name == "planner_fkcc_pct.suite" else 52.5
+        assert read(_Run([{"timings": t} for t in tms])) == pytest.approx(want)
+        assert read(_Run([{"timings": {"planner_cyc": 0.0, "planner_fkcc_cyc": 0.0,
+                                       "planner_nn_cyc": 0.0}}])) is None
         return
     key, mean = NEW_READERS[name]
     scale = 1e-3 if name.endswith(".cloud") else 1.0

@@ -5,7 +5,11 @@
 W = 4 on Fetch); the JAX side's are captured at its planner call.  Then
 `run_suite("ur5", planner="xla", device="cpu")` against the JAX package's on
 three seeded MBM-shaped scenes: the same valid and solved flags and
-iterations, planner costs and simplified costs within rtol 1e-5.
+iterations, planner costs and simplified costs within rtol 1e-5.  And
+`run_suite("fetch", planner="xla", device="cpu")` on problems drawn as the
+benchmark's `fetch_prim_suite` cell draws them, judged by the benchmark's
+plain float64 reference (`planbench/reference/check.py`) as that cell's
+runs are, and the same answers with a vertex in self-contact planted not.
 
 The JAX package memoizes robot tables and compiled planners by `id(spec)`
 without keeping the spec alive, so a spec freed earlier in the same process
@@ -17,6 +21,7 @@ it in the worker.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -30,6 +35,9 @@ from vamp_mvt_tpu.planning import rrtc as jrrtc
 from vamp_mvt_tpu.planning import rrtc_mega as jrrtc_mega
 from vamp_mvt_tpu.planning import simplify as jsimplify
 from vamp_mvt_tpu.planning import simplify_mega as jsimplify_mega
+from planbench import faults, generator, harness
+from planbench.reference import check, geometry
+from planbench.reference import robot as ref_robot
 from vamp_mvt_tpu_torch.bench import mbm, scenes
 from vamp_mvt_tpu_torch.ops.kernels import fkcc_cuda
 from vamp_mvt_tpu_torch.planning import rrtc, simplify
@@ -147,3 +155,76 @@ def test_seeded_scenes_and_first_two_valid():
     assert torch.equal(gl, torch.stack([q[0, 3], q[2, 2]])[:, None])
     assert mk.shape == (2, 1) and bool(mk.all())
     assert scenes.first_two_valid(q, ok)[0] == [0, 2, 3, 4]
+
+
+# Limits of the reference check, as the cell's (planbench/cells/
+# fetch_prim_suite.json): a state the port calls free may read below zero
+# in float64 only by float32 rounding of FK and distances near contact
+# (~1e-9 m^2 on the card), far under 1e-5, which bfloat16 FK exceeds; a
+# reported cost is a float32 sum of at most 96 segment lengths, relative
+# error ~1e-7, far under 1e-4, which a bfloat16 sum exceeds.
+VERDICT_GAP_M2 = 1e-5
+COST_REL_GAP = 1e-4
+
+
+@pytest.fixture(scope="module")
+def fetch_suite():
+    """The first 4 problems drawn as the `fetch_prim_suite` cell draws them
+    (its configuration's scene box; no goal in contact), planned by
+    run_suite("fetch", planner="xla") on the CPU at a cut budget (256
+    samples, K = 8, C = 4: the plain FK over 8 joints, 111 spheres and
+    2,586 pairs costs ~0.15 s a lockstep step a problem here) and without
+    the straggler retry (32x the budget at 16,384 nodes, many minutes on
+    the CPU), so a problem the first pass leaves unsolved stays unsolved
+    and is judged on its validity verdict alone; the simplifier's job lists
+    are cut too (a candidate past them is never taken, so the cut leaves
+    fewer shortcuts, never an unchecked one)."""
+    cell = harness.Cell("fetch_prim_suite")
+    robot = ref_robot.load("fetch")
+    pool = generator.pool(robot, dict(cell.traffic, problems=4, pool=1, invalid=0),
+                          cell.config, 2**31 + 29, "cpu")[0]
+    data, probs = generator.as_suite(pool, "fetch")
+    s = dataclasses.replace(mbm.default_settings("fetch", "xla"), max_iterations=256,
+                            samples_per_step=8, connect_segments=4)
+    simp = simplify.SimplifySettings(pair_cap_first=64, pair_cap_rest=32,
+                                     shortcut_jobs_first=1024, shortcut_jobs_rest=512,
+                                     bspline_jobs=512)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mbm, "_lockstep_solver", lambda plan_fn, *a, **kw: plan_fn)
+        res = mbm.run_suite("fetch", data=data, planner="xla", batch_size=len(probs),
+                            warmup=False, settings=s, simp_settings=simp, device="cpu")
+    return robot, res, probs
+
+
+def _judge(robot, res, plan, probs):
+    """Every validity verdict, every state of each returned path (`plan`'s
+    and the simplified one, joined to the problem's endpoints) and each
+    path's cost, by the plain reference in float64, as the cell's runs are
+    judged (`drivers/suite.py::add_answer`)."""
+    suite = harness.load_module(harness.PLANBENCH / "drivers" / "suite.py", "suite_driver")
+    answer = types.SimpleNamespace(plan=plan, simplified=res.simplified)
+    dec = check.Decisions(robot.dimension)
+    for r, p in enumerate(probs):
+        suite.add_answer(dec, r, p, answer, r, res.valid[r], res.valid[r] and plan.solved[r],
+                         robot.resolution)
+    return check.judge(robot, dec, ("obstacles", [geometry.obstacles(p) for p in probs]), "cpu")
+
+
+@pytest.mark.parametrize("fault", [None, "altered_vertex"])
+def test_run_suite_fetch_against_the_reference(fetch_suite, fault):
+    """The port's Fetch suite answers pass the reference's check; with each
+    planned path's first vertex replaced by a Fetch configuration in
+    self-contact (the fault `faults.planted` plants where the runner
+    gathers the planner's result) they fail it."""
+    robot, res, probs = fetch_suite
+    solved = np.asarray(res.plan.solved)
+    assert bool(res.valid.all()) and solved.any()
+    assert int(np.max(res.plan.iterations)) > 0 and int(np.max(res.plan.path_length)) > 2
+    plan = res.plan if fault is None else faults.FAULTS[fault](robot)(res.plan)
+    v = _judge(robot, res, plan, probs)
+    assert v["problems_classified"] == len(probs) and v["wrong_valid"] == 0
+    if fault is None:
+        assert v["verdict_gap_m2"] <= VERDICT_GAP_M2, v
+        assert v["cost_rel_gap"] <= COST_REL_GAP, v
+    else:
+        assert v["verdict_gap_m2"] > VERDICT_GAP_M2 and v["wrong_states"] >= solved.sum(), v

@@ -577,9 +577,11 @@ def run_suite(
     batch_to_device inside it, validity, warmup, plan, retry, simplify,
     gather; the log of them under "spans"), and the counts: retry_live (rows
     the retry plans with their own goals), and on the mega path
-    planner_block_ns, planner_slot_ns and, for the retry launch,
-    retry_iter_us and retry_blocks, its blocks (`rrtc_mega.plan_batch_mega`:
-    rows x cluster size).  Runs on `device` (default: the GPU).
+    planner_block_ns, planner_slot_ns, the planner's phase clocks
+    planner_cyc, planner_fkcc_cyc and planner_nn_cyc (every launch;
+    `rrtc_mega._count_blocks`) and, for the retry launch, retry_iter_us and
+    retry_blocks, its blocks (`rrtc_mega.plan_batch_mega`: rows x cluster
+    size).  Runs on `device` (default: the GPU).
     """
     dev = resolve_device(device)
     spec = registry.load(robot)

@@ -152,10 +152,11 @@ def plan_batch_mega(
     GPU).  `budget` replaces settings.max_iterations (the sample budget);
     `shape` overrides the kernel's launch shape and (T, G, k) its cluster
     size (rrtc_mega_cuda.plan).
-    Under a runner's recorder that counts, the launch's block times are
-    counted (`_count_blocks`), with `iter_count` its slowest block's us an
-    iteration under that name (`slowest_iter_us`), and with `block_count`
-    its blocks (problems x cluster size) under that name."""
+    Under a runner's recorder that counts, the launch's block times and
+    phase clocks are counted (`_count_blocks`), with `iter_count` its
+    slowest block's us an iteration under that name (`slowest_iter_us`),
+    and with `block_count` its blocks (problems x cluster size) under that
+    name."""
     _check_settings(settings)
     _kernel_config(spec, settings, goals.shape[1])
     dev = resolve_device(device)
@@ -195,12 +196,20 @@ def _count_blocks(work) -> None:
     planner_block_ns, the blocks' time (exit - entry of every block of every
     problem's cluster, summed), and planner_slot_ns, the launch's span (last
     exit - first entry) times the blocks the card holds at once (SMs x
-    blocks an SM), so that their ratio is how full the card was."""
-    t = rrtc_mega_cuda.WORK + len(rrtc_mega_cuda.PHASES)
+    blocks an SM), so that their ratio is how full the card was; and from
+    rank 0's phase clocks (`rrtc_mega_cuda.PHASES`, clock64 cycles) summed
+    over the problems: planner_cyc, every phase, planner_fkcc_cyc, the FK +
+    collision pass, and planner_nn_cyc, the two nearest-neighbour scans."""
+    ph = rrtc_mega_cuda.PHASES
+    t = rrtc_mega_cuda.WORK + len(ph)
     enter, leave = work[:, t], work[:, t + 1]
     profiling.count("planner_block_ns", work[:, t + 2].sum())
     slots = _sm_count(work.device) * rrtc_mega_cuda.LAST_LAUNCH["blocks_per_sm"]
     profiling.count("planner_slot_ns", (leave.max() - enter.min()) * slots)
+    cyc = work[:, rrtc_mega_cuda.WORK:t].sum(0)
+    profiling.count("planner_cyc", cyc.sum())
+    profiling.count("planner_fkcc_cyc", cyc[ph.index("fkcc")])
+    profiling.count("planner_nn_cyc", cyc[ph.index("nn_a")] + cyc[ph.index("nn_b")])
 
 
 def slowest_iter_us(work: torch.Tensor, iterations: torch.Tensor) -> torch.Tensor:
